@@ -1,0 +1,73 @@
+"""Top-level objective: reprojection + smoothness.
+
+Counterpart of unsupervised_pseuso_lidar_tpu/losses/total.py
+(normalize_depth :22, total_loss :53). Only mode='min' is ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth
+from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
+    min_reprojection_loss,
+)
+from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
+
+
+def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
+    """Per-image inverse-depth mean normalization: depth · mean_i(1/depth).
+    A uniform inverse-depth scaling leaves the result unchanged, which
+    removes the shrinking-depth runaway from the warp."""
+    inv = 1.0 / torch.clamp(depth, min=1e-7)
+    m = inv.mean(dim=tuple(range(1, depth.ndim)), keepdim=True)
+    return depth * m
+
+
+def total_loss(
+    tgt: torch.Tensor,
+    refs: Sequence[torch.Tensor],
+    disparities: Sequence[Sequence[torch.Tensor]],
+    poses: torch.Tensor,
+    intrinsics: torch.Tensor,
+    mode: str = "mean",
+    smooth_decay: float = 2.3,
+    smooth_weight: float = 1.0,
+    smooth_on: str = "depth",
+    warp_impl: str = "gather",
+    depth_norm: bool = False,
+    ident_scale: float = 1.0,
+    no_ssim: bool = False,
+    min_bidirectional: bool = True,
+):
+    """(reprojection_loss, smooth_weight · smoothness_loss).
+
+    Args:
+      tgt, refs: [B, 3, H, W] target and the two reference frames.
+      disparities: [disps_of_tgt, disps_of_ref0], each a list over scales
+        of [B, 1, h, w] network outputs.
+      poses: [B, 2, 6]; intrinsics: [B, 3, 3] or [3, 3].
+      smooth_on: 'depth' (the smoothed maps are the — normalized, with
+        depth_norm — target depths) or 'disp' (the raw disparities).
+    """
+    if mode != "min":
+        raise NotImplementedError(
+            f"loss mode {mode!r} is not ported yet (only 'min')"
+        )
+    depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
+    if depth_norm:
+        depths = [[normalize_depth(d) for d in frame] for frame in depths]
+    loss_reproj = min_reprojection_loss(
+        tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
+        ident_scale=ident_scale, no_ssim=no_ssim,
+        depths_ref0=depths[1] if min_bidirectional else None,
+    )
+    if smooth_on == "depth":
+        loss_smooth = smooth_loss(depths[0], decay=smooth_decay)
+    elif smooth_on == "disp":
+        loss_smooth = smooth_loss(disparities[0], decay=smooth_decay)
+    else:
+        raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
+    return loss_reproj, smooth_weight * loss_smooth
