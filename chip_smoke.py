@@ -6,11 +6,17 @@ Builds the port's CUDA kernels from the sources in this checkout (into
 build/torch_ext/), holds each kernel against its plain PyTorch version at
 the shapes of the production configuration (configs/tpu_v5e.yaml:
 DispResNet-18 + PoseNet, 640x192, batch 12, bf16 models, fp32 loss),
-then drives the port's two entry points with seeded random weights:
+then drives the port's entry points with seeded random weights:
 
   serve       DepthToPointCloudPipeline.run over 20 synthetic frames
   validation  3 steps of the eval step (make_eval_step), whose photometric
               objective launches kernel A once and kernel B twice a step
+  train       Trainer.run_epoch over 3 steps (after 1 warm-up step), each
+              launching A and its grid gradient A' once, B twice and the
+              SSIM backward C once
+
+The kernel phases hold A, A' (kernel_a_bwd), B and C (kernel_c) against
+their plain versions on the main path's inputs.
 
 Every phase prints one JSON line; every check that fails raises, and the
 script exits non-zero. Before the last line it prints the per-kernel
@@ -44,11 +50,17 @@ from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
     disp_to_depth,
     warp_coords,
 )
-from unsupervised_pseuso_lidar_tpu_torch.losses.total import normalize_depth
+from unsupervised_pseuso_lidar_tpu_torch.losses.total import normalize_depth, total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import build, kernels
-from unsupervised_pseuso_lidar_tpu_torch.ops.resample import grid_sample
-from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import photometric_map
+from unsupervised_pseuso_lidar_tpu_torch.ops.resample import (
+    grid_sample,
+    grid_sample_grad_grid,
+)
+from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
+    photometric_map,
+    photometric_map_bwd,
+)
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
     DepthToPointCloudPipeline,
     depth_fn_from_model,
@@ -57,7 +69,7 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
     PseudoLiDAR,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
-from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_eval_step
+from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer, make_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     normalize_image,
 )
@@ -74,10 +86,22 @@ FP32_FLOPS_PER_S = 67e12
 # clamp and blend for B)
 WARP_OPS_PER_PIXEL = 45
 SSIM_OPS_PER_PIXEL = 62
+# A': coordinates and weights, then per channel 4 tap differences, 4
+# products, 2 sums and the contraction with g, and the two scales; C: the
+# five moments from 9 taps (27 products, 15 row and 5 column means), the
+# SSIM terms and g_a..g_d (4 divisions), two plane products, the W and H
+# adjoints of 4 planes, and the output combination with the L1 term
+WARP_BWD_OPS_PER_PIXEL = 65
+SSIM_BWD_OPS_PER_PIXEL = 200
 WARP_TOL = 1e-5
 SSIM_TOL = 2e-5
+# the backward kernels vs their plain versions, relative to the largest
+# gradient entry (dx of the SSIM grows as 1/(c·d) in flat windows)
+BWD_RTOL = 1e-5
 LIBRARY_TOL = 1e-4
 LOSS_RTOL = 1e-4
+GRAD_REL_L2 = 1e-4
+TRAIN_STEPS = 3
 # pseudo-LiDAR on the card vs the CPU: points in meters (fp32, depths up
 # to 100 m), and the share of pixels whose crop decision may flip at the
 # crop's edges through rounding
@@ -121,6 +145,11 @@ def max_err(a, b):
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
+
+
+def rel_l2(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
 
 
 def bound(nbytes, ops):
@@ -322,7 +351,8 @@ def main(device="cuda:0"):
     steps = len(losses)
     check(np.isfinite(losses).all(), f"non-finite validation loss {losses}")
     check(depth_pred.shape == (batch_size, height, width), "depth shape")
-    check(launches == {"warp_bilinear_fwd": steps, "ssim_fwd": 2 * steps},
+    check(launches == {"warp_bilinear_fwd": steps, "warp_bilinear_bwd": 0,
+                       "ssim_fwd": 2 * steps, "ssim_bwd": 0},
           f"main path launches {launches} for {steps} steps")
     # the loss on the card (kernels) vs the same fp32 tensors on the CPU
     # (plain versions)
@@ -335,12 +365,161 @@ def main(device="cuda:0"):
           "losses": losses, "launches": launches, "loss_cuda": on_gpu,
           "loss_cpu_plain": on_cpu, "rel_err": rel})
 
-    warp_rec["launches"] = launches["warp_bilinear_fwd"]
-    ssim_rec["launches"] = launches["ssim_fwd"]
-    emit({"kernels": [warp_rec, ssim_rec]})
+    # 7. kernel A' vs its plain version on the path's coords and the
+    # random ones, with a random cotangent
+    g_warp = torch.randn(src.shape, generator=gpu_gen, device=device)
+    warp_bwd_err = 0.0
+    for grid in (coords, random_coords):
+        ref = grid_sample_grad_grid(src, grid, g_warp)
+        err = max_err(kernels.warp_bilinear_bwd_grid(src, grid, g_warp), ref)
+        torch.cuda.synchronize()
+        check(err <= BWD_RTOL * float(ref.abs().max()),
+              f"kernel A' vs plain: {err} > {BWD_RTOL} x {float(ref.abs().max())}")
+        warp_bwd_err = max(warp_bwd_err, err)
+    lib_grid = coords.clone().requires_grad_()
+    lib_out = F.grid_sample(src, lib_grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+    warp_bwd_bound = bound(pixels * (8 + 12 + 12 + 8), pixels * WARP_BWD_OPS_PER_PIXEL)
+    warp_bwd_rec = {
+        "name": "warp_bilinear_bwd", "route": "cuda",
+        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/warp_bilinear.cu",
+        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535 "
+                    "(with_taps=True, _fwd :551 + _bwd :569)",
+        "max_abs_err": warp_bwd_err,
+        "ms": time_ms(lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
+        "plain_ms": time_ms(lambda: grid_sample_grad_grid(src, coords, g_warp)),
+        "bound_ms": warp_bwd_bound[0], "bound_by": warp_bwd_bound[1],
+        # the grid-only gradient of the library's sampler
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_grid, g_warp, retain_graph=True)),
+    }
+    emit({"phase": "kernel_a_bwd", "shape": list(src.shape),
+          **{k: warp_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "library_ms")}})
+
+    # 8. kernel C vs its plain version on the warped stack (blend 0.85, the
+    # main path's setting), dx only (the main path: the target is data) and
+    # (dx, dy)
+    g_ssim = torch.randn(warped.shape, generator=gpu_gen, device=device)
+    ssim_bwd_err = 0.0
+    for need_dy in (False, True):
+        got = kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, need_dy)
+        ref = photometric_map_bwd(warped, target, g_ssim, 0.85, True, need_dy)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if b is None:
+                check(a is None, "kernel C wrote a gradient it was not asked for")
+                continue
+            err = max_err(a, b)
+            check(err <= BWD_RTOL * float(b.abs().max()),
+                  f"kernel C vs plain: {err} > {BWD_RTOL} x {float(b.abs().max())}")
+            ssim_bwd_err = max(ssim_bwd_err, err)
+    ssim_bwd_bound = bound(warped.numel() * 16, warped.numel() * SSIM_BWD_OPS_PER_PIXEL)
+    ssim_bwd_rec = {
+        "name": "ssim_bwd", "route": "cuda",
+        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/ssim_bwd.cu",
+        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:235",
+        "max_abs_err": ssim_bwd_err,
+        "ms": time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
+        "plain_ms": time_ms(lambda: photometric_map_bwd(warped, target, g_ssim, 0.85,
+                                                        True, False)),
+        "bound_ms": ssim_bwd_bound[0], "bound_by": ssim_bwd_bound[1],
+        "library_ms": None,  # no single PyTorch call computes it
+    }
+    emit({"phase": "kernel_c", "shape": list(warped.shape),
+          "ms_dx_dy": time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85)),
+          **{k: ssim_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms")}})
+
+    # 9. train: the main path of this slice, Trainer.run_epoch at the
+    # config's full width and batch
+    train_launches = train_phase(config, device, batch_size, height, width)
+
+    warp_rec["launches"] = train_launches["warp_bilinear_fwd"]
+    warp_bwd_rec["launches"] = train_launches["warp_bilinear_bwd"]
+    ssim_rec["launches"] = train_launches["ssim_fwd"]
+    ssim_bwd_rec["launches"] = train_launches["ssim_bwd"]
+    emit({"kernels": [warp_rec, warp_bwd_rec, ssim_rec, ssim_bwd_rec]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def train_phase(config, device, batch_size, height, width):
+    """Trainer.run_epoch over 1 warm-up and TRAIN_STEPS steps; prints the
+    phase's record, then checks it, and returns the kernels' launches over
+    those steps."""
+    data = SyntheticTripletDataset(1 + TRAIN_STEPS, batch_size, height, width,
+                                   seed=SEED, uint8_images=True)
+    batches = list(data.batches())
+    losses = []
+    config.action.log_freq = 1  # one loss per step (a host sync per step)
+    trainer = Trainer(config, data, log_fn=lambda m, step: losses.append(m["loss"]),
+                      device=device)
+    params = dict(trainer.state.depth_model.named_parameters(prefix="depth"))
+    params.update(trainer.state.pose_model.named_parameters(prefix="pose"))
+    trainer.run_epoch(batches[:1])  # warm-up (cuDNN algorithm choice)
+    torch.cuda.synchronize()
+    before = {k: p.detach().clone() for k, p in params.items()}
+    losses.clear()
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = trainer.run_epoch(batches[1:])
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    event_ms = start.elapsed_time(end) / TRAIN_STEPS
+    launches = dict(kernels.launch_counts)
+    with_grad = {k for k, p in params.items()
+                 if p.grad is not None and bool((p.grad != 0).any())}
+    stale = sorted(k for k in with_grad if torch.equal(before[k], params[k]))
+    unchanged = sorted(k for k in params if torch.equal(before[k], params[k]))
+    finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+
+    # the loss-side gradients: one step's fp32 loss inputs as leaves, the
+    # training objective on the card (kernels) and on the CPU (plain
+    # versions)
+    act = config.action
+    inputs = trainer.eval_step.loss_inputs(batches[1])
+
+    def loss_grads(inp):
+        leaves = [d.clone().requires_grad_() for d in
+                  (inp["disparities"][0][0], inp["disparities"][1][0], inp["poses"])]
+        reproj, smooth = total_loss(
+            inp["tgt"], inp["refs"], [[leaves[0]], [leaves[1]]], leaves[2],
+            inp["intrinsics"], mode=act.loss_mode, smooth_weight=act.smooth_weight,
+            smooth_on=act.smooth_on, depth_norm=act.depth_norm,
+            min_bidirectional=act.min_bidirectional,
+        )
+        return torch.autograd.grad(reproj + smooth, leaves)
+
+    on_gpu = loss_grads(inputs)
+    on_cpu = loss_grads(_to_cpu(inputs))
+    grad_rel = {name: rel_l2(a.cpu(), b) for name, a, b in
+                zip(("disp_tgt", "disp_ref0", "poses"), on_gpu, on_cpu)}
+    emit({
+        "phase": "train", "batch": batch_size, "height": height, "width": width,
+        "steps": TRAIN_STEPS, "precision": act.precision,
+        "ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
+        "losses": losses, "final_metrics": metrics, "launches": launches,
+        "parameters": len(params), "parameters_unchanged": len(unchanged),
+        "unchanged": unchanged,
+        "loss_grad_rel_l2_cuda_vs_cpu": grad_rel,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    expected = {"warp_bilinear_fwd": TRAIN_STEPS, "warp_bilinear_bwd": TRAIN_STEPS,
+                "ssim_fwd": 2 * TRAIN_STEPS, "ssim_bwd": TRAIN_STEPS}
+    check(launches == expected, f"train launches {launches}, expected {expected}")
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train losses {losses}")
+    check(finite, "a parameter is not finite after training")
+    check(not stale, f"parameters with a gradient did not change: {stale}")
+    check(max(grad_rel.values()) <= GRAD_REL_L2,
+          f"loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}")
+    return launches
 
 
 def _to_cpu(tree):

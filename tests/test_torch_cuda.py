@@ -7,8 +7,9 @@ without the JAX package's conftest (the card's machine has no jax):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 chip_smoke.py checks the kernels at the production shapes; these cover
-the shapes it does not: KITTI-native 375x1242, partial tiles, 1-pixel
-dimensions, coordinates far outside the frame, and the wrappers' checks.
+the shapes it does not: KITTI-native 375x1242, partial tiles, 1- and
+2-pixel dimensions, coordinates far outside the frame, the autograd
+Functions, and the wrappers' checks.
 """
 
 import numpy as np
@@ -17,17 +18,24 @@ import torch
 import torch.nn.functional as F
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
-from unsupervised_pseuso_lidar_tpu_torch.ops.resample import grid_sample
+from unsupervised_pseuso_lidar_tpu_torch.ops.resample import (
+    grid_sample,
+    grid_sample_grad_grid,
+)
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
+    photometric_map_bwd,
     ssim_distance_fused,
 )
 
 pytestmark = pytest.mark.cuda
 # kernel vs plain: the same fp32 ops in the same order (--fmad=false), so
-# agreement is expected to be exact; the bounds are chip_smoke's
+# agreement is expected to be exact; the bounds are chip_smoke's. The
+# backward bounds are relative to the gradient's largest entry: dx of the
+# SSIM grows as 1/(c·d) in flat windows, so no absolute bound holds
 WARP_TOL = 1e-5
 SSIM_TOL = 2e-5
+BWD_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -84,6 +92,83 @@ def test_ssim_kernel_matches_plain(cuda, shape, weight):
     assert kernels.launch_counts["ssim_fwd"] == before + 1
     err = float((got - photometric_map(x, y, weight)).abs().max())
     assert err <= SSIM_TOL, err
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 375, 1242), (3, 192, 640), (1, 7, 5), (2, 1, 33), (1, 2, 1), (1, 1, 1)]
+)
+def test_warp_bwd_kernel_matches_plain(cuda, shape):
+    jobs, height, width = shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    img = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    grid = _grid(jobs, height, width, gen, cuda)
+    g = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    before = kernels.launch_counts["warp_bilinear_bwd"]
+    got = kernels.warp_bilinear_bwd_grid(img, grid, g)
+    assert kernels.launch_counts["warp_bilinear_bwd"] == before + 1
+    ref = grid_sample_grad_grid(img, grid, g)
+    assert got.shape == grid.shape
+    err = float((got - ref).abs().max())
+    assert err <= BWD_RTOL * max(float(ref.abs().max()), 1e-30), err
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 3, 375, 1242), (1, 3, 33, 65), (1, 2, 1, 37), (1, 1, 2, 5),
+              (1, 2, 34, 2), (2, 1, 1, 1)]
+)
+@pytest.mark.parametrize("weight", [1.0, 0.85])
+@pytest.mark.parametrize("need_dy", [False, True])
+def test_ssim_bwd_kernel_matches_plain(cuda, shape, weight, need_dy):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.rand(shape, generator=gen, device=cuda)
+    # y equal to x in places: flat windows and exact ties occur
+    y = torch.where(torch.rand(shape, generator=gen, device=cuda) < 0.5, x,
+                    torch.rand(shape, generator=gen, device=cuda))
+    g = torch.randn(shape, generator=gen, device=cuda)
+    before = kernels.launch_counts["ssim_bwd"]
+    dx, dy = kernels.ssim_bwd(x, y, g, weight, True, need_dy)
+    assert kernels.launch_counts["ssim_bwd"] == before + 1
+    ref_dx, ref_dy = photometric_map_bwd(x, y, g, weight, True, need_dy)
+    assert (dy is None) == (not need_dy)
+    for got, ref in ((dx, ref_dx), (dy, ref_dy)):
+        if ref is not None:
+            err = float((got - ref).abs().max())
+            assert err <= BWD_RTOL * max(float(ref.abs().max()), 1e-30), err
+
+
+def test_autograd_functions_launch_the_backward_kernels(cuda):
+    # the warped stack's pattern: grid and x require grad, img and y are
+    # data; one launch of each kernel, and the gradients of the plain path
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    img = torch.rand(2, 3, 40, 70, generator=gen, device=cuda)
+    target = torch.rand(2, 3, 40, 70, generator=gen, device=cuda)
+    grid = _grid(2, 40, 70, gen, cuda, spread=0.9).requires_grad_()
+    kernels.reset_launch_counts()
+    loss = kernels.photometric(kernels.warp_bilinear(img, grid), target, 0.85).mean()
+    (d_grid,) = torch.autograd.grad(loss, grid)
+    assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 1)
+    warped = grid_sample(img, grid.detach())
+    g = torch.full_like(warped, 1.0 / warped.numel())
+    dx, _ = photometric_map_bwd(warped, target, g, 0.85, True, False)
+    ref = grid_sample_grad_grid(img, grid.detach(), dx)
+    err = float((d_grid - ref).abs().max())
+    assert err <= BWD_RTOL * float(ref.abs().max()), err
+
+
+def test_backward_wrappers_refuse_img_grad_and_bf16(cuda):
+    img = torch.rand(1, 3, 8, 8, device=cuda)
+    grid = torch.zeros(1, 8, 8, 2, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="gradient"):
+        kernels.warp_bilinear(img.clone().requires_grad_(), grid)
+    g = torch.rand(1, 3, 8, 8, device=cuda)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.warp_bilinear_bwd_grid(img, grid.detach(), g.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        kernels.ssim_bwd(img.bfloat16(), img.bfloat16(), g.bfloat16())
+    with pytest.raises(ValueError, match="float32"):
+        kernels.ssim_bwd(img, img, g.bfloat16())
+    assert kernels.launch_counts == before
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -75,17 +75,28 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         DepthToPointCloudPipeline,
     )
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
-    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_eval_step
+    from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+        Trainer,
+        create_train_state,
+        make_eval_step,
+        make_train_step,
+    )
 
     depth = build_model("DispResNet", device="cpu")
     pose = build_model("PoseNet", device="cpu")
     projector = PseudoLiDAR.__new__(PseudoLiDAR)  # no calib files needed
+    config = Config()
+    state = create_train_state(config, torch.Generator().manual_seed(0), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (
         lambda: build_model("PoseNet"),
         lambda: make_eval_step(depth, pose),
         lambda: PseudoLiDAR(str(tmp_path)),
         lambda: DepthToPointCloudPipeline(lambda img: img, projector),
+        lambda: create_train_state(config, torch.Generator().manual_seed(0)),
+        lambda: make_train_step(state),
+        lambda: Trainer(config),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -123,21 +123,38 @@ def test_wrappers_run_plain_versions_on_cpu():
     grid = torch.from_numpy(_grid(3, 8, 10, 0.2, 0.2))
     assert torch.equal(kernels.warp_bilinear_fwd(img, grid),
                        resample.grid_sample(img, grid))
+    g = img.roll(1, -1)
+    assert torch.equal(kernels.warp_bilinear_bwd_grid(img, grid, g),
+                       resample.grid_sample_grad_grid(img, grid, g))
     x, y = img, img.flip(-1).contiguous()
     for w in (1.0, 0.85):
         assert torch.equal(kernels.ssim_fwd(x, y, w),
                            ssim.photometric_map(x, y, w))
         assert torch.equal(ssim.ssim_distance_fused(x, y, w),
                            ssim.photometric_map(x, y, w))
-    assert kernels.launch_counts == {"warp_bilinear_fwd": 0, "ssim_fwd": 0}
+        for got, ref in zip(kernels.ssim_bwd(x, y, g, w),
+                            ssim.photometric_map_bwd(x, y, g, w)):
+            assert torch.equal(got, ref)
+    assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
 
 
 def test_wrappers_refuse_gradients():
+    # the raw launches build no graph, so under grad mode they refuse an
+    # input that requires grad (on the card its gradient would be lost);
+    # the differentiable warp refuses an img that requires grad, as the
+    # JAX kernel's img_is_data contract does
     img = torch.zeros(1, 3, 4, 4, requires_grad=True)
+    grid = torch.zeros(1, 4, 4, 2)
     with pytest.raises(ValueError, match="gradient"):
-        kernels.warp_bilinear_fwd(img, torch.zeros(1, 4, 4, 2))
+        kernels.warp_bilinear_fwd(img, grid)
     with pytest.raises(ValueError, match="gradient"):
         kernels.ssim_fwd(img, torch.zeros(1, 3, 4, 4))
+    with pytest.raises(ValueError, match="gradient"):
+        kernels.ssim_bwd(img, img, img)
+    with pytest.raises(ValueError, match="gradient"):
+        kernels.warp_bilinear(img, grid)
+    with torch.no_grad():
+        kernels.warp_bilinear_fwd(img, grid)
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 6, 2), (2, 1, 5, 3), (1, 3, 1, 1)])

@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from unsupervised_pseuso_lidar_tpu_torch.ops.cuda.kernels import warp_bilinear_fwd
+from unsupervised_pseuso_lidar_tpu_torch.ops.cuda.kernels import warp_bilinear
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 
 WARP_IMPLS = ("gather", "mxu", "pallas")
 
@@ -31,14 +32,21 @@ def warp_coords(
     The folded form of project(transform(backproject(...))): with
     P = K T[:3], cam = D (P[:, :3] K^-1) u_h + P[:, 3], so each job needs
     one 3x3 matrix M and one 3-vector t and the per-pixel work is an
-    affine function of the pixel grid times depth. The 3x3 products run
-    in fp32."""
+    affine function of the pixel grid times depth.
+
+    The per-job 3x3 products and the inverse run in fp64 (JAX: fp32) and
+    are rounded once to depth's dtype, and the normalization by (size - 1)
+    is a true division on every device (utils/numerics.div): so the
+    coordinates do not depend on the device's BLAS or on how it divides
+    by a scalar. The warp's gradient jumps where a sample crosses a
+    pixel, so a one-ulp difference in the coordinates would change the
+    gradient of the pixels it moves across one."""
     if intrinsics.ndim == 2:
         intrinsics = intrinsics[None]
     _, height, width = depth.shape
     dtype = depth.dtype
-    k = intrinsics.float()
-    proj = k @ transform[:, :3, :].float()  # [B,3,4]
+    k = intrinsics.double()
+    proj = k @ transform[:, :3, :].double()  # [B,3,4]
     m = (proj[:, :, :3] @ torch.linalg.inv(k)).to(dtype)  # K T[:3,:3] K^-1
     t = proj[:, :, 3].to(dtype)  # K T[:3,3]
     u = torch.arange(width, dtype=dtype, device=depth.device)[None, None, :]
@@ -55,8 +63,8 @@ def warp_coords(
     z = cam_row(2) + eps
     x = cam_row(0) / z
     y = cam_row(1) / z
-    gx = (x / (width - 1) - 0.5) * 2.0
-    gy = (y / (height - 1) - 0.5) * 2.0
+    gx = (div(x, width - 1) - 0.5) * 2.0
+    gy = (div(y, height - 1) - 0.5) * 2.0
     return torch.stack([gx, gy], dim=-1)
 
 
@@ -68,7 +76,8 @@ def sample_with_impl(
     Every `impl` the JAX package accepts ('gather', 'mxu', 'pallas') maps
     to the one exact warp: kernel A for CUDA tensors, its plain version
     for CPU tensors. The TPU's banded approximations have no counterpart
-    here."""
+    here. The gradient flows to `coords` only (kernel A′ on the card);
+    `img` is a data frame and must not require grad."""
     if impl not in WARP_IMPLS:
         raise ValueError(f"Unknown warp impl: {impl}")
-    return warp_bilinear_fwd(img.contiguous(), coords.contiguous())
+    return warp_bilinear(img.contiguous(), coords.contiguous())

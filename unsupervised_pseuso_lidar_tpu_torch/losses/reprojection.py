@@ -24,6 +24,7 @@ from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_loss
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 
 
 def _full_res_depth(depth: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -31,6 +32,17 @@ def _full_res_depth(depth: torch.Tensor, height: int, width: int) -> torch.Tenso
     if depth.ndim == 3:
         depth = depth[:, None]
     return resize_bilinear(depth, height, width)[:, 0]
+
+
+def _channel_mean(err: torch.Tensor) -> torch.Tensor:
+    """Mean over the channels of [B, C, H, W] as adds in channel order and
+    a true division: the same bits on every device (a mean kernel's order
+    and its division are the device's own), so the per-pixel minima below
+    pick the same side on the card as on the CPU."""
+    total = err[:, 0]
+    for c in range(1, err.shape[1]):
+        total = total + err[:, c]
+    return div(total, err.shape[1])
 
 
 def min_reprojection_loss(
@@ -62,8 +74,10 @@ def min_reprojection_loss(
     """
     batch, _, height, width = tgt.shape
     bidirectional = depths_ref0 is not None
-    t0 = pose_matrix(poses[:, 0])
-    t1 = pose_matrix(poses[:, 1])
+    # the per-job transforms in fp64, like the rest of warp_coords' 3x3
+    # geometry (device-independent coordinates, see warp_coords)
+    t0 = pose_matrix(poses[:, 0].double())
+    t1 = pose_matrix(poses[:, 1].double())
     if intrinsics.ndim == 2:
         intrinsics = intrinsics[None].expand(batch, 3, 3)
     srcs = [refs[0], refs[1]]
@@ -81,9 +95,9 @@ def min_reprojection_loss(
 
     # the identity error is scale-invariant: one pass over the leading 2B
     # rows of (src, target) = (refs, tgt) serves both directions
-    ident_pair = photometric_loss(
+    ident_pair = _channel_mean(photometric_loss(
         src[: 2 * batch], target[: 2 * batch], no_ssim=no_ssim, clip_loss=0.0,
-    ).mean(dim=1)
+    ))
     # +1e-5 after the scale, in fp32: ties go to the warp, and an
     # exact-zero identity pixel stays masked at any ident_scale
     ident = (
@@ -100,9 +114,9 @@ def min_reprojection_loss(
             depth_maps.append(_full_res_depth(depths_ref0[i], height, width))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled)
         warped = sample_with_impl(src, coords, impl=warp_impl)
-        err = photometric_loss(
+        err = _channel_mean(photometric_loss(
             warped, target, no_ssim=no_ssim, clip_loss=0.0
-        ).mean(dim=1)  # [jobs*B, H, W]
+        ))  # [jobs*B, H, W]
         err_f = torch.minimum(err[:batch], err[batch : 2 * batch])
         scale_loss = torch.minimum(err_f, ident).mean()
         if bidirectional:

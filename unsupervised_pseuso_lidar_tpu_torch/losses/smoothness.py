@@ -18,6 +18,12 @@ def _gradients(pred: torch.Tensor):
     return dx, dy
 
 
+def _abs(z: torch.Tensor) -> torch.Tensor:
+    """|z| with jnp.abs' gradient rule, d|z|/dz = +1 at z >= 0 (torch.abs
+    gives 0 at z == 0, which bf16 disparities hit on flat regions)."""
+    return torch.where(z >= 0, z, -z)
+
+
 def smooth_loss(
     pred_maps: Sequence[torch.Tensor] | torch.Tensor, decay: float = 2.3
 ) -> torch.Tensor:
@@ -32,8 +38,8 @@ def smooth_loss(
         dx2, dxdy = _gradients(dx)
         dydx, dy2 = _gradients(dy)
         loss = loss + weight * (
-            dx2.abs().mean() + dxdy.abs().mean() + dydx.abs().mean()
-            + dy2.abs().mean()
+            _abs(dx2).mean() + _abs(dxdy).mean() + _abs(dydx).mean()
+            + _abs(dy2).mean()
         )
         weight /= decay
     return loss

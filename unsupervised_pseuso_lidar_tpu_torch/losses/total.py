@@ -20,10 +20,16 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
 def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
     """Per-image inverse-depth mean normalization: depth · mean_i(1/depth).
     A uniform inverse-depth scaling leaves the result unchanged, which
-    removes the shrinking-depth runaway from the warp."""
+    removes the shrinking-depth runaway from the warp.
+
+    The mean accumulates in fp64 and is rounded once to depth's dtype, so
+    it does not depend on the device's summation order (the warp
+    coordinates, and the gradient's jumps at pixel crossings, follow
+    it)."""
     inv = 1.0 / torch.clamp(depth, min=1e-7)
-    m = inv.mean(dim=tuple(range(1, depth.ndim)), keepdim=True)
-    return depth * m
+    m = inv.mean(dim=tuple(range(1, depth.ndim)), keepdim=True,
+                 dtype=torch.float64)
+    return depth * m.to(depth.dtype)
 
 
 def total_loss(

@@ -13,6 +13,7 @@ import math
 from typing import List, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
@@ -29,9 +30,33 @@ NUM_CH_ENC = (64, 64, 128, 256, 512)
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's running-statistics update in train mode.
+
+    flax BatchNorm(momentum=0.9, epsilon=1e-5) normalizes a training batch
+    as torch does, but moves running_var toward the BIASED batch variance
+    E[x²] − E[x]² (fp32, clipped at 0), where torch uses the unbiased one
+    (a factor n/(n−1): 4 % at 24 values per channel). Here the running
+    statistics are updated the flax way — 0.9 · running + 0.1 · batch —
+    from the batch in fp32; eval mode is torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            decay = 1.0 - self.momentum
+            self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
+            self.running_var.copy_(decay * self.running_var + self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def _bn(channels: int) -> BatchNorm2d:
     # flax BatchNorm(momentum=0.9, epsilon=1e-5) == torch momentum 0.1
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

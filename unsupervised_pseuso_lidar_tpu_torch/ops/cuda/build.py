@@ -25,7 +25,11 @@ from typing import Dict
 SOURCE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(SOURCE_DIR)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_ext")
-SOURCES = {"warp_bilinear": "warp_bilinear.cu", "ssim": "ssim.cu"}
+SOURCES = {
+    "warp_bilinear": "warp_bilinear.cu",
+    "ssim": "ssim.cu",
+    "ssim_bwd": "ssim_bwd.cu",
+}
 # sm_90a: Hopper. --fmad=false keeps a*b+c as two roundings, like the
 # plain PyTorch versions the kernels are held against bit for bit.
 NVCC_FLAGS = [
@@ -108,8 +112,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "warp_bilinear":
         lib.warp_bilinear_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
         lib.warp_bilinear_fwd.restype = i32
+        lib.warp_bilinear_bwd_grid.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
+                                               i32, ptr]
+        lib.warp_bilinear_bwd_grid.restype = i32
     elif name == "ssim":
         lib.ssim_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32,
                                  f32, f32, f32, f32, i32, i32, ptr]
         lib.ssim_fwd.restype = i32
+    elif name == "ssim_bwd":
+        lib.ssim_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                 f32, f32, f32, f32, i32, i32, ptr]
+        lib.ssim_bwd.restype = i32
     return lib

@@ -18,11 +18,11 @@
 // Bound: bytes (8 B read + 4 B written per pixel against ~60 flops).
 //
 // Arithmetic mirrors ops/ssim.photometric_map op for op — box sums as
-// (a + b + c) / 3, horizontal first — and the file is compiled with
-// --fmad=false. PyTorch on CUDA computes `tensor / 3.0` as a multiply by
-// the fp32 reciprocal of 3, so the kernel does too: the two agree bit for
-// bit on the card. The order matters: in flat regions sigma is far below C2,
-// so the SSIM ratio amplifies any rounding difference in the moments.
+// (a + b + c) / 3, a true division as in JAX and in the plain version on
+// every device (utils/numerics.div), horizontal first — and the file is
+// compiled with --fmad=false: the two agree bit for bit. The order
+// matters: in flat regions sigma is far below C2, so the SSIM ratio
+// amplifies any rounding difference in the moments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +53,6 @@ __global__ void ssim_fwd_kernel(const float* __restrict__ xs,
   __shared__ float hyy[kTileH + 2][kTileW];
   __shared__ float hxy[kTileH + 2][kTileW];
 
-  const float third = 1.0f / 3.0f;  // see above: PyTorch's t / 3.0 on CUDA
   const int64_t plane = static_cast<int64_t>(height) * width;
   const float* xp = xs + static_cast<int64_t>(blockIdx.z) * plane;
   const float* yp = ys + static_cast<int64_t>(blockIdx.z) * plane;
@@ -81,11 +80,11 @@ __global__ void ssim_fwd_kernel(const float* __restrict__ xs,
     const int c = i - r * kTileW;
     const float xa = sx[r][c], xb = sx[r][c + 1], xc = sx[r][c + 2];
     const float ya = sy[r][c], yb = sy[r][c + 1], yc = sy[r][c + 2];
-    hx[r][c] = (xa + xb + xc) * third;
-    hy[r][c] = (ya + yb + yc) * third;
-    hxx[r][c] = (xa * xa + xb * xb + xc * xc) * third;
-    hyy[r][c] = (ya * ya + yb * yb + yc * yc) * third;
-    hxy[r][c] = (xa * ya + xb * yb + xc * yc) * third;
+    hx[r][c] = (xa + xb + xc) / 3.0f;
+    hy[r][c] = (ya + yb + yc) / 3.0f;
+    hxx[r][c] = (xa * xa + xb * xb + xc * xc) / 3.0f;
+    hyy[r][c] = (ya * ya + yb * yb + yc * yc) / 3.0f;
+    hxy[r][c] = (xa * ya + xb * yb + xc * yc) / 3.0f;
   }
   __syncthreads();
 
@@ -98,14 +97,14 @@ __global__ void ssim_fwd_kernel(const float* __restrict__ xs,
     const int r = threadIdx.y + k * kThreadsY;
     const int gy = tile_y0 + r;
     if (gy >= height) break;
-    const float mu_x = (hx[r][c] + hx[r + 1][c] + hx[r + 2][c]) * third;
-    const float mu_y = (hy[r][c] + hy[r + 1][c] + hy[r + 2][c]) * third;
+    const float mu_x = (hx[r][c] + hx[r + 1][c] + hx[r + 2][c]) / 3.0f;
+    const float mu_y = (hy[r][c] + hy[r + 1][c] + hy[r + 2][c]) / 3.0f;
     const float mu_xy = mu_x * mu_y;
     const float mu_xx = mu_x * mu_x;
     const float mu_yy = mu_y * mu_y;
-    const float sigma_x = (hxx[r][c] + hxx[r + 1][c] + hxx[r + 2][c]) * third - mu_xx;
-    const float sigma_y = (hyy[r][c] + hyy[r + 1][c] + hyy[r + 2][c]) * third - mu_yy;
-    const float sigma_xy = (hxy[r][c] + hxy[r + 1][c] + hxy[r + 2][c]) * third - mu_xy;
+    const float sigma_x = (hxx[r][c] + hxx[r + 1][c] + hxx[r + 2][c]) / 3.0f - mu_xx;
+    const float sigma_y = (hyy[r][c] + hyy[r + 1][c] + hyy[r + 2][c]) / 3.0f - mu_yy;
+    const float sigma_xy = (hxy[r][c] + hxy[r + 1][c] + hxy[r + 2][c]) / 3.0f - mu_xy;
     const float num = (2.0f * mu_xy + c1) * (2.0f * sigma_xy + c2);
     const float den = (mu_xx + mu_yy + c1) * (sigma_x + sigma_y + c2);
     const float ssim = num / den;

@@ -7,8 +7,9 @@ upsample2x_nearest :396).
 `grid_sample` here is the PLAIN version of kernel A
 (ops/cuda/warp_bilinear.cu): a 4-tap gather by integer indexing with the
 same arithmetic, in the same order, as the CUDA kernel, so the two agree
-to the last bit on the card. The wrapper in ops/cuda/kernels.py runs it
-only for CPU tensors.
+to the last bit on the card. `grid_sample_grad_grid` is the plain version
+of the warp's backward kernel in the same file. The wrappers in
+ops/cuda/kernels.py run them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -33,16 +34,11 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([w_lo, x, w_hi], dim=3)
 
 
-def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sampling of `img` at normalized `grid` locations,
-    align_corners=True, zeros padding (the warp's semantics).
-
-    Args:
-      img: [B, C, H, W] source.
-      grid: [B, Ho, Wo, 2] normalized (x, y); -1 -> pixel 0 and
-        +1 -> pixel size-1.
-    Returns:
-      [B, C, Ho, Wo].
+def _bilinear_taps(img: torch.Tensor, grid: torch.Tensor):
+    """The 4-tap bilinear sample of `img` [B, C, H, W] at normalized `grid`
+    [B, Ho, Wo, 2] (align_corners=True): ((wx0, wx1, wy0, wy1), (v00, v10,
+    v01, v11)), weights [B, 1, Ho, Wo] and taps [B, C, Ho, Wo], where v10
+    is the tap one pixel right of v00 and v01 the one below it.
 
     A tap outside the image reads 0. Sample positions are clamped to
     [-2, size+1] before the floor: past that every tap of the pixel is
@@ -51,8 +47,9 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """
     batch, channels, height, width = img.shape
     _, out_h, out_w, _ = grid.shape
-    gx = grid[..., 0].float()
-    gy = grid[..., 1].float()
+    coord_dtype = torch.promote_types(grid.dtype, torch.float32)
+    gx = grid[..., 0].to(coord_dtype)
+    gy = grid[..., 1].to(coord_dtype)
     x = ((gx + 1.0) * 0.5 * (width - 1)).clamp(-2.0, width + 1.0)
     y = ((gy + 1.0) * 0.5 * (height - 1)).clamp(-2.0, height + 1.0)
     x0f = torch.floor(x)
@@ -74,11 +71,51 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         val = torch.gather(flat, 2, idx).reshape(batch, channels, out_h, out_w)
         return val * inside[:, None].to(img.dtype)
 
-    return (
-        tap(x0, y0) * wx0 * wy0
-        + tap(x1, y0) * wx1 * wy0
-        + tap(x0, y1) * wx0 * wy1
-        + tap(x1, y1) * wx1 * wy1
+    return (wx0, wx1, wy0, wy1), (tap(x0, y0), tap(x1, y0), tap(x0, y1), tap(x1, y1))
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear sampling of `img` at normalized `grid` locations,
+    align_corners=True, zeros padding (the warp's semantics).
+
+    Args:
+      img: [B, C, H, W] source.
+      grid: [B, Ho, Wo, 2] normalized (x, y); -1 -> pixel 0 and
+        +1 -> pixel size-1.
+    Returns:
+      [B, C, Ho, Wo]. Taps outside the image read 0 (see _bilinear_taps).
+    """
+    (wx0, wx1, wy0, wy1), (v00, v10, v01, v11) = _bilinear_taps(img, grid)
+    return v00 * wx0 * wy0 + v10 * wx1 * wy0 + v01 * wx0 * wy1 + v11 * wx1 * wy1
+
+
+def grid_sample_grad_grid(
+    img: torch.Tensor, grid: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """Gradient of sum(g · grid_sample(img, grid)) w.r.t. `grid`, with img
+    held fixed (it is a data frame): [B, Ho, Wo, 2].
+
+    The PLAIN version of the warp's backward kernel
+    (ops/cuda/warp_bilinear.cu, warp_bilinear_bwd_grid), in its op order.
+    Per channel d(out)/dx = wy0·(v10 − v00) + wy1·(v11 − v01) and
+    d(out)/dy = wx0·(v01 − v00) + wx1·(v11 − v10) over the same taps as
+    the forward (outside ones read 0, so where the clamp bites the
+    gradient is 0); both are contracted with g over the channels in order
+    and scaled by d(pixel)/d(grid) = ½(W − 1), ½(H − 1). This is the JAX
+    custom-VJP backward (ops/pallas/warp.py _bwd) applied to the tap
+    planes its forward kernel emits.
+    """
+    (wx0, wx1, wy0, wy1), (v00, v10, v01, v11) = _bilinear_taps(img, grid)
+    d_x = wy0 * (v10 - v00) + wy1 * (v11 - v01)
+    d_y = wx0 * (v01 - v00) + wx1 * (v11 - v10)
+    sum_x = g[:, 0] * d_x[:, 0]
+    sum_y = g[:, 0] * d_y[:, 0]
+    for c in range(1, img.shape[1]):
+        sum_x = sum_x + g[:, c] * d_x[:, c]
+        sum_y = sum_y + g[:, c] * d_y[:, c]
+    height, width = img.shape[2], img.shape[3]
+    return torch.stack(
+        [sum_x * (0.5 * (width - 1)), sum_y * (0.5 * (height - 1))], dim=-1
     )
 
 

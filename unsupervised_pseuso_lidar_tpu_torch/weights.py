@@ -82,7 +82,12 @@ def state_dict_from_jax(
     params: Any, batch_stats: Any, model_name: str
 ) -> Dict[str, torch.Tensor]:
     """Flax variables of `model_name` (nested dicts of numpy arrays) ->
-    the port model's torch state dict (CPU tensors)."""
+    the port model's torch state dict (CPU tensors).
+
+    With batch_stats None the BatchNorm buffers are left out, so the
+    function also maps a GRADIENT tree (the params' structure): every
+    transform of the mapping is linear, and the result holds each
+    parameter's gradient under its state-dict key."""
     if model_name not in _MAPPINGS:
         raise KeyError(f"No weight mapping for model '{model_name}'")
     out: Dict[str, np.ndarray] = {}
@@ -95,9 +100,11 @@ def state_dict_from_jax(
             if "bias" in leaf:
                 out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
         else:  # bn
-            stats = _get_path(batch_stats, flax_path)
             out[f"{prefix}.weight"] = np.asarray(leaf["scale"])
             out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
+            if batch_stats is None:
+                continue
+            stats = _get_path(batch_stats, flax_path)
             out[f"{prefix}.running_mean"] = np.asarray(stats["mean"])
             out[f"{prefix}.running_var"] = np.asarray(stats["var"])
             out[f"{prefix}.num_batches_tracked"] = np.array(0, np.int64)
