@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (into
-build/torch_ext/), holds each kernel against its plain PyTorch version at
+build/torch_ext/), holds the division helper of kernels B and C
+(ops/cuda/div3.cuh) against the IEEE division over all 2^32 fp32 bit
+patterns, holds each kernel against its plain PyTorch version at
 the shapes of the production configuration (configs/tpu_v5e.yaml:
 DispResNet-18 + PoseNet, 640x192, batch 12, bf16 models, fp32 loss),
 then drives the port's entry points with seeded random weights:
@@ -16,7 +18,11 @@ then drives the port's entry points with seeded random weights:
               SSIM backward C once
 
 The kernel phases hold A, A' (kernel_a_bwd), B and C (kernel_c) against
-their plain versions on the main path's inputs.
+their plain versions on the main path's inputs, and time each kernel, its
+plain version and the library call (where one exists) on the card: CUDA
+events around 20 back-to-back calls, divided by 20, the median of 5 such
+runs (`ms`); `ms_per_call_host_incl` is the older measure, events around
+one call, which also counts the host's work before the launch.
 
 Every phase prints one JSON line; every check that fails raises, and the
 script exits non-zero. Before the last line it prints the per-kernel
@@ -30,7 +36,6 @@ it exits non-zero and prints no result.
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -70,6 +75,8 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer, make_eval_step
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import card, device_time_ms
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     normalize_image,
 )
@@ -113,16 +120,10 @@ def emit(record):
     print(json.dumps(record), flush=True)
 
 
-def nvidia_smi():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of one call of fn, in ms."""
+def time_ms_per_call(fn, reps=20, warmup=3):
+    """The median CUDA-event time of ONE call of fn, in ms: the events
+    also take in the host's work before the launch (the earlier measure,
+    kept as `ms_per_call_host_incl`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -182,7 +183,7 @@ def main(device="cuda:0"):
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 geometry stays fp32
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -197,10 +198,14 @@ def main(device="cuda:0"):
         log = path + ".log"
         if os.path.exists(log):
             with open(log) as f:
-                ptxas[name] = [l.strip() for l in f if "Used" in l]
+                ptxas[name] = [l.strip().removeprefix("ptxas info    : ") for l in f
+                               if "Used" in l or "entry function" in l]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: os.path.relpath(v, ROOT) for k, v in paths.items()},
           "ptxas": ptxas})
+
+    # 2b. the division helper of kernels B and C over every fp32 bit pattern
+    div3_phase(device)
 
     config = load_config(CONFIG)
     height, width = config.image_shape
@@ -253,18 +258,21 @@ def main(device="cuda:0"):
         "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/warp_bilinear.cu",
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535",
         "max_abs_err": warp_err,
-        "ms": time_ms(lambda: kernels.warp_bilinear_fwd(src, coords)),
-        "plain_ms": time_ms(lambda: grid_sample(src, coords)),
+        "ms": device_time_ms(lambda: kernels.warp_bilinear_fwd(src, coords)),
+        "plain_ms": device_time_ms(lambda: grid_sample(src, coords)),
         "bound_ms": warp_bound[0], "bound_by": warp_bound[1],
-        "library_ms": time_ms(lambda: F.grid_sample(
+        "library_ms": device_time_ms(lambda: F.grid_sample(
             src, coords, mode="bilinear", padding_mode="zeros",
             align_corners=True)),
+        "ms_per_call_host_incl": time_ms_per_call(
+            lambda: kernels.warp_bilinear_fwd(src, coords)),
     }
     emit({"phase": "kernel_a", "shape": list(src.shape),
           "random_out_of_frame": out_of_frame,
           "max_abs_err_vs_F_grid_sample": lib_err,
           **{k: warp_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "library_ms")}})
+                                       "bound_ms", "library_ms",
+                                       "ms_per_call_host_incl")}})
 
     # 4. kernel B vs its plain version on the main path's two calls: the
     # identity pair (2B jobs) and the warped stack (3B jobs)
@@ -273,17 +281,20 @@ def main(device="cuda:0"):
              "warped": (warped, target)}
     ssim_err = 0.0
     ssim_times = {}
-    ssim_ms = ssim_plain_ms = ssim_bytes = ssim_ops = 0.0
+    ssim_ms = ssim_plain_ms = ssim_host_ms = ssim_bytes = ssim_ops = 0.0
     for label, (x, y) in calls.items():
         for weight in (1.0, 0.85):
             err = max_err(kernels.ssim_fwd(x, y, weight),
                           photometric_map(x, y, weight))
             ssim_err = max(ssim_err, err)
-        k_ms = time_ms(lambda: kernels.ssim_fwd(x, y, 0.85))
-        p_ms = time_ms(lambda: photometric_map(x, y, 0.85))
-        ssim_times[label] = {"shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms}
+        k_ms = device_time_ms(lambda: kernels.ssim_fwd(x, y, 0.85))
+        p_ms = device_time_ms(lambda: photometric_map(x, y, 0.85))
+        h_ms = time_ms_per_call(lambda: kernels.ssim_fwd(x, y, 0.85))
+        ssim_times[label] = {"shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+                             "ms_per_call_host_incl": h_ms}
         ssim_ms += k_ms
         ssim_plain_ms += p_ms
+        ssim_host_ms += h_ms
         ssim_bytes += x.numel() * 12
         ssim_ops += x.numel() * SSIM_OPS_PER_PIXEL
     torch.cuda.synchronize()
@@ -295,7 +306,7 @@ def main(device="cuda:0"):
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:76",
         "max_abs_err": ssim_err, "ms": ssim_ms, "plain_ms": ssim_plain_ms,
         "bound_ms": ssim_bound[0], "bound_by": ssim_bound[1],
-        "library_ms": None,
+        "library_ms": None, "ms_per_call_host_incl": ssim_host_ms,
     }
     emit({"phase": "kernel_b", "max_abs_err": ssim_err, "calls": ssim_times,
           "ms_per_step": ssim_ms, "bound_ms_per_step": ssim_bound[0]})
@@ -386,16 +397,19 @@ def main(device="cuda:0"):
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535 "
                     "(with_taps=True, _fwd :551 + _bwd :569)",
         "max_abs_err": warp_bwd_err,
-        "ms": time_ms(lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
-        "plain_ms": time_ms(lambda: grid_sample_grad_grid(src, coords, g_warp)),
+        "ms": device_time_ms(lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
+        "plain_ms": device_time_ms(lambda: grid_sample_grad_grid(src, coords, g_warp)),
         "bound_ms": warp_bwd_bound[0], "bound_by": warp_bwd_bound[1],
         # the grid-only gradient of the library's sampler
-        "library_ms": time_ms(lambda: torch.autograd.grad(
+        "library_ms": device_time_ms(lambda: torch.autograd.grad(
             lib_out, lib_grid, g_warp, retain_graph=True)),
+        "ms_per_call_host_incl": time_ms_per_call(
+            lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
     }
     emit({"phase": "kernel_a_bwd", "shape": list(src.shape),
           **{k: warp_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "library_ms")}})
+                                           "bound_ms", "library_ms",
+                                           "ms_per_call_host_incl")}})
 
     # 8. kernel C vs its plain version on the warped stack (blend 0.85, the
     # main path's setting), dx only (the main path: the target is data) and
@@ -420,16 +434,18 @@ def main(device="cuda:0"):
         "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/ssim_bwd.cu",
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:235",
         "max_abs_err": ssim_bwd_err,
-        "ms": time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
-        "plain_ms": time_ms(lambda: photometric_map_bwd(warped, target, g_ssim, 0.85,
+        "ms": device_time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
+        "plain_ms": device_time_ms(lambda: photometric_map_bwd(warped, target, g_ssim, 0.85,
                                                         True, False)),
         "bound_ms": ssim_bwd_bound[0], "bound_by": ssim_bwd_bound[1],
         "library_ms": None,  # no single PyTorch call computes it
+        "ms_per_call_host_incl": time_ms_per_call(
+            lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
     }
     emit({"phase": "kernel_c", "shape": list(warped.shape),
-          "ms_dx_dy": time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85)),
+          "ms_dx_dy": device_time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85)),
           **{k: ssim_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms")}})
+                                           "bound_ms", "ms_per_call_host_incl")}})
 
     # 9. train: the main path of this slice, Trainer.run_epoch at the
     # config's full width and batch
@@ -440,9 +456,36 @@ def main(device="cuda:0"):
     ssim_rec["launches"] = train_launches["ssim_fwd"]
     ssim_bwd_rec["launches"] = train_launches["ssim_bwd"]
     emit({"kernels": [warp_rec, warp_bwd_rec, ssim_rec, ssim_bwd_rec]})
-    print(nvidia_smi(), flush=True)
+    print(card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
+
+
+def div3_phase(device, chunk=1 << 27):
+    """ops/cuda/div3.cuh's x / 3 against the IEEE division x / 3.0
+    (utils/numerics.div, what the plain versions compute) over all 2^32
+    binary32 bit patterns, in chunks; NaN matches NaN by class. Prints the
+    phase's record, then raises unless no pattern disagrees."""
+    t0 = time.perf_counter()
+    mismatches, nans = 0, 0
+    first_bad = None
+    for start in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64,
+                         device=device).to(torch.int32).view(torch.float32)
+        got, ref = kernels.div3(x), div(x, 3.0)
+        both_nan = torch.isnan(got) & torch.isnan(ref)
+        bad = (got.view(torch.int32) != ref.view(torch.int32)) & ~both_nan
+        count = int(bad.sum())
+        if count and first_bad is None:
+            first_bad = hex(int(x.view(torch.int32)[bad][0]) & 0xFFFFFFFF)
+        mismatches += count
+        nans += int(both_nan.sum())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit({"phase": "div3", "patterns": 1 << 32, "mismatches": mismatches,
+          "first_mismatch_bits": first_bad, "nan_patterns": nans,
+          "seconds": time.perf_counter() - t0})
+    check(mismatches == 0, f"div3 disagrees with x / 3.0 on {mismatches} patterns")
 
 
 def train_phase(config, device, batch_size, height, width):
@@ -460,6 +503,7 @@ def train_phase(config, device, batch_size, height, width):
     params.update(trainer.state.pose_model.named_parameters(prefix="pose"))
     trainer.run_epoch(batches[:1])  # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     before = {k: p.detach().clone() for k, p in params.items()}
     losses.clear()
     kernels.reset_launch_counts()

@@ -7,9 +7,11 @@ without the JAX package's conftest (the card's machine has no jax):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 chip_smoke.py checks the kernels at the production shapes; these cover
-the shapes it does not: KITTI-native 375x1242, partial tiles, 1- and
-2-pixel dimensions, coordinates far outside the frame, the autograd
-Functions, and the wrappers' checks.
+the shapes it does not: KITTI-native 375x1242, partial tiles, the edges
+of the warp strips and row segments of kernels B and C, 1- and 2-pixel
+dimensions, coordinates far outside the frame, the autograd Functions,
+the wrappers' checks, and the division helper of B and C on a binade and
+the subnormals.
 """
 
 import numpy as np
@@ -134,6 +136,60 @@ def test_ssim_bwd_kernel_matches_plain(cuda, shape, weight, need_dy):
         if ref is not None:
             err = float((got - ref).abs().max())
             assert err <= BWD_RTOL * max(float(ref.abs().max()), 1e-30), err
+
+
+def _ssim_inputs(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device="cuda")
+    y = torch.where(torch.rand(shape, generator=gen, device="cuda") < 0.5, x,
+                    torch.rand(shape, generator=gen, device="cuda"))
+    g = torch.randn(shape, generator=gen, device="cuda")
+    return x, y, g
+
+
+# the warp-strip tiling of kernels B and C (ops/cuda/ssim.cu, ssim_bwd.cu):
+# a warp writes `strip` columns of one plane and walks `segment` rows
+B_STRIP, B_SEGMENT = 62, 48
+C_STRIP, C_SEGMENT = 28, 32
+
+
+def _edges(strip, segment):
+    return [(segment - 1, strip - 1), (segment, strip), (segment + 1, strip + 1),
+            (2 * segment + 1, 2 * strip - 1), (3, 2 * strip + 1)]
+
+
+@pytest.mark.parametrize("hw", _edges(C_STRIP, C_SEGMENT))
+@pytest.mark.parametrize("weight", [1.0, 0.85])
+@pytest.mark.parametrize("need", [(True, False), (False, True), (True, True)],
+                         ids=["dx", "dy", "dx_dy"])
+def test_ssim_bwd_kernel_at_strip_and_segment_edges(cuda, hw, weight, need):
+    x, y, g = _ssim_inputs((1, 2, *hw), seed=6)
+    got = kernels.ssim_bwd(x, y, g, weight, *need)
+    ref = photometric_map_bwd(x, y, g, weight, *need)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if b is not None:
+            err = float((a - b).abs().max())
+            assert err <= BWD_RTOL * max(float(b.abs().max()), 1e-30), err
+
+
+@pytest.mark.parametrize("hw", _edges(B_STRIP, B_SEGMENT))
+@pytest.mark.parametrize("weight", [1.0, 0.85])
+def test_ssim_kernel_at_strip_and_segment_edges(cuda, hw, weight):
+    x, y, _ = _ssim_inputs((1, 2, *hw), seed=7)
+    err = float((kernels.ssim_fwd(x, y, weight) - photometric_map(x, y, weight)).abs().max())
+    assert err <= SSIM_TOL, err
+
+
+def test_div3_helper_is_the_ieee_division_on_a_binade_and_the_subnormals(cuda):
+    # [1, 2) and every subnormal, both signs (chip_smoke.py covers all 2^32)
+    bits = torch.cat([torch.arange(0x3F800000, 0x40000000, device=cuda),
+                      torch.arange(0, 0x00800000, device=cuda)]).to(torch.int32)
+    x = torch.cat([bits, bits | torch.tensor(-2**31, dtype=torch.int32, device=cuda)])
+    x = x.view(torch.float32)
+    got = kernels.div3(x)
+    want = x / torch.full((), 3.0, device=cuda)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_autograd_functions_launch_the_backward_kernels(cuda):

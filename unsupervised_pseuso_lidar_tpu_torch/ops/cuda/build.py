@@ -4,8 +4,9 @@ Each ``*.cu`` file in this directory is one kernel with a plain C entry
 point. ``load_libraries()`` compiles every source with its own ``nvcc``
 process — all started together — into ``build/torch_ext/`` at the repo
 root (listed in .gitignore), then loads the shared libraries with ctypes.
-A library's file name carries the hash of its source and of the compile
-flags, so an edited source is rebuilt and an unchanged one is reused.
+A library's file name carries the hash of its source, of every ``*.cuh``
+header in this directory and of the compile flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 
 Binding through a plain C interface keeps PyTorch's headers out of the
 build: a file that includes them takes minutes to compile, these take
@@ -29,6 +30,7 @@ SOURCES = {
     "warp_bilinear": "warp_bilinear.cu",
     "ssim": "ssim.cu",
     "ssim_bwd": "ssim_bwd.cu",
+    "div3": "div3.cu",
 }
 # sm_90a: Hopper. --fmad=false keeps a*b+c as two roundings, like the
 # plain PyTorch versions the kernels are held against bit for bit.
@@ -38,6 +40,7 @@ NVCC_FLAGS = [
     "-O3",
     "--fmad=false",
     "-Xptxas=-v",
+    f"-I{SOURCE_DIR}",
     "-shared",
     "-Xcompiler",
     "-fPIC",
@@ -60,8 +63,11 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(os.path.join(SOURCE_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SOURCE_DIR) if f.endswith(".cuh"))
+    for file in (SOURCES[name], *headers):
+        with open(os.path.join(SOURCE_DIR, file), "rb") as f:
+            digest.update(file.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -123,4 +129,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.ssim_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                  f32, f32, f32, f32, i32, i32, ptr]
         lib.ssim_bwd.restype = i32
+    elif name == "div3":
+        lib.div3_f32.argtypes = [ptr, ptr, i64, i32, ptr]
+        lib.div3_f32.restype = i32
     return lib

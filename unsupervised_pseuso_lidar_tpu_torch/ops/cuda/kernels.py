@@ -29,6 +29,7 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
     photometric_map_bwd,
 )
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 
 KERNELS = ("warp_bilinear_fwd", "warp_bilinear_bwd", "ssim_fwd", "ssim_bwd")
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -129,6 +130,9 @@ def _check_ssim(name: str, x: torch.Tensor, *more: torch.Tensor) -> None:
         _check(name, t, x.device)
     if x.shape[0] * x.shape[1] > 65535:
         raise ValueError(f"{name}: at most 65535 planes per launch")
+    if x.shape[2] * x.shape[3] >= 2**31:
+        raise ValueError(f"{name}: a plane must hold fewer than 2^31 pixels "
+                         "(the kernels index inside a plane in 32 bits)")
 
 
 def ssim_fwd(
@@ -184,6 +188,22 @@ def ssim_bwd(
     _raise_on_error("ssim_bwd", code)
     launch_counts["ssim_bwd"] += 1
     return dx, dy
+
+
+def div3(x: torch.Tensor) -> torch.Tensor:
+    """x / 3 per element through the division helper of kernels B and C
+    (ops/cuda/div3.cuh) — for checking it against the IEEE division; the
+    plain version is that division. Not a kernel of the main path: no
+    launch count."""
+    if not x.is_cuda:
+        return div(x, 3.0)
+    _check("div3", x, x.device)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _library("div3").div3_f32(x.data_ptr(), out.data_ptr(), x.numel(),
+                                     x.device.index, stream)
+    _raise_on_error("div3", code)
+    return out
 
 
 class WarpBilinear(torch.autograd.Function):

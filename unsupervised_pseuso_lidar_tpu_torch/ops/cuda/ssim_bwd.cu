@@ -7,30 +7,60 @@
 // :169), and fuses the L1 term of the blend, which the JAX package
 // differentiates outside its kernel.
 //
-// The TPU kernel holds a whole (H, W) plane in VMEM. Here a block owns a
-// 32x32 output tile of one plane, like kernel B, with a wider halo: dx at
-// a pixel reads the adjoint box of the g-derived planes at +-1 pixel, and
-// those planes are built from the moments, which read x and y at a
-// further +-1. So the block loads x and y with a 2-pixel REFLECT halo
-// (36x36; -1 -> 1, L -> L-2), builds the four g-derived planes (g_m1,
-// g_m2, g_d, 2 g_b) on the 34x34 tile + 1-pixel halo — zero outside the
-// image, as the adjoint's zero padding wants — reading g there from
-// device memory, runs the W adjoint over those 34 rows, then the H
-// adjoint and the output combination, 4 rows of one column per thread.
-// The reflect folds of the adjoint (g at 0 and L-1 also lands at 1 and
-// L-2; both at 0 when L == 1) need no further halo.
+// dx at a pixel reads the adjoint box of the g-derived planes (g_m1 or
+// g_m2, g_d, 2 g_b) at +-1 pixel, and those planes are built from the five
+// box moments, which read x and y at a further +-1. The TPU kernel holds a
+// whole (H, W) plane in VMEM. Here each warp owns a strip of columns of one
+// plane and walks down a segment of kSegment = 32 of its rows, one image
+// row per step, with no shared memory and no block barrier:
 //
-// Shared memory: x, y 2 x 36 x 36 floats (10,368 B), four planes
-// 4 x 34 x 34 (18,496 B), their W adjoints 4 x 34 x 32 (17,408 B):
-// 46,272 B a block, under the 48 KB of static shared memory.
+//   * lane l holds column strip * kOut - 2 + l; the warp loads 32 columns
+//     of x, y and g (REFLECT index for x, y at the border: -1 -> 1,
+//     L -> L-2) and writes the middle kOut = 28, so the 2-column halo on
+//     each side costs 1/7 of the loads (neighbouring warps' halos mostly
+//     hit L2);
+//   * the horizontal passes (the moments' row means, the W adjoint) take a
+//     lane's neighbours with two warp shuffles per value;
+//   * the vertical passes (the moments' column means, the H adjoint) run
+//     down the lane's own column over rings of 3 rows in registers: row
+//     means and x, y of rows i-2..i, g and the W adjoints of plane rows
+//     i-3..i-1. A ring slot is the row mod 3, unrolled three steps at a
+//     time, so a step moves no register.
+//
+// Step i loads x, y of row i (prefetched a step ahead), pushes the row
+// means of row i, builds plane row i-1 (zero outside the image, as the
+// adjoint's zero padding wants) and its W adjoint, and writes output row
+// i-2. A segment of S output rows takes S + 4 steps (rows r0-2 .. r1+1);
+// the first two only push row means, the next two write nothing. The
+// reflect folds of the adjoint (g at 0 and L-1 also lands at 1 and L-2;
+// both at 0 when L == 1) read a neighbour or the lane itself, so they need
+// no further halo.
+//
+// The planes are only those the call needs: the kernel is instantiated for
+// dx only (the main path: the target is data), dy only, or both — 3, 3 or
+// 4 planes — and for blend on or off.
 //
 // Bound: bytes (x, y, g read and dx written: 16 B per element; 20 B with
-// dy) against ~200 flops and 4 divisions per element.
+// dy: 0.063 ms at the main path's [36, 3, 192, 640]) against the
+// instructions a lane issues each row step for its one output: 16
+// divisions by 3 at 4 instructions each, 4 IEEE divisions, 10 shuffles,
+// the means, the SSIM terms and the output, with 4 of 32 lanes and 4 of
+// 36 steps spent on the halo. The kernel is bound by instruction issue,
+// at about 3x its bytes bound. 64 registers
+// (launch bounds: 8 blocks of 128 threads an SM; uncapped it took 88 and
+// ran 16 % slower); two columns a lane halved the halo but took 128-141
+// registers and ran 45 % slower; segments of 24 to 64 rows were within
+// 7 % of each other (ops/cuda/tune.py, PERF.md).
 //
-// Arithmetic mirrors ops/ssim.photometric_map_bwd op for op (box sums as
-// (a + b + c) / 3, a true division as in JAX and in the plain version,
-// rows before columns; the adjoint as mean + fold / 3, W before H), and
-// the file is compiled with --fmad=false. The SSIM ratio amplifies
+// Arithmetic mirrors ops/ssim.photometric_map_bwd op for op: box sums as
+// (a + b + c) / 3, rows before columns; the adjoint as mean + fold / 3, W
+// before H; products and the SSIM terms in the plain version's order. The
+// file is compiled with --fmad=false, so no multiply-add is contracted.
+// Every division by 3 goes through div3 (div3.cuh), which returns the bits
+// of the IEEE division x / 3.0f — the plain version's utils/numerics.div —
+// from a reciprocal multiply and an explicit FMA correction, for every
+// input (chip_smoke.py checks all 2^32). The divisions by c·d, c and d
+// stay IEEE divisions, as in the plain version. The SSIM ratio amplifies
 // one-ulp differences in flat windows, so the order matters.
 //
 // Tie rules (the JAX ones): the clamp passes the cotangent only where
@@ -39,181 +69,262 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "div3.cuh"
+#include "warp_strip.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kThreadsY = 8;
-constexpr int kRowsPerThread = kTile / kThreadsY;
-constexpr int kXY = kTile + 4;     // x, y: tile + 2-pixel halo
-constexpr int kPlane = kTile + 2;  // g-derived planes: tile + 1-pixel halo
-constexpr int kPlanes = 4;         // g_m1, g_m2, g_d, 2 g_b
+using warp_strip::neighbours;
+using warp_strip::Phase;
+using warp_strip::reflect_index;
 
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  if (i < 0) i = -i;
-  if (i > n - 1) i = 2 * (n - 1) - i;
-  // size-1 dims, and halo entries no valid output reads
-  return min(max(i, 0), n - 1);
-}
+constexpr int kWarps = 4;          // warps per block, each its own strip
+constexpr int kSegment = 32;       // output rows one warp walks
+constexpr int kCols = 1;           // adjacent columns per lane
+constexpr int kSpan = 32 * kCols;  // columns a warp loads
+constexpr int kOut = kSpan - 4;    // columns it writes
+constexpr int kMinBlocks = 8;      // blocks per SM: at most 64 registers a thread
 
-__global__ void ssim_bwd_kernel(const float* __restrict__ xs,
-                                const float* __restrict__ ys,
-                                const float* __restrict__ gs,
-                                float* __restrict__ dxs, float* __restrict__ dys,
-                                int height, int width, float c1, float c2, float w,
-                                float w1, int blend) {
-  __shared__ float sx[kXY][kXY];
-  __shared__ float sy[kXY][kXY];
-  __shared__ float planes[kPlanes][kPlane][kPlane];
-  __shared__ float wadj[kPlanes][kPlane][kTile];
+template <bool kDx, bool kDy, bool kBlend>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    ssim_bwd_kernel(const float* __restrict__ xs, const float* __restrict__ ys,
+                    const float* __restrict__ gs, float* __restrict__ dxs,
+                    float* __restrict__ dys, int height, int width, int strips,
+                    int segments, float c1, float c2, float w, float w1) {
+  // plane slots: the m-plane of dx (g_m1) and/or of dy (g_m2), g_d, 2 g_b
+  constexpr int kPlanes = (kDx && kDy) ? 4 : 3;
+  constexpr int kM1 = 0;
+  constexpr int kM2 = kDx ? 1 : 0;
+  constexpr int kD = kPlanes - 2;
+  constexpr int kB = kPlanes - 1;
 
-  const bool need_dx = dxs != nullptr;
-  const bool need_dy = dys != nullptr;
-  const int64_t plane_size = static_cast<int64_t>(height) * width;
-  const int64_t base = static_cast<int64_t>(blockIdx.z) * plane_size;
-  const float* xp = xs + base;
-  const float* yp = ys + base;
-  const float* gp = gs + base;
-  const int tile_x0 = blockIdx.x * kTile;
-  const int tile_y0 = blockIdx.y * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kThreadsY;
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (warp >= strips * segments) return;  // the whole warp: no shuffle waits on it
+  const int strip = warp % strips;
+  const int r0 = (warp / strips) * kSegment;
+  const int r1 = min(r0 + kSegment, height);
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * height * width;
+  xs += base;
+  ys += base;
+  gs += base;
+  if (kDx) dxs += base;
+  if (kDy) dys += base;
+  // 32-bit offsets inside the plane (the wrapper refuses H * W >= 2^31)
 
-  // 1. tile + 2-pixel reflect halo of x and y
-  for (int i = tid; i < kXY * kXY; i += nthreads) {
-    const int r = i / kXY;
-    const int c = i - r * kXY;
-    const int64_t off = static_cast<int64_t>(reflect_index(tile_y0 + r - 2, height)) * width +
-                        reflect_index(tile_x0 + c - 2, width);
-    sx[r][c] = __ldg(xp + off);
-    sy[r][c] = __ldg(yp + off);
-  }
-  __syncthreads();
-
-  // 2. the g-derived planes on tile + 1-pixel halo (0 outside the image)
-  for (int i = tid; i < kPlane * kPlane; i += nthreads) {
-    const int r = i / kPlane;
-    const int c = i - r * kPlane;
-    const int py = tile_y0 + r - 1;
-    const int px = tile_x0 + c - 1;
-    float p_m1 = 0.0f, p_m2 = 0.0f, p_d = 0.0f, p_b2 = 0.0f;
-    if (py >= 0 && py < height && px >= 0 && px < width) {
-      // moments: 3-tap row means of rows r..r+2 of the x/y tile (centre at
-      // r+1, c+1), then their column mean
-      float hx[3], hy[3], hxx[3], hyy[3], hxy[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float xa = sx[r + k][c], xb = sx[r + k][c + 1], xc = sx[r + k][c + 2];
-        const float ya = sy[r + k][c], yb = sy[r + k][c + 1], yc = sy[r + k][c + 2];
-        hx[k] = (xa + xb + xc) / 3.0f;
-        hy[k] = (ya + yb + yc) / 3.0f;
-        hxx[k] = (xa * xa + xb * xb + xc * xc) / 3.0f;
-        hyy[k] = (ya * ya + yb * yb + yc * yc) / 3.0f;
-        hxy[k] = (xa * ya + xb * yb + xc * yc) / 3.0f;
-      }
-      const float m1 = (hx[0] + hx[1] + hx[2]) / 3.0f;
-      const float m2 = (hy[0] + hy[1] + hy[2]) / 3.0f;
-      const float p1 = (hxx[0] + hxx[1] + hxx[2]) / 3.0f;
-      const float p2 = (hyy[0] + hyy[1] + hyy[2]) / 3.0f;
-      const float p3 = (hxy[0] + hxy[1] + hxy[2]) / 3.0f;
-      const float mu_xy = m1 * m2;
-      const float a = 2.0f * mu_xy + c1;
-      const float b = 2.0f * (p3 - mu_xy) + c2;
-      const float cc = m1 * m1 + m2 * m2 + c1;
-      const float d = p1 + p2 - m1 * m1 - m2 * m2 + c2;
-      const float s = (a * b) / (cc * d);
-      const float raw = (1.0f - s) * 0.5f;
-      const float gv = __ldg(gp + static_cast<int64_t>(py) * width + px);
-      const float g_ssim = blend ? w * gv : gv;
-      const float g_s = ((raw > 0.0f && raw < 1.0f) ? g_ssim : 0.0f) * -0.5f;
-      const float inv_cd = 1.0f / (cc * d);
-      const float g_a = g_s * b * inv_cd;
-      const float g_b = g_s * a * inv_cd;
-      const float g_c = -g_s * s / cc;
-      const float g_d = -g_s * s / d;
-      const float g_ab = g_a - g_b;
-      const float g_cd = g_c - g_d;
-      if (need_dx) p_m1 = 2.0f * (m2 * g_ab + m1 * g_cd);
-      if (need_dy) p_m2 = 2.0f * (m1 * g_ab + m2 * g_cd);
-      p_d = g_d;
-      p_b2 = 2.0f * g_b;
-    }
-    planes[0][r][c] = p_m1;
-    planes[1][r][c] = p_m2;
-    planes[2][r][c] = p_d;
-    planes[3][r][c] = p_b2;
-  }
-  __syncthreads();
-
-  // 3. W adjoint of each plane over the 34 rows, for the 32 tile columns:
-  // zero-padded mean + reflect folds (plane column j holds image column
-  // tile_x0 + j - 1)
   const int lo_w = min(1, width - 1);
   const int hi_w = max(width - 2, 0);
-  for (int i = tid; i < kPlane * kTile; i += nthreads) {
-    const int r = i / kTile;
-    const int c = i - r * kTile;
-    const int ox = tile_x0 + c;
-#pragma unroll
-    for (int k = 0; k < kPlanes; ++k) {
-      float v = (planes[k][r][c] + planes[k][r][c + 1] + planes[k][r][c + 2]) / 3.0f;
-      float f = 0.0f;
-      if (ox == lo_w) f = f + planes[k][r][1 - tile_x0];
-      if (ox == hi_w) f = f + planes[k][r][width - tile_x0];
-      wadj[k][r][c] = v + f / 3.0f;
-    }
-  }
-  __syncthreads();
-
-  // 4. H adjoint + the output, 4 rows of one column per thread (wadj row
-  // i holds image row tile_y0 + i - 1)
-  const int c = threadIdx.x;
-  const int ox = tile_x0 + c;
-  if (ox >= width) return;
   const int lo_h = min(1, height - 1);
   const int hi_h = max(height - 2, 0);
+  int col[kCols], xcol[kCols], gcol[kCols];
+  bool inside[kCols], writes[kCols];
+  bool folds = false;
 #pragma unroll
-  for (int kr = 0; kr < kRowsPerThread; ++kr) {
-    const int r = threadIdx.y + kr * kThreadsY;
-    const int oy = tile_y0 + r;
-    if (oy >= height) break;
-    float t[kPlanes];
+  for (int j = 0; j < kCols; ++j) {
+    const int k = lane * kCols + j;
+    col[j] = strip * kOut - 2 + k;
+    xcol[j] = reflect_index(col[j], width);
+    gcol[j] = min(max(col[j], 0), width - 1);
+    inside[j] = col[j] >= 0 && col[j] < width;
+    writes[j] = inside[j] && k >= 2 && k < kSpan - 2;
+    folds = folds || col[j] == lo_w || col[j] == hi_w;
+  }
+  // whether any column of this warp takes a W reflect fold (uniform)
+  const bool warp_folds = __any_sync(warp_strip::kFullMask, folds);
+
+  // rings of 3 rows in registers, indexed by row mod 3 so that a step
+  // moves nothing: the row means and x, y of rows i-2..i, g of plane rows
+  // i-3..i-1, and the W adjoints of plane rows i-3..i-1
+  float hx[3][kCols], hy[3][kCols], hxx[3][kCols], hyy[3][kCols], hxy[3][kCols];
+  float xv[3][kCols], yv[3][kCols], gv[3][kCols];
+  float wa[3][kPlanes][kCols];
+
+  auto load_xy = [&](int i, float (&x)[kCols], float (&y)[kCols]) {
+    const int off = reflect_index(i, height) * width;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      x[j] = __ldg(xs + off + xcol[j]);
+      y[j] = __ldg(ys + off + xcol[j]);
+    }
+  };
+  auto load_g = [&](int p, float (&g)[kCols]) {
+    const int off = min(max(p, 0), height - 1) * width;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) g[j] = __ldg(gs + off + gcol[j]);
+  };
+
+  // One row step. Phase P = (i - first row) mod 3 is the ring slot of row
+  // i (and of plane row i-1); slots S0 and S1 hold the two rows before.
+  float nx[kCols], ny[kCols], ng[kCols];  // the prefetched next row
+  auto step = [&](auto phase, int i) {
+    constexpr int P = decltype(phase)::value;
+    constexpr int S0 = (P + 1) % 3;
+    constexpr int S1 = (P + 2) % 3;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      xv[P][j] = nx[j];
+      yv[P][j] = ny[j];
+      gv[P][j] = ng[j];
+    }
+    load_xy(i + 1, nx, ny);
+    load_g(i, ng);
+
+    // the 3-tap row means of the five moment inputs of row i
+    float xl[kCols], xr[kCols], yl[kCols], yr[kCols];
+    neighbours(xv[P], xl, xr);
+    neighbours(yv[P], yl, yr);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const float x = xv[P][j], y = yv[P][j];
+      hx[P][j] = div3(xl[j] + x + xr[j]);
+      hy[P][j] = div3(yl[j] + y + yr[j]);
+      hxx[P][j] = div3(xl[j] * xl[j] + x * x + xr[j] * xr[j]);
+      hyy[P][j] = div3(yl[j] * yl[j] + y * y + yr[j] * yr[j]);
+      hxy[P][j] = div3(xl[j] * yl[j] + x * y + xr[j] * yr[j]);
+    }
+    if (i < r0) return;  // rows r0-2, r0-1: row means only
+
+    // plane row p = i-1 (the moments of rows p-1..p+1), then its W
+    // adjoint: zero-padded mean + reflect folds
+    const int p = i - 1;
+    const bool row_in = p >= 0 && p < height;
+    float pl[kPlanes][kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+      for (int k = 0; k < kPlanes; ++k) pl[k][j] = 0.0f;
+      if (row_in && inside[j]) {
+        const float m1 = div3(hx[S0][j] + hx[S1][j] + hx[P][j]);
+        const float m2 = div3(hy[S0][j] + hy[S1][j] + hy[P][j]);
+        const float p1 = div3(hxx[S0][j] + hxx[S1][j] + hxx[P][j]);
+        const float p2 = div3(hyy[S0][j] + hyy[S1][j] + hyy[P][j]);
+        const float p3 = div3(hxy[S0][j] + hxy[S1][j] + hxy[P][j]);
+        const float mu_xy = m1 * m2;
+        const float a = 2.0f * mu_xy + c1;
+        const float b = 2.0f * (p3 - mu_xy) + c2;
+        const float cc = m1 * m1 + m2 * m2 + c1;
+        const float d = p1 + p2 - m1 * m1 - m2 * m2 + c2;
+        const float s = (a * b) / (cc * d);
+        const float raw = (1.0f - s) * 0.5f;
+        const float g_ssim = kBlend ? w * gv[P][j] : gv[P][j];
+        const float g_s = ((raw > 0.0f && raw < 1.0f) ? g_ssim : 0.0f) * -0.5f;
+        const float inv_cd = 1.0f / (cc * d);
+        const float g_a = g_s * b * inv_cd;
+        const float g_b = g_s * a * inv_cd;
+        const float g_c = -g_s * s / cc;
+        const float g_d = -g_s * s / d;
+        const float g_ab = g_a - g_b;
+        const float g_cd = g_c - g_d;
+        if (kDx) pl[kM1][j] = 2.0f * (m2 * g_ab + m1 * g_cd);
+        if (kDy) pl[kM2][j] = 2.0f * (m1 * g_ab + m2 * g_cd);
+        pl[kD][j] = g_d;
+        pl[kB][j] = 2.0f * g_b;
+      }
+    }
 #pragma unroll
     for (int k = 0; k < kPlanes; ++k) {
-      const float v = (wadj[k][r][c] + wadj[k][r + 1][c] + wadj[k][r + 2][c]) / 3.0f;
-      float f = 0.0f;
-      if (oy == lo_h) f = f + wadj[k][1 - tile_y0][c];
-      if (oy == hi_h) f = f + wadj[k][height - tile_y0][c];
-      t[k] = v + f / 3.0f;
+      float l[kCols], r[kCols];
+      neighbours(pl[k], l, r);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float v = div3(l[j] + pl[k][j] + r[j]);
+        // + fold / 3; the fold is 0 but at columns lo_w and hi_w (v + 0
+        // keeps the plain version's bits for v = -0)
+        float t = v + 0.0f;
+        if (warp_folds) {
+          float f = 0.0f;
+          if (col[j] == lo_w) f = f + (col[j] == 0 ? pl[k][j] : l[j]);
+          if (col[j] == hi_w) f = f + (width == 1 ? pl[k][j] : r[j]);
+          t = v + div3(f);
+        }
+        wa[P][k][j] = t;
+      }
     }
-    const float xv = sx[r + 2][c + 2];
-    const float yv = sy[r + 2][c + 2];
-    const int64_t off = static_cast<int64_t>(oy) * width + ox;
-    float g_z = 0.0f;
-    if (blend) {
-      const float g_l1 = w1 * __ldg(gp + off);
-      g_z = (yv - xv >= 0.0f) ? g_l1 : -g_l1;
+    if (i < r0 + 2) return;  // no output row yet
+
+    // output row o = i-2: the H adjoint of the W adjoints of rows
+    // o-1..o+1, and the output combination with the L1 term
+    const int o = i - 2;
+    const bool fold_lo = o == lo_h;
+    const bool fold_hi = o == hi_h;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      float t[kPlanes];
+#pragma unroll
+      for (int k = 0; k < kPlanes; ++k) {
+        const float v = div3(wa[S0][k][j] + wa[S1][k][j] + wa[P][k][j]);
+        t[k] = v + 0.0f;
+        if (fold_lo || fold_hi) {
+          float f = 0.0f;
+          if (fold_lo) f = f + (o == 0 ? wa[S1][k][j] : wa[S0][k][j]);
+          if (fold_hi) f = f + (height == 1 ? wa[S1][k][j] : wa[P][k][j]);
+          t[k] = v + div3(f);
+        }
+      }
+      if (!writes[j]) continue;
+      const float xo = xv[S0][j];
+      const float yo = yv[S0][j];
+      const int off = o * width + col[j];
+      float g_z = 0.0f;
+      if (kBlend) {
+        const float g_l1 = w1 * gv[S1][j];
+        g_z = (yo - xo >= 0.0f) ? g_l1 : -g_l1;
+      }
+      if (kDx) {
+        float dx = t[kM1] + 2.0f * xo * t[kD] + yo * t[kB];
+        if (kBlend) dx = dx - g_z;
+        dxs[off] = dx;
+      }
+      if (kDy) {
+        float dy = t[kM2] + 2.0f * yo * t[kD] + xo * t[kB];
+        if (kBlend) dy = dy + g_z;
+        dys[off] = dy;
+      }
     }
-    if (need_dx) {
-      float dx = t[0] + 2.0f * xv * t[2] + yv * t[3];
-      if (blend) dx = dx - g_z;
-      dxs[base + off] = dx;
-    }
-    if (need_dy) {
-      float dy = t[1] + 2.0f * yv * t[2] + xv * t[3];
-      if (blend) dy = dy + g_z;
-      dys[base + off] = dy;
-    }
+  };
+
+  // rows r0-2 .. r1+1, three steps per iteration so that the ring slots
+  // are compile-time constants
+  const int last = r1 + 1;
+  int i = r0 - 2;
+  load_xy(i, nx, ny);
+  load_g(i - 1, ng);
+  for (; i + 2 <= last; i += 3) {
+    step(Phase<0>(), i);
+    step(Phase<1>(), i + 1);
+    step(Phase<2>(), i + 2);
   }
+  if (i <= last) step(Phase<0>(), i);
+  if (i + 1 <= last) step(Phase<1>(), i + 1);
+}
+
+template <bool kDx, bool kDy>
+cudaError_t launch(const float* x, const float* y, const float* g, float* dx, float* dy,
+                   int planes, int height, int width, float c1, float c2, float w,
+                   float w1, int blend, cudaStream_t stream) {
+  const int strips = (width + kOut - 1) / kOut;
+  const int segments = (height + kSegment - 1) / kSegment;
+  const dim3 grid((strips * segments + kWarps - 1) / kWarps, planes);
+  const dim3 block(kWarps * 32);
+  if (blend) {
+    ssim_bwd_kernel<kDx, kDy, true><<<grid, block, 0, stream>>>(
+        x, y, g, dx, dy, height, width, strips, segments, c1, c2, w, w1);
+  } else {
+    ssim_bwd_kernel<kDx, kDy, false><<<grid, block, 0, stream>>>(
+        x, y, g, dx, dy, height, width, strips, segments, c1, c2, w, w1);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y, g: [planes, height, width] fp32 contiguous (an NCHW tensor is N*C
-// planes) on CUDA device `device`; dx, dy: like x, or null for a gradient
-// not wanted (at least one is given). blend != 0 differentiates w * ssim +
-// w1 * |y - x|, else the SSIM distance alone. Launches on `stream` and
-// returns the cudaError_t of the launch (0 = success). The library links
-// its own CUDA runtime, so it selects the device itself.
+// planes) on CUDA device `device`, height * width < 2^31; dx, dy: like x,
+// or null for a gradient not wanted (at least one is given). blend != 0
+// differentiates w * ssim + w1 * |y - x|, else the SSIM distance alone.
+// Launches on `stream` and returns the cudaError_t of the launch (0 =
+// success). The library links its own CUDA runtime, so it selects the
+// device itself.
 extern "C" int ssim_bwd(const float* x, const float* y, const float* g, float* dx,
                         float* dy, int planes, int height, int width, float c1,
                         float c2, float w, float w1, int blend, int device,
@@ -221,9 +332,14 @@ extern "C" int ssim_bwd(const float* x, const float* y, const float* g, float* d
   if (planes == 0 || height == 0 || width == 0 || (dx == nullptr && dy == nullptr)) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 block(kTile, kThreadsY);
-  const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile, planes);
-  ssim_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, g, dx, dy, height, width, c1, c2, w, w1, blend);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dx != nullptr && dy != nullptr) {
+    err = launch<true, true>(x, y, g, dx, dy, planes, height, width, c1, c2, w, w1, blend, s);
+  } else if (dx != nullptr) {
+    err = launch<true, false>(x, y, g, dx, dy, planes, height, width, c1, c2, w, w1, blend, s);
+  } else {
+    err = launch<false, true>(x, y, g, dx, dy, planes, height, width, c1, c2, w, w1, blend, s);
+  }
+  return static_cast<int>(err);
 }
