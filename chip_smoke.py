@@ -10,24 +10,36 @@ the shapes of the production configuration (configs/tpu_v5e.yaml:
 DispResNet-18 + PoseNet, 640x192, batch 12, bf16 models, fp32 loss),
 then drives the port's entry points with seeded random weights:
 
-  serve       DepthToPointCloudPipeline.run over 20 synthetic frames
-  validation  3 steps of the eval step (make_eval_step), whose photometric
-              objective launches kernel A once and kernel B twice a step
-  train       Trainer.run_epoch over 3 steps (after 1 warm-up step), each
-              launching A and its grid gradient A' once, B twice and the
-              SSIM backward C once
+  serve         DepthToPointCloudPipeline.run over 20 synthetic frames
+  validation    3 steps of the eval step (make_eval_step), whose photometric
+                objective launches kernel A once and kernel B twice a step
+  train         Trainer.run_epoch over 3 steps (after 1 warm-up step), each
+                launching A and its grid gradient A' once, B twice and the
+                SSIM backward C once
+  train_basic   the training CLI (cli/train.py main) on configs/basic_config.yaml
+                (DispResNet-18 + PoseFc, 1280x384, batch 4, fp32, 'min'):
+                2 epochs of 3 synthetic batches, a checkpoint each; then a
+                fresh Trainer resumes from it (from_scratch False, bit-exact
+                restore) and takes 3 timed steps
+  kernels_1280  A, A', B and C against their plain versions on the shapes
+                of train_basic, timed
+  eval_metrics  Trainer.validate over 3 synthetic batches at basic_config's
+                size with the Eigen protocol and pose metrics; the metrics
+                on the card vs the same tensors on the CPU
+  train_mean    configs/synthetic.yaml (DispResNet-18 + PoseNet, 640x192,
+                batch 12, the 'mean' objective: one stacked warp, no SSIM)
+                for 3 steps, then one step of the 'ssim' objective
 
-The kernel phases hold A, A' (kernel_a_bwd), B and C (kernel_c) against
-their plain versions on the main path's inputs, and time each kernel, its
-plain version and the library call (where one exists) on the card: CUDA
-events around 20 back-to-back calls, divided by 20, the median of 5 such
-runs (`ms`); `ms_per_call_host_incl` is the older measure, events around
-one call, which also counts the host's work before the launch.
+The kernel phases time each kernel, its plain version and the library
+call (where one exists) on the card: CUDA events around 20 back-to-back
+calls, divided by 20, the median of 5 such runs (`ms`);
+`ms_per_call_host_incl` is the older measure, events around one call,
+which also counts the host's work before the launch.
 
 Every phase prints one JSON line; every check that fails raises, and the
 script exits non-zero. Before the last line it prints the per-kernel
-record ({"kernels": [...]}) and the card's name and power limit as
-nvidia-smi reports them; the last line is
+record ({"kernels": [...]}, each kernel at both shape sets) and the
+card's name and power limit as nvidia-smi reports them; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
@@ -43,10 +55,13 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
+from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
 from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
     SyntheticTripletDataset,
 )
+from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import METRICS
 from unsupervised_pseuso_lidar_tpu_torch.geometry.se3 import (
     invert_pose,
     pose_matrix,
@@ -83,6 +98,8 @@ from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "tpu_v5e.yaml")
+BASIC_CONFIG = os.path.join(ROOT, "configs", "basic_config.yaml")
+MEAN_CONFIG = os.path.join(ROOT, "configs", "synthetic.yaml")
 SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and fp32
 # (non-tensor-core) rate — both kernels are fp32 elementwise/stencil work
@@ -108,7 +125,12 @@ BWD_RTOL = 1e-5
 LIBRARY_TOL = 1e-4
 LOSS_RTOL = 1e-4
 GRAD_REL_L2 = 1e-4
+# the evaluation metrics on the card vs the same tensors on the CPU
+METRIC_RTOL = 1e-5
 TRAIN_STEPS = 3
+# train_basic: epochs x synthetic batches an epoch through the CLI
+BASIC_EPOCHS = 2
+BASIC_BATCHES = 3
 # pseudo-LiDAR on the card vs the CPU: points in meters (fp32, depths up
 # to 100 m), and the share of pixels whose crop decision may flip at the
 # crop's edges through rounding
@@ -222,94 +244,13 @@ def main(device="cuda:0"):
                                    uint8_images=True)
     batches = list(data.batches())
 
-    # the main path's kernel inputs, from a real validation step: the
-    # stacked warp jobs [ref0->tgt, ref1->tgt, tgt->ref0] and their coords
+    # 3-4, 7-8. kernels A, A', B and C vs their plain versions on the main
+    # path's inputs, from a real validation step
     inputs = step.loss_inputs(batches[0])
-    d_tgt = normalize_depth(disp_to_depth(inputs["disparities"][0][0]))[:, 0]
-    d_ref0 = normalize_depth(disp_to_depth(inputs["disparities"][1][0]))[:, 0]
-    t0_, t1_ = pose_matrix(inputs["poses"][:, 0]), pose_matrix(inputs["poses"][:, 1])
-    transform = torch.cat([t0_, t1_, invert_pose(t0_)], dim=0)
-    coords = warp_coords(torch.cat([d_tgt, d_tgt, d_ref0], dim=0), transform,
-                         inputs["intrinsics"].repeat(3, 1, 1)).contiguous()
-    src = torch.cat([inputs["refs"][0], inputs["refs"][1], inputs["tgt"]]).contiguous()
-    target = torch.cat([inputs["tgt"], inputs["tgt"], inputs["refs"][0]]).contiguous()
-    jobs = src.shape[0]
-    gpu_gen = torch.Generator(device=device).manual_seed(SEED)
-    # ~10% of the random samples fall outside [-1, 1]^2
-    random_coords = (torch.rand(coords.shape, generator=gpu_gen, device=device)
-                     * 2.0 - 1.0) * 1.05
-    out_of_frame = float((random_coords.abs() > 1).any(-1).float().mean())
-
-    # 3. kernel A vs its plain version (and F.grid_sample as a cross-check)
-    warp_err, lib_err = 0.0, 0.0
-    for grid in (coords, random_coords):
-        got = kernels.warp_bilinear_fwd(src, grid)
-        warp_err = max(warp_err, max_err(got, grid_sample(src, grid)))
-        lib = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=True)
-        lib_err = max(lib_err, max_err(got, lib))
-    torch.cuda.synchronize()
-    check(warp_err <= WARP_TOL, f"kernel A vs plain: {warp_err} > {WARP_TOL}")
-    check(lib_err <= LIBRARY_TOL, f"kernel A vs F.grid_sample: {lib_err}")
-    pixels = jobs * height * width
-    warp_bound = bound(pixels * (8 + 12 + 12), pixels * WARP_OPS_PER_PIXEL)
-    warp_rec = {
-        "name": "warp_bilinear_fwd", "route": "cuda",
-        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/warp_bilinear.cu",
-        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535",
-        "max_abs_err": warp_err,
-        "ms": device_time_ms(lambda: kernels.warp_bilinear_fwd(src, coords)),
-        "plain_ms": device_time_ms(lambda: grid_sample(src, coords)),
-        "bound_ms": warp_bound[0], "bound_by": warp_bound[1],
-        "library_ms": device_time_ms(lambda: F.grid_sample(
-            src, coords, mode="bilinear", padding_mode="zeros",
-            align_corners=True)),
-        "ms_per_call_host_incl": time_ms_per_call(
-            lambda: kernels.warp_bilinear_fwd(src, coords)),
-    }
-    emit({"phase": "kernel_a", "shape": list(src.shape),
-          "random_out_of_frame": out_of_frame,
-          "max_abs_err_vs_F_grid_sample": lib_err,
-          **{k: warp_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "library_ms",
-                                       "ms_per_call_host_incl")}})
-
-    # 4. kernel B vs its plain version on the main path's two calls: the
-    # identity pair (2B jobs) and the warped stack (3B jobs)
-    warped = kernels.warp_bilinear_fwd(src, coords)
-    calls = {"identity": (src[: 2 * batch_size], target[: 2 * batch_size]),
-             "warped": (warped, target)}
-    ssim_err = 0.0
-    ssim_times = {}
-    ssim_ms = ssim_plain_ms = ssim_host_ms = ssim_bytes = ssim_ops = 0.0
-    for label, (x, y) in calls.items():
-        for weight in (1.0, 0.85):
-            err = max_err(kernels.ssim_fwd(x, y, weight),
-                          photometric_map(x, y, weight))
-            ssim_err = max(ssim_err, err)
-        k_ms = device_time_ms(lambda: kernels.ssim_fwd(x, y, 0.85))
-        p_ms = device_time_ms(lambda: photometric_map(x, y, 0.85))
-        h_ms = time_ms_per_call(lambda: kernels.ssim_fwd(x, y, 0.85))
-        ssim_times[label] = {"shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
-                             "ms_per_call_host_incl": h_ms}
-        ssim_ms += k_ms
-        ssim_plain_ms += p_ms
-        ssim_host_ms += h_ms
-        ssim_bytes += x.numel() * 12
-        ssim_ops += x.numel() * SSIM_OPS_PER_PIXEL
-    torch.cuda.synchronize()
-    check(ssim_err <= SSIM_TOL, f"kernel B vs plain: {ssim_err} > {SSIM_TOL}")
-    ssim_bound = bound(ssim_bytes, ssim_ops)
-    ssim_rec = {
-        "name": "ssim_fwd", "route": "cuda",
-        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/ssim.cu",
-        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:76",
-        "max_abs_err": ssim_err, "ms": ssim_ms, "plain_ms": ssim_plain_ms,
-        "bound_ms": ssim_bound[0], "bound_by": ssim_bound[1],
-        "library_ms": None, "ms_per_call_host_incl": ssim_host_ms,
-    }
-    emit({"phase": "kernel_b", "max_abs_err": ssim_err, "calls": ssim_times,
-          "ms_per_step": ssim_ms, "bound_ms_per_step": ssim_bound[0]})
+    records, details = kernel_checks(inputs, batch_size, device)
+    for phase, name in (("kernel_a", "warp_bilinear_fwd"), ("kernel_b", "ssim_fwd"),
+                        ("kernel_a_bwd", "warp_bilinear_bwd"), ("kernel_c", "ssim_bwd")):
+        emit({"phase": phase, **details[name]})
 
     # 5. serve: frames -> depth -> pseudo-LiDAR through the pipeline
     frames = [normalize_image(img.astype(np.float32) / 255.0)
@@ -375,9 +316,146 @@ def main(device="cuda:0"):
           "precision": config.action.precision, "ms_per_step": step_ms,
           "losses": losses, "launches": launches, "loss_cuda": on_gpu,
           "loss_cpu_plain": on_cpu, "rel_err": rel})
+    del depth_model, pose_model, step, pipeline
 
-    # 7. kernel A' vs its plain version on the path's coords and the
-    # random ones, with a random cotangent
+    # 9. train: Trainer.run_epoch at the production config's full width
+    # and batch
+    train_launches = train_phase(config, device, batch_size, height, width)
+    for name, record in records.items():
+        record["launches"] = train_launches[name]
+
+    # 10-12. the training CLI on basic_config, the kernels at its shapes,
+    # and validation with the Eigen protocol and pose metrics
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, basic_launches = train_basic_phase(device, tmp)
+        records_1280, details_1280 = kernel_checks(
+            trainer.eval_step.loss_inputs(
+                next(SyntheticTripletDataset(1, trainer.config.action.batch_size,
+                                             *trainer.config.image_shape,
+                                             seed=SEED + 7, uint8_images=True).batches())),
+            trainer.config.action.batch_size, device)
+        for name, record in records_1280.items():
+            record["launches"] = basic_launches[name]
+        emit({"phase": "kernels_1280", "kernels": details_1280})
+        eval_metrics_phase(trainer, device)
+        del trainer
+    torch.cuda.empty_cache()
+
+    # 13. the 'mean' and 'ssim' objectives on configs/synthetic.yaml
+    train_mean_phase(device)
+
+    emit({"kernels": list(records.values()) + list(records_1280.values())})
+    print(card(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+def warp_jobs(inputs):
+    """The 'min' objective's stacked warp jobs [ref0->tgt, ref1->tgt,
+    tgt->ref0] on one step's loss inputs (depth_norm on): sources,
+    targets and sample coordinates."""
+    d_tgt = normalize_depth(disp_to_depth(inputs["disparities"][0][0]))[:, 0]
+    d_ref0 = normalize_depth(disp_to_depth(inputs["disparities"][1][0]))[:, 0]
+    t0_, t1_ = pose_matrix(inputs["poses"][:, 0]), pose_matrix(inputs["poses"][:, 1])
+    transform = torch.cat([t0_, t1_, invert_pose(t0_)], dim=0)
+    coords = warp_coords(torch.cat([d_tgt, d_tgt, d_ref0], dim=0), transform,
+                         inputs["intrinsics"].repeat(3, 1, 1)).contiguous()
+    src = torch.cat([inputs["refs"][0], inputs["refs"][1], inputs["tgt"]]).contiguous()
+    target = torch.cat([inputs["tgt"], inputs["tgt"], inputs["refs"][0]]).contiguous()
+    return src, target, coords
+
+
+def kernel_checks(inputs, batch_size, device):
+    """Kernels A, A', B and C against their plain versions on the warp
+    jobs of one step's loss inputs (A and A' also on random coordinates,
+    A also against F.grid_sample), each timed with its plain version and
+    the library call where one exists; every failed check raises. Returns
+    ({kernel: its record for the kernels line, launches to be filled in},
+    {kernel: the fields of its phase line})."""
+    src, target, coords = warp_jobs(inputs)
+    jobs, _, height, width = src.shape
+    gpu_gen = torch.Generator(device=device).manual_seed(SEED)
+    # ~10% of the random samples fall outside [-1, 1]^2
+    random_coords = (torch.rand(coords.shape, generator=gpu_gen, device=device)
+                     * 2.0 - 1.0) * 1.05
+    out_of_frame = float((random_coords.abs() > 1).any(-1).float().mean())
+    pixels = jobs * height * width
+    records, details = {}, {}
+
+    # A vs its plain version (and F.grid_sample as a cross-check)
+    warp_err, lib_err = 0.0, 0.0
+    for grid in (coords, random_coords):
+        got = kernels.warp_bilinear_fwd(src, grid)
+        warp_err = max(warp_err, max_err(got, grid_sample(src, grid)))
+        lib = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        lib_err = max(lib_err, max_err(got, lib))
+    torch.cuda.synchronize()
+    check(warp_err <= WARP_TOL, f"kernel A vs plain: {warp_err} > {WARP_TOL}")
+    check(lib_err <= LIBRARY_TOL, f"kernel A vs F.grid_sample: {lib_err}")
+    warp_bound = bound(pixels * (8 + 12 + 12), pixels * WARP_OPS_PER_PIXEL)
+    records["warp_bilinear_fwd"] = {
+        "name": "warp_bilinear_fwd", "route": "cuda",
+        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/warp_bilinear.cu",
+        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535",
+        "shape": list(src.shape),
+        "max_abs_err": warp_err,
+        "ms": device_time_ms(lambda: kernels.warp_bilinear_fwd(src, coords)),
+        "plain_ms": device_time_ms(lambda: grid_sample(src, coords)),
+        "bound_ms": warp_bound[0], "bound_by": warp_bound[1],
+        "library_ms": device_time_ms(lambda: F.grid_sample(
+            src, coords, mode="bilinear", padding_mode="zeros",
+            align_corners=True)),
+        "ms_per_call_host_incl": time_ms_per_call(
+            lambda: kernels.warp_bilinear_fwd(src, coords)),
+    }
+    details["warp_bilinear_fwd"] = {
+        "shape": list(src.shape), "random_out_of_frame": out_of_frame,
+        "max_abs_err_vs_F_grid_sample": lib_err,
+        **{k: records["warp_bilinear_fwd"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "ms_per_call_host_incl")}}
+
+    # B vs its plain version on the main path's two calls: the identity
+    # pair (2B jobs) and the warped stack (3B jobs)
+    warped = kernels.warp_bilinear_fwd(src, coords)
+    calls = {"identity": (src[: 2 * batch_size], target[: 2 * batch_size]),
+             "warped": (warped, target)}
+    ssim_err = 0.0
+    ssim_times = {}
+    ssim_ms = ssim_plain_ms = ssim_host_ms = ssim_bytes = ssim_ops = 0.0
+    for label, (x, y) in calls.items():
+        for weight in (1.0, 0.85):
+            err = max_err(kernels.ssim_fwd(x, y, weight),
+                          photometric_map(x, y, weight))
+            ssim_err = max(ssim_err, err)
+        k_ms = device_time_ms(lambda: kernels.ssim_fwd(x, y, 0.85))
+        p_ms = device_time_ms(lambda: photometric_map(x, y, 0.85))
+        h_ms = time_ms_per_call(lambda: kernels.ssim_fwd(x, y, 0.85))
+        ssim_times[label] = {"shape": list(x.shape), "ms": k_ms, "plain_ms": p_ms,
+                             "ms_per_call_host_incl": h_ms}
+        ssim_ms += k_ms
+        ssim_plain_ms += p_ms
+        ssim_host_ms += h_ms
+        ssim_bytes += x.numel() * 12
+        ssim_ops += x.numel() * SSIM_OPS_PER_PIXEL
+    torch.cuda.synchronize()
+    check(ssim_err <= SSIM_TOL, f"kernel B vs plain: {ssim_err} > {SSIM_TOL}")
+    ssim_bound = bound(ssim_bytes, ssim_ops)
+    records["ssim_fwd"] = {
+        "name": "ssim_fwd", "route": "cuda",
+        "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/ssim.cu",
+        "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:76",
+        "shape": [t["shape"] for t in ssim_times.values()],
+        "max_abs_err": ssim_err, "ms": ssim_ms, "plain_ms": ssim_plain_ms,
+        "bound_ms": ssim_bound[0], "bound_by": ssim_bound[1],
+        "library_ms": None, "ms_per_call_host_incl": ssim_host_ms,
+    }
+    details["ssim_fwd"] = {"max_abs_err": ssim_err, "calls": ssim_times,
+                           "ms_per_step": ssim_ms, "bound_ms_per_step": ssim_bound[0]}
+
+    # A' vs its plain version on the path's coords and the random ones,
+    # with a random cotangent
     g_warp = torch.randn(src.shape, generator=gpu_gen, device=device)
     warp_bwd_err = 0.0
     for grid in (coords, random_coords):
@@ -391,11 +469,12 @@ def main(device="cuda:0"):
     lib_out = F.grid_sample(src, lib_grid, mode="bilinear", padding_mode="zeros",
                             align_corners=True)
     warp_bwd_bound = bound(pixels * (8 + 12 + 12 + 8), pixels * WARP_BWD_OPS_PER_PIXEL)
-    warp_bwd_rec = {
+    records["warp_bilinear_bwd"] = {
         "name": "warp_bilinear_bwd", "route": "cuda",
         "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/warp_bilinear.cu",
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535 "
                     "(with_taps=True, _fwd :551 + _bwd :569)",
+        "shape": list(src.shape),
         "max_abs_err": warp_bwd_err,
         "ms": device_time_ms(lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
         "plain_ms": device_time_ms(lambda: grid_sample_grad_grid(src, coords, g_warp)),
@@ -406,13 +485,14 @@ def main(device="cuda:0"):
         "ms_per_call_host_incl": time_ms_per_call(
             lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
     }
-    emit({"phase": "kernel_a_bwd", "shape": list(src.shape),
-          **{k: warp_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "library_ms",
-                                           "ms_per_call_host_incl")}})
+    details["warp_bilinear_bwd"] = {
+        "shape": list(src.shape),
+        **{k: records["warp_bilinear_bwd"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "ms_per_call_host_incl")}}
 
-    # 8. kernel C vs its plain version on the warped stack (blend 0.85, the
-    # main path's setting), dx only (the main path: the target is data) and
+    # C vs its plain version on the warped stack (blend 0.85, the main
+    # path's setting), dx only (the main path: the target is data) and
     # (dx, dy)
     g_ssim = torch.randn(warped.shape, generator=gpu_gen, device=device)
     ssim_bwd_err = 0.0
@@ -429,10 +509,11 @@ def main(device="cuda:0"):
                   f"kernel C vs plain: {err} > {BWD_RTOL} x {float(b.abs().max())}")
             ssim_bwd_err = max(ssim_bwd_err, err)
     ssim_bwd_bound = bound(warped.numel() * 16, warped.numel() * SSIM_BWD_OPS_PER_PIXEL)
-    ssim_bwd_rec = {
+    records["ssim_bwd"] = {
         "name": "ssim_bwd", "route": "cuda",
         "source": "unsupervised_pseuso_lidar_tpu_torch/ops/cuda/ssim_bwd.cu",
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/photometric.py:235",
+        "shape": list(warped.shape),
         "max_abs_err": ssim_bwd_err,
         "ms": device_time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
         "plain_ms": device_time_ms(lambda: photometric_map_bwd(warped, target, g_ssim, 0.85,
@@ -442,23 +523,12 @@ def main(device="cuda:0"):
         "ms_per_call_host_incl": time_ms_per_call(
             lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85, True, False)),
     }
-    emit({"phase": "kernel_c", "shape": list(warped.shape),
-          "ms_dx_dy": device_time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85)),
-          **{k: ssim_bwd_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                           "bound_ms", "ms_per_call_host_incl")}})
-
-    # 9. train: the main path of this slice, Trainer.run_epoch at the
-    # config's full width and batch
-    train_launches = train_phase(config, device, batch_size, height, width)
-
-    warp_rec["launches"] = train_launches["warp_bilinear_fwd"]
-    warp_bwd_rec["launches"] = train_launches["warp_bilinear_bwd"]
-    ssim_rec["launches"] = train_launches["ssim_fwd"]
-    ssim_bwd_rec["launches"] = train_launches["ssim_bwd"]
-    emit({"kernels": [warp_rec, warp_bwd_rec, ssim_rec, ssim_bwd_rec]})
-    print(card(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    details["ssim_bwd"] = {
+        "shape": list(warped.shape),
+        "ms_dx_dy": device_time_ms(lambda: kernels.ssim_bwd(warped, target, g_ssim, 0.85)),
+        **{k: records["ssim_bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                "bound_ms", "ms_per_call_host_incl")}}
+    return records, details
 
 
 def div3_phase(device, chunk=1 << 27):
@@ -488,6 +558,34 @@ def div3_phase(device, chunk=1 << 27):
     check(mismatches == 0, f"div3 disagrees with x / 3.0 on {mismatches} patterns")
 
 
+def expected_launches(loss_mode):
+    """Launches of one training step: {A, A', B, C} by objective."""
+    return {"min": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
+                    "ssim_fwd": 2, "ssim_bwd": 1},
+            "mean": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
+                     "ssim_fwd": 0, "ssim_bwd": 0},
+            "ssim": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
+                     "ssim_fwd": 1, "ssim_bwd": 1}}[loss_mode]
+
+
+def timed_epoch(trainer, batches):
+    """trainer.run_epoch over `batches` with the launch counts reset just
+    before and read just after -> (metrics, ms a step by host clock, ms a
+    step by CUDA events, launches)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    metrics = trainer.run_epoch(batches)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    event_ms = start.elapsed_time(end) / len(batches)
+    return metrics, host_ms, event_ms, dict(kernels.launch_counts)
+
+
 def train_phase(config, device, batch_size, height, width):
     """Trainer.run_epoch over 1 warm-up and TRAIN_STEPS steps; prints the
     phase's record, then checks it, and returns the kernels' launches over
@@ -506,28 +604,42 @@ def train_phase(config, device, batch_size, height, width):
     torch.cuda.reset_peak_memory_stats()
     before = {k: p.detach().clone() for k, p in params.items()}
     losses.clear()
-    kernels.reset_launch_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    metrics = trainer.run_epoch(batches[1:])
-    end.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    event_ms = start.elapsed_time(end) / TRAIN_STEPS
-    launches = dict(kernels.launch_counts)
+    metrics, host_ms, event_ms, launches = timed_epoch(trainer, batches[1:])
     with_grad = {k for k, p in params.items()
                  if p.grad is not None and bool((p.grad != 0).any())}
     stale = sorted(k for k in with_grad if torch.equal(before[k], params[k]))
     unchanged = sorted(k for k in params if torch.equal(before[k], params[k]))
     finite = all(bool(torch.isfinite(p).all()) for p in params.values())
-
-    # the loss-side gradients: one step's fp32 loss inputs as leaves, the
-    # training objective on the card (kernels) and on the CPU (plain
-    # versions)
+    grad_rel = loss_grad_rel(trainer, batches[1])
     act = config.action
-    inputs = trainer.eval_step.loss_inputs(batches[1])
+    emit({
+        "phase": "train", "batch": batch_size, "height": height, "width": width,
+        "steps": TRAIN_STEPS, "precision": act.precision,
+        "ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
+        "losses": losses, "final_metrics": metrics, "launches": launches,
+        "parameters": len(params), "parameters_unchanged": len(unchanged),
+        "unchanged": unchanged,
+        "loss_grad_rel_l2_cuda_vs_cpu": grad_rel,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    expected = {k: TRAIN_STEPS * v for k, v in expected_launches(act.loss_mode).items()}
+    check(launches == expected, f"train launches {launches}, expected {expected}")
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train losses {losses}")
+    check(finite, "a parameter is not finite after training")
+    check(not stale, f"parameters with a gradient did not change: {stale}")
+    check(max(grad_rel.values()) <= GRAD_REL_L2,
+          f"loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}")
+    return launches
+
+
+def loss_grad_rel(trainer, batch):
+    """The loss-side gradients of one step: the batch's fp32 loss inputs
+    (disparities of both frames, poses) as leaves, the trainer's training
+    objective on the card (kernels) and on the CPU (plain versions) ->
+    {leaf: rel L2 of the card's gradient against the CPU's}."""
+    act = trainer.config.action
+    inputs = trainer.eval_step.loss_inputs(batch)
 
     def loss_grads(inp):
         leaves = [d.clone().requires_grad_() for d in
@@ -542,28 +654,172 @@ def train_phase(config, device, batch_size, height, width):
 
     on_gpu = loss_grads(inputs)
     on_cpu = loss_grads(_to_cpu(inputs))
-    grad_rel = {name: rel_l2(a.cpu(), b) for name, a, b in
-                zip(("disp_tgt", "disp_ref0", "poses"), on_gpu, on_cpu)}
+    return {name: rel_l2(a.cpu(), b) for name, a, b in
+            zip(("disp_tgt", "disp_ref0", "poses"), on_gpu, on_cpu)}
+
+
+def _state_tensors(trainer):
+    """Every parameter, buffer and Adam moment of a Trainer, by name."""
+    state = trainer.state
+    out = {f"depth.{k}": v for k, v in state.depth_model.state_dict().items()}
+    out.update({f"pose.{k}": v for k, v in state.pose_model.state_dict().items()})
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in slots.items()})
+    return out
+
+
+def train_basic_phase(device, tmp):
+    """The training CLI on configs/basic_config.yaml for BASIC_EPOCHS
+    epochs of BASIC_BATCHES synthetic batches, its checkpoints under
+    `tmp`; then a fresh Trainer with from_scratch False (and the Eigen
+    protocol and pose metrics for eval_metrics) restores the last one and
+    takes 1 warm-up and TRAIN_STEPS timed steps. Prints the phase's
+    record, checks it, and returns (the restored trainer, the CLI run's
+    launches)."""
+    with open(BASIC_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    raw["action"]["checkpoint_dir"] = os.path.join(tmp, "checkpoints")
+    config_path = os.path.join(tmp, "basic_config.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(raw, f)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_trainer = train_cli.main(["--config", config_path, "--synthetic",
+                                  "--epochs", str(BASIC_EPOCHS),
+                                  "--synthetic-batches", str(BASIC_BATCHES)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    cli_steps = BASIC_EPOCHS * BASIC_BATCHES
+    files = sorted(os.listdir(cli_trainer.checkpoints.directory))
+
+    raw["action"].update(from_scratch=False, eval_protocol="eigen", eval_pose=True)
+    with open(config_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    config = load_config(config_path)
+    batch_size = config.action.batch_size
+    height, width = config.image_shape
+    trainer = Trainer(config, SyntheticTripletDataset(BASIC_BATCHES, batch_size, height,
+                                                      width), device=device)
+    a, b = _state_tensors(cli_trainer), _state_tensors(trainer)
+    differ = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    restored = {"epoch": trainer.epoch, "step": trainer.state.step,
+                "tensors": len(b), "tensors_differing": len(differ),
+                "adam_tensors": sum(k.startswith("adam.") for k in b)}
+    check(sorted(a) == sorted(b), "the restored state has other tensors")
+    del cli_trainer, a, b
+
+    batches = list(SyntheticTripletDataset(1 + TRAIN_STEPS, batch_size, height, width,
+                                           seed=SEED + 3, uint8_images=True).batches())
+    trainer.run_epoch(batches[:1])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    metrics, host_ms, event_ms, step_launches = timed_epoch(trainer, batches[1:])
+    grad_rel = loss_grad_rel(trainer, batches[1])
     emit({
-        "phase": "train", "batch": batch_size, "height": height, "width": width,
-        "steps": TRAIN_STEPS, "precision": act.precision,
-        "ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
-        "losses": losses, "final_metrics": metrics, "launches": launches,
-        "parameters": len(params), "parameters_unchanged": len(unchanged),
-        "unchanged": unchanged,
-        "loss_grad_rel_l2_cuda_vs_cpu": grad_rel,
+        "phase": "train_basic", "config": "configs/basic_config.yaml",
+        "models": [config.model.depth.name, config.model.pose.name],
+        "batch": batch_size, "height": height, "width": width,
+        "precision": config.action.precision, "loss_mode": config.action.loss_mode,
+        "cli_epochs": BASIC_EPOCHS, "cli_steps": cli_steps, "cli_seconds": cli_s,
+        "cli_launches": launches, "checkpoints": files, "restored": restored,
+        "steps": TRAIN_STEPS, "ms_per_step_host": host_ms,
+        "ms_per_step_cuda_events": event_ms, "final_metrics": metrics,
+        "launches": step_launches, "loss_grad_rel_l2_cuda_vs_cpu": grad_rel,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     })
-    expected = {"warp_bilinear_fwd": TRAIN_STEPS, "warp_bilinear_bwd": TRAIN_STEPS,
-                "ssim_fwd": 2 * TRAIN_STEPS, "ssim_bwd": TRAIN_STEPS}
-    check(launches == expected, f"train launches {launches}, expected {expected}")
-    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
-          f"train losses {losses}")
-    check(finite, "a parameter is not finite after training")
-    check(not stale, f"parameters with a gradient did not change: {stale}")
+    check(files == [f"epoch_{e:05d}.pth" for e in range(BASIC_EPOCHS)],
+          f"checkpoints written: {files}")
+    per_step_launches = expected_launches(config.action.loss_mode)
+    check(launches == {k: cli_steps * v for k, v in per_step_launches.items()},
+          f"CLI launches {launches} for {cli_steps} steps")
+    check(step_launches == {k: TRAIN_STEPS * v for k, v in per_step_launches.items()},
+          f"resumed launches {step_launches} for {TRAIN_STEPS} steps")
+    check(not differ, f"restore differs on {differ[:10]}")
+    check(restored["epoch"] == BASIC_EPOCHS and restored["step"] == cli_steps,
+          f"resumed at {restored}")
+    check(all(np.isfinite(v) for v in metrics.values()), f"train metrics {metrics}")
     check(max(grad_rel.values()) <= GRAD_REL_L2,
           f"loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}")
-    return launches
+    return trainer, launches
+
+
+def eval_metrics_phase(trainer, device, steps=3):
+    """Trainer.validate over 1 warm-up and `steps` synthetic batches with
+    the Eigen protocol and pose metrics: every depth and pose metric
+    present and finite, and the metrics of one batch on the card equal to
+    the same tensors' on the CPU (rel METRIC_RTOL)."""
+    config = trainer.config
+    batches = list(SyntheticTripletDataset(1 + steps, config.action.batch_size,
+                                           *config.image_shape, seed=SEED + 11,
+                                           uint8_images=True).batches())
+    trainer.validate(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = trainer.validate(batches[1:])
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = dict(kernels.launch_counts)
+
+    step = trainer.eval_step
+    inputs = step.loss_inputs(batches[1])
+    depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
+    on_gpu = {k: float(v) for k, v in step.metrics(inputs, depth_pred).items()}
+    on_cpu = {k: float(v) for k, v in
+              step.metrics(_to_cpu(inputs), depth_pred.cpu()).items()}
+    rel = {k: abs(on_gpu[k] - on_cpu[k]) / abs(on_cpu[k]) if on_cpu[k] else
+           abs(on_gpu[k]) for k in on_cpu}
+    emit({"phase": "eval_metrics", "protocol": config.action.eval_protocol,
+          "pose_metrics": config.action.eval_pose, "steps": steps,
+          "ms_per_step_host": host_ms, "metrics": val, "launches": launches,
+          "metrics_cuda": on_gpu, "metrics_cpu": on_cpu, "rel_err_cuda_vs_cpu": rel})
+    expected = ["loss", *METRICS, "pose_ate", "pose_ate_unscaled", "pose_rot_err_deg",
+                "pose_scale"]
+    check(sorted(val) == sorted(expected), f"validation metrics {sorted(val)}")
+    check(sorted(on_gpu) == sorted(expected[1:]), f"metrics {sorted(on_gpu)}")
+    check(all(np.isfinite(v) for v in val.values()), f"non-finite metrics {val}")
+    check(launches == {"warp_bilinear_fwd": steps, "warp_bilinear_bwd": 0,
+                       "ssim_fwd": 2 * steps, "ssim_bwd": 0},
+          f"validation launches {launches} for {steps} steps")
+    check(max(rel.values()) <= METRIC_RTOL,
+          f"metrics cuda vs cpu: {rel} > {METRIC_RTOL}")
+
+
+def train_mean_phase(device):
+    """configs/synthetic.yaml ('mean': one stacked warp of the 3·S·B jobs,
+    no SSIM) for 1 warm-up and TRAIN_STEPS timed steps, then one step of
+    the 'ssim' objective on the same config: launches by objective, and
+    the loss-side gradients on the card vs the CPU."""
+    out = {"phase": "train_mean", "config": "configs/synthetic.yaml"}
+    checks = []
+    for mode, steps in (("mean", TRAIN_STEPS), ("ssim", 1)):
+        config = load_config(MEAN_CONFIG)
+        config.action.loss_mode = mode
+        batch_size = config.action.batch_size
+        height, width = config.image_shape
+        data = SyntheticTripletDataset(1 + steps, batch_size, height, width,
+                                       seed=SEED + 5, uint8_images=True)
+        batches = list(data.batches())
+        trainer = Trainer(config, data, device=device)
+        trainer.run_epoch(batches[:1])  # warm-up
+        metrics, host_ms, event_ms, launches = timed_epoch(trainer, batches[1:])
+        grad_rel = loss_grad_rel(trainer, batches[1])
+        expected = {k: steps * v for k, v in expected_launches(mode).items()}
+        out[mode] = {"batch": batch_size, "height": height, "width": width,
+                     "steps": steps, "ms_per_step_host": host_ms,
+                     "ms_per_step_cuda_events": event_ms, "final_metrics": metrics,
+                     "launches": launches, "loss_grad_rel_l2_cuda_vs_cpu": grad_rel}
+        checks += [
+            (launches == expected, f"{mode}: launches {launches}, expected {expected}"),
+            (all(np.isfinite(v) for v in metrics.values()), f"{mode}: metrics {metrics}"),
+            (max(grad_rel.values()) <= GRAD_REL_L2,
+             f"{mode}: loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}"),
+        ]
+        del trainer
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
 
 
 def _to_cpu(tree):

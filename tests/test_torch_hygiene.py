@@ -70,11 +70,16 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
+    from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
     from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
         DepthToPointCloudPipeline,
     )
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
+    from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import CheckpointManager
     from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
         Trainer,
@@ -87,16 +92,31 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     pose = build_model("PoseNet", device="cpu")
     projector = PseudoLiDAR.__new__(PseudoLiDAR)  # no calib files needed
     config = Config()
+    config.action.checkpoint_dir = str(tmp_path / "checkpoints")
     state = create_train_state(config, torch.Generator().manual_seed(0), device="cpu")
+    # a checkpoint to resume from: Trainer(from_scratch=False) must still
+    # raise before it reads one
+    CheckpointManager(str(tmp_path / "checkpoints" / config.model.name)).save(state, 0)
+    resume = Config()
+    resume.action.checkpoint_dir = config.action.checkpoint_dir
+    resume.action.from_scratch = False
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text("datasets:\n  augmentation:\n    image_width: 64\n"
+                   "    image_height: 32\naction:\n  batch_size: 1\n")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (
         lambda: build_model("PoseNet"),
+        lambda: build_model("PoseFc"),
         lambda: make_eval_step(depth, pose),
         lambda: PseudoLiDAR(str(tmp_path)),
         lambda: DepthToPointCloudPipeline(lambda img: img, projector),
         lambda: create_train_state(config, torch.Generator().manual_seed(0)),
         lambda: make_train_step(state),
         lambda: Trainer(config),
+        lambda: Trainer(resume),
+        lambda: next(prefetch_to_device(iter([{"x": np.zeros(2)}]))),
+        lambda: train_cli.main(["--config", str(cfg), "--synthetic", "--epochs", "1",
+                                "--synthetic-batches", "1"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -1,9 +1,9 @@
-"""Port parity: the weight bridge and the two models of the slice.
+"""Port parity: the weight bridge and the models of the port.
 
 state_dict_from_jax must give exactly what the JAX package's
 export_torch_state gives, load into the port's models with strict=True,
-and with those weights the port's DispResNet-18 (eval) and PoseNet must
-reproduce the flax apply(train=False) outputs in fp32.
+and with those weights the port's DispResNet-18 (eval), PoseNet and
+PoseFc must reproduce the flax apply(train=False) outputs in fp32.
 """
 
 from functools import partial
@@ -56,11 +56,35 @@ def jax_pose():
     return model, _numpy_tree(variables["params"])
 
 
-@pytest.mark.parametrize("name", ["DispResNet", "PoseNet"])
-def test_state_dict_matches_export_torch_state(name, jax_depth, jax_pose):
-    params, stats = (
-        (jax_depth[1], jax_depth[2]) if name == "DispResNet" else (jax_pose[1], {})
-    )
+POSEFC_HW = (128, 128)
+
+
+def _posefc(hw):
+    """Flax PoseFc variables at image size hw, every Dense layer random
+    (the last one is zero-initialized, which would hide its mapping)."""
+    model = jax_build_model("PoseFc")
+    img = jnp.zeros((1, *hw, 3), jnp.float32)
+    params = _numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(2), img, [img, img])["params"])
+    for i in range(3):
+        dense = params[f"Dense_{i}"]
+        dense["kernel"] = RNG.normal(0, 0.3, dense["kernel"].shape).astype(np.float32)
+        dense["bias"] = RNG.normal(0, 0.1, dense["bias"].shape).astype(np.float32)
+    return model, params
+
+
+@pytest.fixture(scope="module")
+def jax_posefc():
+    return _posefc(POSEFC_HW)
+
+
+def _variables(name, jax_depth, jax_pose, jax_posefc):
+    return {"DispResNet": (jax_depth[1], jax_depth[2]), "PoseNet": (jax_pose[1], {}),
+            "PoseFc": (jax_posefc[1], {})}[name]
+
+
+@pytest.mark.parametrize("name", ["DispResNet", "PoseNet", "PoseFc"])
+def test_state_dict_matches_export_torch_state(name, jax_depth, jax_pose, jax_posefc):
+    params, stats = _variables(name, jax_depth, jax_pose, jax_posefc)
     ref = export_torch_state(params, stats, name)
     got = state_dict_from_jax(params, stats, name)
     assert sorted(got) == sorted(ref)
@@ -68,15 +92,13 @@ def test_state_dict_matches_export_torch_state(name, jax_depth, jax_pose):
         np.testing.assert_array_equal(got[key].numpy(), value, err_msg=key)
 
 
-@pytest.mark.parametrize("name", ["DispResNet", "PoseNet"])
-def test_weight_bridge_round_trip_is_strict(name, jax_depth, jax_pose):
+@pytest.mark.parametrize("name", ["DispResNet", "PoseNet", "PoseFc"])
+def test_weight_bridge_round_trip_is_strict(name, jax_depth, jax_pose, jax_posefc):
     # every parameter and buffer of the port's model is covered by the
     # bridge and nothing else is: a model change that drops or adds a
     # parameter fails here
-    params, stats = (
-        (jax_depth[1], jax_depth[2]) if name == "DispResNet" else (jax_pose[1], {})
-    )
-    model = build_model(name, device="cpu")
+    params, stats = _variables(name, jax_depth, jax_pose, jax_posefc)
+    model = build_model(name, device="cpu", image_shape=POSEFC_HW)
     state = state_dict_from_jax(params, stats, name)
     model.load_state_dict(state, strict=True)
     loaded = model.state_dict()
@@ -121,6 +143,62 @@ def test_posenet_matches_flax(jax_pose):
         got = port(t[0], t[1:])
     assert got.shape == (2, 2, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def _nchw_list(imgs):
+    return [torch.from_numpy(np.ascontiguousarray(i.transpose(0, 3, 1, 2))) for i in imgs]
+
+
+@pytest.mark.parametrize("hw", [POSEFC_HW, (96, 320)])
+def test_posefc_matches_flax(hw, jax_posefc):
+    # the FC width follows the image size (12·ceil(H/128)·ceil(W/128));
+    # 96x320 is non-square and not a multiple of 128. atol 1e-5; the
+    # rotation half is exactly 0 on both sides
+    model, params = jax_posefc if hw == POSEFC_HW else _posefc(hw)
+    imgs = [RNG.normal(size=(2, *hw, 3)).astype(np.float32) for _ in range(3)]
+    ref = np.asarray(model.apply({"params": params}, jnp.asarray(imgs[0]),
+                                 [jnp.asarray(imgs[1]), jnp.asarray(imgs[2])]))
+    port = build_model("PoseFc", device="cpu", image_shape=hw)
+    port.load_state_dict(state_dict_from_jax(params, {}, "PoseFc"))
+    t = _nchw_list(imgs)
+    with torch.no_grad():
+        got = port(t[0], t[1:]).numpy()
+    assert got.shape == (2, 2, 6) and float(np.abs(ref[..., 3:]).max()) > 1e-3
+    assert (got[..., :3] == 0).all() and (ref[..., :3] == 0).all()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_posefc_loads_a_reference_state_dict(jax_posefc):
+    # the reference schema (fc_loc.0 columns in torch's CHW flatten order),
+    # as the JAX package exports it, loads strictly into the port and gives
+    # the flax outputs: the port flattens CHW like the reference
+    model, params = jax_posefc
+    reference = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in export_torch_state(params, {}, "PoseFc").items()}
+    port = build_model("PoseFc", device="cpu", image_shape=POSEFC_HW)
+    port.load_state_dict(reference, strict=True)
+    imgs = [RNG.normal(size=(1, *POSEFC_HW, 3)).astype(np.float32) for _ in range(3)]
+    ref = model.apply({"params": params}, jnp.asarray(imgs[0]),
+                      [jnp.asarray(imgs[1]), jnp.asarray(imgs[2])])
+    t = _nchw_list(imgs)
+    with torch.no_grad():
+        np.testing.assert_allclose(port(t[0], t[1:]).numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_posefc_seeded_init_and_rotation_gradient():
+    # seeded: the last Linear is zero (poses start at 0), the others are
+    # random with zero biases; the rotation half passes no gradient
+    gen = torch.Generator().manual_seed(3)
+    model = build_model("PoseFc", generator=gen, device="cpu", image_shape=(64, 128))
+    assert model.fc_loc[0].in_features == 12 * 1 * 1
+    assert float(model.fc_loc[4].weight.abs().max()) == 0.0
+    assert float(model.fc_loc[0].weight.std()) > 0
+    imgs = [torch.randn(2, 3, 64, 128, generator=gen) for _ in range(3)]
+    out = model(imgs[0], imgs[1:])
+    assert float(out.abs().max()) == 0.0
+    (out[..., :3].sum() * 1e3).backward()
+    assert all(p.grad is None or float(p.grad.abs().max()) == 0.0
+               for p in model.parameters())
 
 
 def test_seeded_init_is_reproducible():

@@ -45,6 +45,7 @@ from unsupervised_pseuso_lidar_tpu.train.trainer import TrainState as JaxTrainSt
 from unsupervised_pseuso_lidar_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from unsupervised_pseuso_lidar_tpu.train.trainer import make_train_step_body
 from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
+from unsupervised_pseuso_lidar_tpu_torch.eval import metrics as metrics_module
 from unsupervised_pseuso_lidar_tpu_torch.losses import total
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops import resample, ssim
@@ -440,8 +441,11 @@ def test_trainer_runs_epochs_on_the_cpu():
     unchanged = sorted(k for k, p in params.items() if torch.equal(before[k], p))
     assert unchanged == [f"decoder.decoder.{i}.conv.{n}" for i in (11, 12, 13)
                          for n in ("bias", "weight")]
+    # the synthetic batches carry groundtruth: validate adds the depth
+    # metrics (eval_pose is off in this config, so no pose metrics)
     val = trainer.validate(data.batches())
-    assert sorted(val) == ["loss"] and np.isfinite(val["loss"])
+    assert sorted(val) == sorted(["loss", *metrics_module.METRICS])
+    assert all(np.isfinite(v) for v in val.values())
     assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
     for name in ("color_jitter", "hflip"):
         bad = config.load_config(CONFIG)

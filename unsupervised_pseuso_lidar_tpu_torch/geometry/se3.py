@@ -1,8 +1,8 @@
 """SE(3) algebra for the warp: axis-angle poses -> rigid transforms.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/geometry/se3.py
-(rot_from_axisangle :101, transformation_from_parameters :153,
-pose_matrix :192, invert_pose :209). Batched, dtype-preserving.
+(euler2mat :43, rot_from_axisangle :101, transformation_from_parameters
+:153, pose_matrix :192, invert_pose :209). Batched, dtype-preserving.
 
 Conventions: batched rigid transforms are [B, 4, 4]; 6-DoF pose vectors
 are [B, 6] = (rx, ry, rz, tx, ty, tz), rotation as axis-angle.
@@ -11,6 +11,25 @@ are [B, 6] = (rx, ry, rz, tx, ty, tz), rotation as axis-angle.
 from __future__ import annotations
 
 import torch
+
+
+def euler2mat(angles: torch.Tensor) -> torch.Tensor:
+    """Euler angles [..., 3] (x, y, z, radians) -> rotation matrices
+    [..., 3, 3], R = Rx @ Ry @ Rz."""
+    x, y, z = angles[..., 0], angles[..., 1], angles[..., 2]
+    cx, sx = torch.cos(x), torch.sin(x)
+    cy, sy = torch.cos(y), torch.sin(y)
+    cz, sz = torch.cos(z), torch.sin(z)
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+
+    def mat(*entries):
+        return torch.stack(entries, dim=-1).reshape(*x.shape, 3, 3)
+
+    zmat = mat(cz, -sz, zero, sz, cz, zero, zero, zero, one)
+    ymat = mat(cy, zero, sy, zero, one, zero, -sy, zero, cy)
+    xmat = mat(one, zero, zero, zero, cx, -sx, zero, sx, cx)
+    return xmat @ ymat @ zmat
 
 
 def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import ssim_distance_fused
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
 
 
 def photometric_loss(
@@ -23,13 +24,17 @@ def photometric_loss(
     the DETACHED mean + clip_loss · std of the map when clip_loss != 0.
 
     The blend runs inside kernel B on the card (one pass over pred and
-    target), in the plain version on the CPU."""
+    target), in the plain version on the CPU. The L1 term has jnp.abs'
+    gradient rule (d|z|/dz = +1 at a tie, utils/numerics.abs_). The clamp's
+    mean and std accumulate in fp64 and are rounded once: the threshold
+    decides which pixels pass a gradient, so it must not depend on the
+    device's summation order."""
     if no_ssim:
-        photometric = torch.abs(target - pred)
+        photometric = abs_(target - pred)
     else:
         photometric = ssim_distance_fused(pred, target, ssim_weight)
     if clip_loss:
-        stats = photometric.detach()
+        stats = photometric.detach().double()
         thresh = stats.mean() + clip_loss * stats.std(correction=0)
-        photometric = torch.minimum(photometric, thresh)
+        photometric = torch.minimum(photometric, thresh.to(photometric.dtype))
     return photometric

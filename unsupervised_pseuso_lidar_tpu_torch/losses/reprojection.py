@@ -1,14 +1,18 @@
-"""Per-pixel-min photometric reprojection loss with the joint-min automask.
+"""Photometric reprojection losses: the multi-scale bidirectional objective
+('mean', 'l1', 'mse', 'ssim') and the per-pixel-min objective with the
+joint-min automask ('min').
 
 Counterpart of unsupervised_pseuso_lidar_tpu/losses/reprojection.py
-(_full_res_depth :41, min_reprojection_loss :203). The 'mean'/'l1'/'mse'/
-'ssim' modes (reprojection_loss) and the banded-warp coverage metrics are
-not ported yet.
+(_full_res_depth :41, reprojection_loss :82, min_reprojection_loss :203).
+The port's warp is exact (JAX's warp_impl='gather'), so the banded-warp
+coverage metrics have no counterpart.
 
-All warp jobs of a scale run as ONE batched warp (kernel A on the card):
-[ref0 -> tgt, ref1 -> tgt, tgt -> ref0] stacked on the batch axis, and
-their photometric errors as one kernel-B pass; the identity error of the
-unwarped (ref, tgt) pairs is one more kernel-B pass.
+All warp jobs of a call run as ONE batched warp (kernel A on the card):
+'min' stacks [ref0 -> tgt, ref1 -> tgt, tgt -> ref0] per scale, and
+computes their photometric errors as one kernel-B pass, plus one more for
+the identity error of the unwarped (ref, tgt) pairs; the other modes stack
+every scale's jobs into one warp, and 'ssim' their errors into one
+kernel-B pass.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_loss
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
-from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_, div
+
+REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
 
 
 def _full_res_depth(depth: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -43,6 +49,78 @@ def _channel_mean(err: torch.Tensor) -> torch.Tensor:
     for c in range(1, err.shape[1]):
         total = total + err[:, c]
     return div(total, err.shape[1])
+
+
+def reprojection_loss(
+    tgt: torch.Tensor,
+    refs: Sequence[torch.Tensor],
+    depths: Sequence[Sequence[torch.Tensor]],
+    poses: torch.Tensor,
+    intrinsics: torch.Tensor,
+    mode: str = "mean",
+    warp_impl: str = "gather",
+) -> torch.Tensor:
+    """Bidirectional multi-scale reprojection loss.
+
+    Args:
+      tgt, refs: [B, 3, H, W] target and the two reference frames.
+      depths: [depths_of_tgt, depths_of_ref0], each a list over scales of
+        [B, 1, h, w] depth maps (finest first).
+      poses: [B, 2, 6] target -> ref axis-angle poses.
+      intrinsics: [B, 3, 3] or [3, 3].
+      mode: 'mean' or 'l1' (|warped - target|, jnp.abs' rule at a tie),
+        'mse' ((warped - target)²) or 'ssim' (photometric_loss: the 0.85
+        SSIM + 0.15 L1 blend with its mean + 0.5 std clamp).
+    Returns the scalar loss. Each scale's depth is upsampled to full
+    resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
+    tgt's depth at weight 1/(4S), then per scale tgt -> ref0 with ref0's
+    depth and the inverted pose at weight 1/(2S); the loss is the weighted
+    sum of the per-job means.
+    """
+    if mode not in REPROJECTION_MODES:
+        raise ValueError(f"Unsupported reprojection mode: {mode}")
+    batch, _, height, width = tgt.shape
+    num_scales = len(depths[0])
+    # the per-job transforms in fp64 (device-independent coordinates, see
+    # warp_coords)
+    t0 = pose_matrix(poses[:, 0].double())
+    t1 = pose_matrix(poses[:, 1].double())
+    t0_inv = invert_pose(t0)
+
+    srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
+    fwd_w = 1.0 / (2.0 * num_scales) / 2.0
+    for scale_depth in depths[0]:
+        depth_full = _full_res_depth(scale_depth, height, width)
+        for ref, transform in ((refs[0], t0), (refs[1], t1)):
+            srcs.append(ref)
+            tgts.append(tgt)
+            transforms.append(transform)
+            depth_maps.append(depth_full)
+            weights.append(fwd_w)
+    bwd_w = 1.0 / (2.0 * num_scales)
+    for scale_depth in depths[1]:
+        srcs.append(tgt)
+        tgts.append(refs[0])
+        transforms.append(t0_inv)
+        depth_maps.append(_full_res_depth(scale_depth, height, width))
+        weights.append(bwd_w)
+
+    jobs = len(srcs)
+    if intrinsics.ndim == 2:
+        intrinsics = intrinsics[None].expand(batch, 3, 3)
+    coords = warp_coords(torch.cat(depth_maps, dim=0), torch.cat(transforms, dim=0),
+                         intrinsics.repeat(jobs, 1, 1))
+    warped = sample_with_impl(torch.cat(srcs, dim=0), coords, impl=warp_impl)
+    target = torch.cat(tgts, dim=0)
+    if mode in ("mean", "l1"):
+        err = abs_(warped - target)
+    elif mode == "mse":
+        err = (warped - target) ** 2
+    else:
+        err = photometric_loss(warped, target, no_ssim=False)
+    per_job = err.reshape(jobs, -1).mean(dim=1)
+    return torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
+                                            device=per_job.device))
 
 
 def min_reprojection_loss(

@@ -10,18 +10,14 @@ from typing import Sequence
 
 import torch
 
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_ as _abs
+
 
 def _gradients(pred: torch.Tensor):
     """(d/dx, d/dy) finite differences of [B, C, H, W] maps."""
     dy = pred[:, :, 1:, :] - pred[:, :, :-1, :]
     dx = pred[:, :, :, 1:] - pred[:, :, :, :-1]
     return dx, dy
-
-
-def _abs(z: torch.Tensor) -> torch.Tensor:
-    """|z| with jnp.abs' gradient rule, d|z|/dz = +1 at z >= 0 (torch.abs
-    gives 0 at z == 0, which bf16 disparities hit on flat regions)."""
-    return torch.where(z >= 0, z, -z)
 
 
 def smooth_loss(

@@ -1,7 +1,7 @@
 """Top-level objective: reprojection + smoothness.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/losses/total.py
-(normalize_depth :22, total_loss :53). Only mode='min' is ported.
+(normalize_depth :22, total_loss :53).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth
 from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
     min_reprojection_loss,
+    reprojection_loss,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
 
@@ -55,21 +56,24 @@ def total_loss(
       disparities: [disps_of_tgt, disps_of_ref0], each a list over scales
         of [B, 1, h, w] network outputs.
       poses: [B, 2, 6]; intrinsics: [B, 3, 3] or [3, 3].
+      mode: 'min' (min_reprojection_loss; ident_scale, no_ssim and
+        min_bidirectional apply to it only) or 'mean', 'l1', 'mse', 'ssim'
+        (reprojection_loss).
       smooth_on: 'depth' (the smoothed maps are the — normalized, with
         depth_norm — target depths) or 'disp' (the raw disparities).
     """
-    if mode != "min":
-        raise NotImplementedError(
-            f"loss mode {mode!r} is not ported yet (only 'min')"
-        )
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
         depths = [[normalize_depth(d) for d in frame] for frame in depths]
-    loss_reproj = min_reprojection_loss(
-        tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
-        ident_scale=ident_scale, no_ssim=no_ssim,
-        depths_ref0=depths[1] if min_bidirectional else None,
-    )
+    if mode == "min":
+        loss_reproj = min_reprojection_loss(
+            tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
+            ident_scale=ident_scale, no_ssim=no_ssim,
+            depths_ref0=depths[1] if min_bidirectional else None,
+        )
+    else:
+        loss_reproj = reprojection_loss(tgt, refs, depths, poses, intrinsics,
+                                        mode=mode, warp_impl=warp_impl)
     if smooth_on == "depth":
         loss_smooth = smooth_loss(depths[0], decay=smooth_decay)
     elif smooth_on == "disp":

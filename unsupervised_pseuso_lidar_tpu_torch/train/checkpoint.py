@@ -1,0 +1,198 @@
+"""Checkpoints, pretrained init and reference-schema `.pth` interop.
+
+Counterpart of unsupervised_pseuso_lidar_tpu/train/checkpoint.py
+(CheckpointManager :42-78, normalize_depth_pretrained_state :620,
+load_pretrained_depth :676, load_pretrained_pose :688,
+export_reference_checkpoint :824, load_torch_checkpoint :882).
+
+A checkpoint is one `.pth` file per epoch,
+`<directory>/epoch_<nnnnn>.pth`, holding the reference trainer's schema
+{epoch, dpth_mdl_state_dict, pose_mdl_state_dict, optimizer_state_dict}
+(the reference's trainer.py:132-137) plus `scheduler_state_dict` and
+`step`. The port's models already use the reference's state-dict keys, so
+reference tooling loads a port checkpoint's models as they are, and
+restoring one gives back every parameter, BatchNorm buffer and Adam
+moment bit for bit (JAX's orbax restore is exact too).
+
+The JAX package keeps its checkpoints as orbax directories, which the port
+cannot read (it does not import JAX). A JAX-trained model reaches the port
+through the JAX package's `cli/export --format torch`, which writes a
+reference-schema `.pth`; point `model.depth.pretrained_path` and
+`model.pose.pretrained_path` at it. Only the ported models have loaders;
+the BTS, StnDispNet and DispNetS schemas come with those models.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+_EPOCH_FILE = re.compile(r"epoch_(\d+)\.pth")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """A `.pth` file (tensors, numbers, dicts and lists only) on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _load_blob(path: str) -> Dict[str, Any]:
+    """`.npz` (numpy arrays) or `.pth` -> dict."""
+    if path.endswith(".npz"):
+        with np.load(path) as blob:
+            return {k: torch.from_numpy(blob[k]) for k in blob.files}
+    return load_torch_checkpoint(path)
+
+
+def _strip_module_prefix(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Drop DataParallel's 'module.' prefix."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
+
+
+class CheckpointManager:
+    """Per-epoch checkpoints of a TrainState under `directory`."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+
+    def path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"epoch_{epoch:05d}.pth")
+
+    def latest_epoch(self) -> Optional[int]:
+        if not os.path.isdir(self.directory):
+            return None
+        epochs = [int(m.group(1)) for name in os.listdir(self.directory)
+                  if (m := _EPOCH_FILE.fullmatch(name))]
+        return max(epochs) if epochs else None
+
+    def save(self, state, epoch: int) -> str:
+        """Write `state` (a TrainState) as epoch `epoch`; the file appears
+        whole or not at all (written aside, then renamed)."""
+        os.makedirs(self.directory, exist_ok=True)
+        path = self.path(epoch)
+        checkpoint = {
+            "epoch": int(epoch),
+            "dpth_mdl_state_dict": state.depth_model.state_dict(),
+            "pose_mdl_state_dict": state.pose_model.state_dict(),
+            "optimizer_state_dict": state.optimizer.state_dict(),
+            "scheduler_state_dict": state.scheduler.state_dict(),
+            "step": int(state.step),
+        }
+        tmp = path + ".tmp"
+        torch.save(checkpoint, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def restore(self, state, epoch: Optional[int] = None) -> Optional[int]:
+        """Load epoch `epoch` (default: the latest) into `state` in place;
+        returns the epoch restored, or None when there is no checkpoint."""
+        if epoch is None:
+            epoch = self.latest_epoch()
+        if epoch is None:
+            return None
+        checkpoint = load_torch_checkpoint(self.path(epoch))
+        state.depth_model.load_state_dict(checkpoint["dpth_mdl_state_dict"])
+        state.pose_model.load_state_dict(checkpoint["pose_mdl_state_dict"])
+        state.optimizer.load_state_dict(checkpoint["optimizer_state_dict"])
+        state.scheduler.load_state_dict(checkpoint["scheduler_state_dict"])
+        state.step = int(checkpoint["step"])
+        return int(checkpoint["epoch"])
+
+
+# --------------------------------------------------------------------------
+# pretrained init (config: model.{depth,pose}.pretrained_path)
+# --------------------------------------------------------------------------
+
+
+def normalize_depth_pretrained_state(state: Dict[str, Any]):
+    """Any supported pretrained-depth blob -> (DispResNet-schema state
+    dict, encoder_only). Accepts a full reference checkpoint (its
+    dpth_mdl_state_dict), a DispResNet state dict (encoder.encoder.* +
+    decoder.decoder.*), or a torchvision resnet state dict (conv1.weight,
+    layer1.* …: ImageNet weights, encoder only, fc.* dropped)."""
+    if "dpth_mdl_state_dict" in state:
+        state = state["dpth_mdl_state_dict"]
+    state = _strip_module_prefix(dict(state))
+    if any(k.startswith("encoder.") for k in state):
+        return state, False
+    if "conv1.weight" in state and "layer1.0.conv1.weight" in state:
+        return ({f"encoder.encoder.{k}": v for k, v in state.items()
+                 if not k.startswith("fc.")}, True)
+    raise KeyError(
+        "Unrecognized pretrained depth state dict: expected a reference "
+        "checkpoint (dpth_mdl_state_dict), a DispResNet state dict "
+        "(encoder.encoder.*), or a torchvision resnet state dict "
+        "(conv1.weight / layer1.*)"
+    )
+
+
+def load_pretrained_depth(model: nn.Module, path: str) -> None:
+    """Initialize a DispResNet from a pretrained `.pth` / `.npz` (see
+    normalize_depth_pretrained_state). An encoder-only blob must cover
+    every encoder tensor and leaves the decoder at its init; any other
+    blob loads strictly."""
+    state, encoder_only = normalize_depth_pretrained_state(_load_blob(path))
+    if not encoder_only:
+        model.load_state_dict(state)
+        return
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.startswith("decoder.")]
+    if missing or unexpected:
+        raise KeyError(f"{path}: encoder tensors missing {missing}, "
+                       f"unexpected {unexpected}")
+
+
+def load_pretrained_pose(model: nn.Module, path: str) -> None:
+    """Initialize a pose net from a full reference checkpoint (its
+    pose_mdl_state_dict) or a bare reference-schema pose state dict, as
+    `.pth` or `.npz`; strict."""
+    blob = _load_blob(path)
+    model.load_state_dict(_strip_module_prefix(blob.get("pose_mdl_state_dict", blob)))
+
+
+def fresh_adam_state_dict(n_params: int, lr: float) -> Dict[str, Any]:
+    """A torch.optim.Adam state dict for a fresh optimizer over `n_params`
+    tensors in one param group — the reference's optimizer layout."""
+    return {
+        "state": {},
+        "param_groups": [{
+            "lr": float(lr), "betas": (0.9, 0.999), "eps": 1e-8,
+            "weight_decay": 0, "amsgrad": False,
+            "params": list(range(n_params)),
+        }],
+    }
+
+
+def export_reference_checkpoint(
+    depth_model: nn.Module,
+    pose_model: nn.Module,
+    path: str,
+    *,
+    epoch: int = 0,
+    loss: Any = None,
+    valid_acc: float = 0.0,
+    lr: float = 1e-4,
+) -> Dict[str, Any]:
+    """Write the reference trainer's `.pth` schema {epoch,
+    dpth_mdl_state_dict, pose_mdl_state_dict, optimizer_state_dict, loss,
+    valid_acc} (the reference's trainer.py:129-152) from two models, with
+    a fresh single-group Adam state as the JAX export writes; returns the
+    dict."""
+    n_params = len(list(depth_model.parameters())) + len(list(pose_model.parameters()))
+    checkpoint = {
+        "epoch": int(epoch),
+        "dpth_mdl_state_dict": {k: v.detach().cpu() for k, v in
+                                depth_model.state_dict().items()},
+        "pose_mdl_state_dict": {k: v.detach().cpu() for k, v in
+                                pose_model.state_dict().items()},
+        "optimizer_state_dict": fresh_adam_state_dict(n_params, lr),
+        "loss": loss,
+        "valid_acc": float(valid_acc),
+    }
+    torch.save(checkpoint, path)
+    return checkpoint

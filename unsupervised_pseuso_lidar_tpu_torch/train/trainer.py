@@ -3,19 +3,21 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
-:231-401, make_eval_step :480, Trainer :561). Checkpoints, wandb logging,
-the mesh and the multi-step scan are not ported yet; ground-truth depth and
-pose metrics come with the evaluation slice, so the eval step ignores
-`groundtruth` and `oxts` in a batch.
+:231-401, make_eval_step :480, Trainer :561, fit :783). The mesh, the
+multi-step scan, augmentation, semi_sup_pose and the epoch-end warp images
+and weight histograms of wandb are not ported yet.
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
-intrinsics [B, 3, 3], optionally groundtruth [B, H, W] — as numpy arrays or
-tensors; `batch_to_device` moves them to the device as NCHW tensors.
+intrinsics [B, 3, 3], optionally oxts [B, 2, 6] and groundtruth
+[B, H, W] — as numpy arrays or tensors; `batch_to_device` moves them to
+the device as NCHW tensors.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -23,9 +25,16 @@ import numpy as np
 import torch
 from torch import nn
 
+from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import compute_errors, eigen_crop_mask
+from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    load_pretrained_depth,
+    load_pretrained_pose,
+)
 from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
@@ -37,10 +46,11 @@ from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
 def batch_to_device(
     batch: Dict, device: torch.device, keep_groundtruth: bool = False
 ) -> Dict[str, torch.Tensor]:
-    """{tgt [B,H,W,3], ref_imgs [B,2,H,W,3], intrinsics} (numpy or
-    tensors) -> tensors on `device`: tgt [B,3,H,W], ref_imgs [B,2,3,H,W].
-    uint8 images stay uint8 (a quarter of the fp32 bytes to copy).
-    keep_groundtruth also moves groundtruth [B, H, W] (fp32) when present."""
+    """{tgt [B,H,W,3], ref_imgs [B,2,H,W,3], intrinsics[, oxts]} (numpy or
+    tensors) -> tensors on `device`: tgt [B,3,H,W], ref_imgs [B,2,3,H,W],
+    intrinsics and oxts fp32. uint8 images stay uint8 (a quarter of the
+    fp32 bytes to copy). keep_groundtruth also moves groundtruth [B, H, W]
+    (fp32) when present."""
     def to(x):
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
 
@@ -51,6 +61,8 @@ def batch_to_device(
         "ref_imgs": refs.permute(0, 1, 4, 2, 3).contiguous(),
         "intrinsics": to(batch["intrinsics"]).to(device, torch.float32),
     }
+    if "oxts" in batch:
+        out["oxts"] = to(batch["oxts"]).to(device, torch.float32)
     if keep_groundtruth and "groundtruth" in batch:
         out["groundtruth"] = to(batch["groundtruth"]).to(device, torch.float32)
     return out
@@ -151,18 +163,20 @@ def create_train_state(
     steps_per_epoch: int = 1000,
     device: str | torch.device = "cuda",
 ) -> TrainState:
-    """Models (weights drawn from `generator`), optimizer and schedule on
+    """Models (weights drawn from `generator`, then a head's
+    pretrained_path loaded over them when set), optimizer and schedule on
     `device`."""
     device = resolve_device(device)
-    for head in (config.model.depth, config.model.pose):
-        if head.pretrained_path:
-            raise NotImplementedError(
-                "pretrained_path: loading a pretrained init is not ported yet"
-            )
-    depth_model = build_model(config.model.depth.name, generator, device,
-                              **config.model.depth.kwargs)
-    pose_model = build_model(config.model.pose.name, generator, device,
-                             **config.model.pose.kwargs)
+    depth, pose = config.model.depth, config.model.pose
+    depth_model = build_model(depth.name, generator, device,
+                              image_shape=config.image_shape, **depth.kwargs)
+    pose_model = build_model(pose.name, generator, device,
+                             image_shape=config.image_shape, **pose.kwargs)
+    if depth.pretrained_path:
+        # the reference's model of record starts from an ImageNet encoder
+        load_pretrained_depth(depth_model, depth.pretrained_path)
+    if pose.pretrained_path:
+        load_pretrained_pose(pose_model, pose.pretrained_path)
     optimizer = make_optimizer(config, depth_model, pose_model)
     sched = config.action.scheduler
     scheduler = make_lr_schedule(optimizer, sched.step_size, sched.gamma,
@@ -309,37 +323,56 @@ def make_train_step(state: TrainState, device: str | torch.device = "cuda",
 
 
 class EvalStep:
-    """step(batch) -> ({"loss": scalar tensor}, depth_pred [B, H, W]).
+    """step(batch) -> (metrics {name: 0-dim tensor}, depth_pred [B, H, W]).
 
     The models run in eval mode, under bf16 autocast when precision is
     'bf16'; their outputs are cast to fp32 before the loss, which always
     runs in fp32. As in the JAX eval step, the loss takes total_loss'
     defaults for everything but the mode and depth_norm: smoothness on the
     (normalized, with depth_norm) depth at weight 1.0 — not the training
-    config's smoothness settings — and the bidirectional automask."""
+    config's smoothness settings — and the bidirectional automask.
+
+    metrics: "loss"; with pose_metrics and `oxts` in the batch,
+    pose_{ate, ate_unscaled, rot_err_deg, scale} of the poses the loss used
+    against oxts (eval/pose.py); with `groundtruth` in the batch the depth
+    metrics of eval/metrics.py (silog, abs_rel, log10, rms, sq_rel,
+    log_rms, d1, d2, d3), median-scaled when median_scale is set.
+    eval_protocol 'eigen' is the KITTI Eigen-split monocular protocol:
+    the Garg crop, ground truth in (1e-3, 80) m and per-image median
+    scaling."""
 
     def __init__(self, depth_model: nn.Module, pose_model: nn.Module,
-                 loss_mode: str = "min", depth_norm: bool = False,
-                 precision: str = "fp32", device: str | torch.device = "cuda"):
+                 loss_mode: str = "mean", depth_norm: bool = False,
+                 precision: str = "fp32", median_scale: bool = False,
+                 eval_protocol: str = "none", pose_metrics: bool = False,
+                 device: str | torch.device = "cuda"):
         _check_precision(precision)
+        if eval_protocol not in ("none", "eigen"):
+            raise ValueError(f"Unknown eval_protocol: {eval_protocol!r}")
         self.device = resolve_device(device)
         self.depth_model = depth_model.eval()
         self.pose_model = pose_model.eval()
         self.loss_mode = loss_mode
         self.depth_norm = depth_norm
         self.precision = precision
+        self.eigen = eval_protocol == "eigen"
+        self.median_scale = median_scale or self.eigen
+        self.pose_metrics = pose_metrics
 
     @torch.no_grad()
     def loss_inputs(self, batch: Dict) -> Dict:
         """The fp32 tensors the loss consumes: normalized images, the two
-        disparity lists, poses and intrinsics."""
-        batch = normalize_uint8_batch(batch_to_device(batch, self.device))
+        disparity lists, poses and intrinsics; and the batch's groundtruth
+        and oxts when it has them."""
+        batch = normalize_uint8_batch(
+            batch_to_device(batch, self.device, keep_groundtruth=True)
+        )
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
                 self.depth_model, self.pose_model, batch, train=False
             )
-        return {
+        inputs = {
             "tgt": batch["tgt"],
             "refs": [batch["ref_imgs"][:, 0], batch["ref_imgs"][:, 1]],
             "disparities": [[d.float() for d in disps_tgt],
@@ -347,6 +380,8 @@ class EvalStep:
             "poses": poses.float(),
             "intrinsics": batch["intrinsics"],
         }
+        inputs.update({k: batch[k] for k in ("groundtruth", "oxts") if k in batch})
+        return inputs
 
     @torch.no_grad()
     def loss(self, inputs: Dict) -> torch.Tensor:
@@ -357,19 +392,40 @@ class EvalStep:
         )
         return reproj + smooth
 
+    @torch.no_grad()
+    def metrics(self, inputs: Dict, depth_pred: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The pose and depth metrics of one batch's loss inputs."""
+        out = {}
+        if self.pose_metrics and "oxts" in inputs:
+            out.update({f"pose_{k}": v for k, v in
+                        pose_errors(inputs["poses"], inputs["oxts"]).items()})
+        if "groundtruth" in inputs:
+            gt = inputs["groundtruth"]
+            mask = None
+            if self.eigen:
+                crop = eigen_crop_mask(gt.shape[-2], gt.shape[-1], gt.device)
+                mask = crop & (gt > 1e-3) & (gt < 80.0)
+            out.update(compute_errors(gt, depth_pred, mask=mask,
+                                      median_scale=self.median_scale))
+        return out
+
     def __call__(self, batch: Dict):
         inputs = self.loss_inputs(batch)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
-        return {"loss": self.loss(inputs)}, depth_pred
+        metrics = {"loss": self.loss(inputs), **self.metrics(inputs, depth_pred)}
+        return metrics, depth_pred
 
 
 def make_eval_step(depth_model: nn.Module, pose_model: nn.Module,
-                   loss_mode: str = "min", depth_norm: bool = False,
-                   precision: str = "fp32",
+                   loss_mode: str = "mean", depth_norm: bool = False,
+                   precision: str = "fp32", median_scale: bool = False,
+                   eval_protocol: str = "none", pose_metrics: bool = False,
                    device: str | torch.device = "cuda") -> EvalStep:
     """Build the validation step (see EvalStep)."""
     return EvalStep(depth_model, pose_model, loss_mode=loss_mode,
-                    depth_norm=depth_norm, precision=precision, device=device)
+                    depth_norm=depth_norm, precision=precision,
+                    median_scale=median_scale, eval_protocol=eval_protocol,
+                    pose_metrics=pose_metrics, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -378,11 +434,15 @@ def make_eval_step(depth_model: nn.Module, pose_model: nn.Module,
 
 
 class Trainer:
-    """Config -> models, optimizer, train and eval steps, epoch loop.
+    """Config -> models, optimizer, train and eval steps, checkpoints,
+    epoch loop.
 
-    The JAX Trainer without checkpoints, wandb or a mesh: from_scratch
-    False (resume) raises until checkpoints are ported. Weights come from
-    a torch.Generator seeded with action.random_seed."""
+    The JAX Trainer without a mesh. Weights come from a torch.Generator
+    seeded with action.random_seed (then pretrained_path, when set).
+    Checkpoints go to <action.checkpoint_dir>/<model.name>/epoch_<n>.pth
+    (train/checkpoint.py); with action.from_scratch False the latest one
+    is restored and training resumes at the epoch after it (checkpoints
+    are written when an epoch ends)."""
 
     def __init__(
         self,
@@ -392,13 +452,10 @@ class Trainer:
         device: str | torch.device = "cuda",
     ):
         act = config.action
-        if not act.from_scratch:
-            raise NotImplementedError(
-                "from_scratch: False (resume from a checkpoint) is not ported yet"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.log_fn = log_fn
+        self.epoch = 0
         self.steps_per_epoch = (
             max(1, len(dataset) // act.batch_size) if dataset is not None else 1000
         )
@@ -420,8 +477,17 @@ class Trainer:
         self.eval_step = make_eval_step(
             self.state.depth_model, self.state.pose_model,
             loss_mode=act.loss_mode, depth_norm=act.depth_norm,
-            precision=act.precision, device=self.device,
+            precision=act.precision, median_scale=act.eval_median_scale,
+            eval_protocol=act.eval_protocol, pose_metrics=act.eval_pose,
+            device=self.device,
         )
+        self.checkpoints = CheckpointManager(
+            os.path.join(act.checkpoint_dir, config.model.name)
+        )
+        if not act.from_scratch:
+            restored = self.checkpoints.restore(self.state)
+            if restored is not None:
+                self.epoch = restored + 1
 
     def run_epoch(self, train_batches) -> Dict[str, float]:
         """One pass over an iterable of host batches -> the last step's
@@ -437,7 +503,8 @@ class Trainer:
         return {k: float(v) for k, v in metrics.items()}
 
     def validate(self, val_batches) -> Dict[str, float]:
-        """Mean of the eval step's metrics over an iterable of batches."""
+        """Mean of the eval step's metrics over an iterable of batches (the
+        batches' groundtruth and oxts included), read from the device once."""
         sums: Dict[str, List[torch.Tensor]] = {}
         count = 0
         for batch in val_batches:
@@ -447,3 +514,35 @@ class Trainer:
             count += 1
         return {k: float(torch.stack(v).sum() / max(count, 1))
                 for k, v in sums.items()}
+
+    def fit(self, make_train_iter, make_val_iter=None) -> Dict[str, float]:
+        """Train from self.epoch to action.num_epochs: each epoch runs
+        make_train_iter(epoch), then validates on make_val_iter() (when
+        given) and logs, then saves a checkpoint. A SIGTERM or SIGINT
+        during an epoch lets it finish, checkpoints it and stops (resume
+        with from_scratch: False). Returns the last epoch's metrics."""
+        interrupted = []
+        previous = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                previous[sig] = signal.signal(sig, lambda *_: interrupted.append(1))
+        except ValueError:  # not the main thread: no handlers
+            pass
+        metrics: Dict[str, float] = {}
+        try:
+            for self.epoch in range(self.epoch, self.config.action.num_epochs):
+                metrics = self.run_epoch(make_train_iter(self.epoch))
+                if make_val_iter is not None:
+                    val = self.validate(make_val_iter())
+                    metrics.update({f"val_{k}": v for k, v in val.items()})
+                    if self.log_fn is not None:
+                        self.log_fn(metrics, self.state.step)
+                self.checkpoints.save(self.state, self.epoch)
+                if interrupted:
+                    print(f"[trainer] interrupted: checkpointed epoch {self.epoch}",
+                          flush=True)
+                    break
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+        return metrics

@@ -5,7 +5,8 @@
 arrays and returns the torch state dict that the port's model of that name
 loads with ``load_state_dict(strict=True)``. The mapping is this package's
 own copy of unsupervised_pseuso_lidar_tpu/train/checkpoint.py
-(_dispresnet_mapping :175, _pose_trunk_mapping :253, _f2t_conv :90, the
+(_dispresnet_mapping :175, _pose_trunk_mapping :253, _posefc_mapping
+:261, chw_to_hwc_permutation :109, _f2t_conv :90, _f2t_linear :106, the
 BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var rule
 of export_torch_state :705), limited to the models ported so far.
 """
@@ -23,6 +24,14 @@ _DISPRESNET_STAGE_BLOCKS = (2, 2, 2, 2)
 
 def _f2t_conv(w: np.ndarray) -> np.ndarray:  # HWIO -> OIHW
     return np.transpose(w, (3, 2, 0, 1))
+
+
+def chw_to_hwc_permutation(channels: int, height: int, width: int) -> np.ndarray:
+    """Index permutation p with p[hwc_index] = chw_index for a flattened
+    feature map: it maps a Linear's input columns between torch's CHW
+    flatten and the JAX package's HWC flatten."""
+    idx = np.arange(channels * height * width).reshape(channels, height, width)
+    return np.transpose(idx, (1, 2, 0)).reshape(-1)
 
 
 def _dispresnet_mapping(params: Any) -> Dict[str, Tuple[str, str]]:
@@ -69,7 +78,18 @@ def _posenet_mapping(params: Any) -> Dict[str, Tuple[str, str]]:
     return m
 
 
-_MAPPINGS = {"DispResNet": _dispresnet_mapping, "PoseNet": _posenet_mapping}
+def _posefc_mapping(params: Any) -> Dict[str, Tuple[str, str]]:
+    m = _posenet_mapping(params)
+    # linear_chw:<C>: the flax kernel's rows follow the HWC flatten of a
+    # C-channel map (the 12-channel pose_pred output), torch's columns CHW
+    m["Dense_0"] = ("fc_loc.0", "linear_chw:12")
+    m["Dense_1"] = ("fc_loc.2", "linear")
+    m["Dense_2"] = ("fc_loc.4", "linear")
+    return m
+
+
+_MAPPINGS = {"DispResNet": _dispresnet_mapping, "PoseNet": _posenet_mapping,
+             "PoseFc": _posefc_mapping}
 
 
 def _get_path(tree: Any, path: str) -> Any:
@@ -99,6 +119,15 @@ def state_dict_from_jax(
             out[f"{prefix}.weight"] = _f2t_conv(np.asarray(leaf["kernel"]))
             if "bias" in leaf:
                 out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
+        elif kind.startswith("linear"):
+            kernel = np.asarray(leaf["kernel"])  # (in, out)
+            if kind.startswith("linear_chw"):
+                # only the (C, H*W) split matters, not H and W apart
+                channels = int(kind.split(":", 1)[1])
+                perm = chw_to_hwc_permutation(channels, 1, kernel.shape[0] // channels)
+                kernel = kernel[np.argsort(perm)]
+            out[f"{prefix}.weight"] = kernel.T
+            out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
         else:  # bn
             out[f"{prefix}.weight"] = np.asarray(leaf["scale"])
             out[f"{prefix}.bias"] = np.asarray(leaf["bias"])
