@@ -29,6 +29,21 @@ then drives the port's entry points with seeded random weights:
   train_mean    configs/synthetic.yaml (DispResNet-18 + PoseNet, 640x192,
                 batch 12, the 'mean' objective: one stacked warp, no SSIM)
                 for 3 steps, then one step of the 'ssim' objective
+  kitti         a KITTI-shaped drive written to a temp dir (26 RGB frames of
+                1242x375 PNG, OXTS, velodyne scans of 120,000 points,
+                16-bit annotated depth PNGs); through the port's own CLIs:
+                cli.splits (annotated, drive), cli.train on basic_config
+                with color jitter and flips (1 epoch, 8 thread workers;
+                launches per step and per validation batch), one
+                semi_sup_pose step (the pose net unchanged), the loss-side
+                gradients of an augmented batch card vs CPU, cli.evaluate
+                (eigen + pose metrics; velodyne ground truth) card vs
+                --device cpu, the velodyne rasterizer card vs CPU,
+                cli.odometry with its ground-truth file; and the
+                steady-state ms a training step over two more passes of
+                the drive (the loader's first fill apart), the loader's ms
+                a batch (decode cache cold and warm) and the loop's wait
+                for batches
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -45,6 +60,8 @@ Without a CUDA device, or without the rest of the repository beside it,
 it exits non-zero and prints no result.
 """
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -56,12 +73,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 import yaml
+from PIL import Image
 
+from unsupervised_pseuso_lidar_tpu_torch.cli import evaluate as eval_cli
+from unsupervised_pseuso_lidar_tpu_torch.cli import odometry as odometry_cli
+from unsupervised_pseuso_lidar_tpu_torch.cli import splits as splits_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
+from unsupervised_pseuso_lidar_tpu_torch.data.augment import augment_batch, draw_params
+from unsupervised_pseuso_lidar_tpu_torch.data.kitti import UnSupKittiDataset
+from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
 from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
     SyntheticTripletDataset,
+    synthetic_triplet_batch,
 )
-from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import METRICS
+from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import METRICS, eigen_crop_mask
+from unsupervised_pseuso_lidar_tpu_torch.eval.trajectory import kitti_odometry_lines
+from unsupervised_pseuso_lidar_tpu_torch.geometry.calibration import Calibration
+from unsupervised_pseuso_lidar_tpu_torch.geometry.oxts import (
+    load_oxts_packets_and_poses,
+    load_velo_scan,
+)
 from unsupervised_pseuso_lidar_tpu_torch.geometry.se3 import (
     invert_pose,
     pose_matrix,
@@ -88,8 +119,17 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
     PseudoLiDAR,
 )
+from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.velo2img import (
+    project_velo_to_depth_image,
+)
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
-from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer, make_eval_step
+from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+    Trainer,
+    batch_to_device,
+    forward_batch,
+    make_eval_step,
+    normalize_uint8_batch,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import card, device_time_ms
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
@@ -136,6 +176,19 @@ BASIC_BATCHES = 3
 # crop's edges through rounding
 POINTS_ATOL = 1e-3
 POINTS_MASK_MISMATCH = 1e-3
+# kitti: KITTI's frame size (height, width), frames in the drive, points
+# a velodyne scan, thread workers of the loader, and the velodyne raster
+# card vs CPU (the same fp32 operations in the same order: values at rel
+# 1e-6, pixels set may differ only where a coordinate rounds across an edge)
+KITTI_FRAME = (375, 1242)
+KITTI_FRAMES = 26
+KITTI_POINTS = 120_000
+KITTI_WORKERS = 8
+VELO_RTOL = 1e-6
+# the real 2011_09_26 IMU -> velodyne transform
+IMU_TO_VELO = ("R: 9.999976e-01 7.553071e-04 -2.035826e-03 -7.854027e-04 "
+               "9.998898e-01 -1.482298e-02 2.024406e-03 1.482454e-02 9.998881e-01\n"
+               "T: -8.086759e-01 3.195559e-01 -7.997231e-01\n")
 
 
 def emit(record):
@@ -184,7 +237,7 @@ def bound(nbytes, ops):
 
 def write_calib(directory, height, width):
     """A KITTI-format calib for the frame size: the 2011_09_26 camera scaled
-    to the image, the real velodyne->camera transform."""
+    to the image, the real velodyne->camera and IMU->velodyne transforms."""
     fx = 721.5377 * width / 1242.0
     fy = 721.5377 * height / 375.0
     cx, cy = width / 2.0, height * 0.46
@@ -198,7 +251,7 @@ def write_calib(directory, height, width):
                 "7.280733e-04 -9.998902e-01 9.998621e-01 7.523790e-03 "
                 "1.480755e-02\nT: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
     with open(os.path.join(directory, "calib_imu_to_velo.txt"), "w") as f:
-        f.write("R: 1 0 0 0 1 0 0 0 1\nT: 0 0 0\n")
+        f.write(IMU_TO_VELO)
 
 
 def main(device="cuda:0"):
@@ -343,6 +396,14 @@ def main(device="cuda:0"):
 
     # 13. the 'mean' and 'ssim' objectives on configs/synthetic.yaml
     train_mean_phase(device)
+
+    # 14. the KITTI path: splits, training, evaluation and odometry on a
+    # KITTI-shaped drive through the CLIs
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti_launches = kitti_phase(device, tmp)
+    for name, record in records_1280.items():
+        record["launches_kitti"] = kitti_launches[name]
+    torch.cuda.empty_cache()
 
     emit({"kernels": list(records.values()) + list(records_1280.values())})
     print(card(), flush=True)
@@ -633,18 +694,20 @@ def train_phase(config, device, batch_size, height, width):
     return launches
 
 
-def loss_grad_rel(trainer, batch):
+def loss_grad_rel(trainer, batch, inputs=None):
     """The loss-side gradients of one step: the batch's fp32 loss inputs
-    (disparities of both frames, poses) as leaves, the trainer's training
-    objective on the card (kernels) and on the CPU (plain versions) ->
-    {leaf: rel L2 of the card's gradient against the CPU's}."""
+    (disparities of both frames, poses; or `inputs`, in the eval step's
+    loss_inputs form) as leaves, the trainer's training objective on the
+    card (kernels) and on the CPU (plain versions) -> {leaf: rel L2 of the
+    card's gradient against the CPU's}."""
     act = trainer.config.action
-    inputs = trainer.eval_step.loss_inputs(batch)
+    if inputs is None:
+        inputs = trainer.eval_step.loss_inputs(batch)
 
     def loss_grads(inp):
         leaves = [d.clone().requires_grad_() for d in
                   (inp["disparities"][0][0], inp["disparities"][1][0], inp["poses"])]
-        reproj, smooth = total_loss(
+        reproj, smooth, _ = total_loss(
             inp["tgt"], inp["refs"], [[leaves[0]], [leaves[1]]], leaves[2],
             inp["intrinsics"], mode=act.loss_mode, smooth_weight=act.smooth_weight,
             smooth_on=act.smooth_on, depth_norm=act.depth_norm,
@@ -768,8 +831,7 @@ def eval_metrics_phase(trainer, device, steps=3):
     on_gpu = {k: float(v) for k, v in step.metrics(inputs, depth_pred).items()}
     on_cpu = {k: float(v) for k, v in
               step.metrics(_to_cpu(inputs), depth_pred.cpu()).items()}
-    rel = {k: abs(on_gpu[k] - on_cpu[k]) / abs(on_cpu[k]) if on_cpu[k] else
-           abs(on_gpu[k]) for k in on_cpu}
+    rel = {k: _rel(on_gpu[k], on_cpu[k]) for k in on_cpu}
     emit({"phase": "eval_metrics", "protocol": config.action.eval_protocol,
           "pose_metrics": config.action.eval_pose, "steps": steps,
           "ms_per_step_host": host_ms, "metrics": val, "launches": launches,
@@ -820,6 +882,357 @@ def train_mean_phase(device):
     emit(out)
     for ok, what in checks:
         check(ok, what)
+
+
+def write_kitti_drive(root):
+    """A KITTI raw drive at KITTI's frame size under root/kitti and its
+    data_depth_annotated tree under root/depth: KITTI_FRAMES RGB PNGs (the
+    synthetic scene's slanted textured plane, seen by a camera stepping 8
+    pixels a frame), OXTS lines of a car driving ~1 m a frame and turning
+    slightly, velodyne scans of KITTI_POINTS points (some behind the car or
+    out of frame) and, for the interior frames, 16-bit depth PNGs of the
+    scan rasterized at the frame size. Returns (kitti root, depth root,
+    drive directory)."""
+    height, width = KITTI_FRAME
+    date = "2011_09_26"
+    drive = f"{date}_drive_0001_sync"
+    date_dir = os.path.join(root, "kitti", date)
+    drive_dir = os.path.join(date_dir, drive)
+    dirs = {name: os.path.join(drive_dir, name, "data")
+            for name in ("image_02", "oxts", "velodyne_points")}
+    gt_dir = os.path.join(root, "depth", "train", drive, "proj_depth", "groundtruth",
+                          "image_02")
+    for d in (*dirs.values(), gt_dir):
+        os.makedirs(d)
+    write_calib(date_dir, height, width)
+    calib = Calibration(date_dir)
+    velo_to_rect = torch.from_numpy((calib.R_rect @ calib.T_velo_cam).astype(np.float32))
+    proj = torch.from_numpy(calib.P.astype(np.float32))
+    step_px = 8
+    strip = synthetic_triplet_batch(1, height, width + step_px * KITTI_FRAMES, seed=SEED,
+                                    slant_deg=20.0)["tgt"][0]
+    strip = (strip * 255).astype(np.uint8)
+    rng = np.random.default_rng(SEED)
+    rest = " ".join(["0.0"] * 17) + " 0.05 0.02 4 10 4 0 4"
+    for k in range(KITTI_FRAMES):
+        name = f"{k:010d}"
+        Image.fromarray(strip[:, step_px * k: step_px * k + width]).save(
+            os.path.join(dirs["image_02"], name + ".png"))
+        with open(os.path.join(dirs["oxts"], name + ".txt"), "w") as f:
+            f.write(f"{49.0 + 6e-6 * k:.10f} {8.43 + 1e-5 * k:.10f} {114.5 + 0.01 * k:.4f} "
+                    f"0.01 0.005 {0.3 + 0.002 * k:.6f} {rest}\n")
+        scan = np.stack([rng.uniform(-20.0, 80.0, KITTI_POINTS),
+                         rng.uniform(-40.0, 40.0, KITTI_POINTS),
+                         rng.uniform(-2.5, 2.0, KITTI_POINTS),
+                         rng.uniform(0.0, 1.0, KITTI_POINTS)], -1).astype(np.float32)
+        scan.tofile(os.path.join(dirs["velodyne_points"], name + ".bin"))
+        if 0 < k < KITTI_FRAMES - 1:
+            depth = project_velo_to_depth_image(torch.from_numpy(scan), velo_to_rect, proj,
+                                                width, height).numpy()
+            Image.fromarray(np.round(depth * 256.0).astype(np.uint16)).save(
+                os.path.join(gt_dir, name + ".png"))
+    return os.path.join(root, "kitti"), os.path.join(root, "depth"), drive_dir
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output captured -> (result, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def kitti_phase(device, tmp):
+    """The KITTI path through the port's CLIs on a KITTI-shaped drive (see
+    write_kitti_drive). Prints the phase's record, then checks it; returns
+    the kernels' launches of the training CLI's run."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "kitti", "frame": list(KITTI_FRAME), "frames": KITTI_FRAMES,
+                   "points_per_scan": KITTI_POINTS}, []
+    t0 = time.perf_counter()
+    kitti_root, depth_root, drive_dir = write_kitti_drive(os.path.join(tmp, "data"))
+    out["write_seconds"] = time.perf_counter() - t0
+
+    # 1. split files through cli.splits
+    annotated, drive_split = os.path.join(tmp, "annotated.txt"), os.path.join(tmp, "drive.txt")
+    ann_lines, _ = _quiet(splits_cli.main, ["annotated", "--kitti", kitti_root, "--depth",
+                                            depth_root, "--out", annotated])
+    drv_lines, _ = _quiet(splits_cli.main, ["drive", "--drive", drive_dir, "--out", drive_split])
+    out["split_lines"] = {"annotated": len(ann_lines), "drive": len(drv_lines)}
+    checks.append((len(ann_lines) == len(drv_lines) == KITTI_FRAMES - 2,
+                   f"split lines {out['split_lines']}"))
+
+    # 2. cli.train on basic_config pointed at the drive: color jitter and
+    # flips, 1 epoch, thread workers
+    with open(BASIC_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    raw["datasets"].update(path=kitti_root, split=annotated)
+    raw["datasets"]["augmentation"].update(color_jitter=True, hflip=True)
+    raw["action"].update(checkpoint_dir=os.path.join(tmp, "checkpoints"), log_freq=1,
+                         num_workers=KITTI_WORKERS)
+    config_path = os.path.join(tmp, "kitti_config.yaml")
+    with open(config_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    config = load_config(config_path)
+    batch_size = config.action.batch_size
+    val_count = int(np.floor(config.action.split[1] * len(ann_lines)))
+    steps, val_batches = (len(ann_lines) - val_count) // batch_size, val_count // batch_size
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, log = _quiet(train_cli.main, ["--config", config_path, "--epochs", "1"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    records = [json.loads(line) for line in log.splitlines() if line.startswith("{")]
+    losses = [r["loss"] for r in records if "loss" in r]
+    files = sorted(os.listdir(trainer.checkpoints.directory))
+    per_step, per_val = expected_launches("min"), {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 0,
+                                                    "ssim_fwd": 2, "ssim_bwd": 0}
+    expected = {k: steps * per_step[k] + val_batches * per_val[k] for k in per_step}
+    out["train"] = {"config": "configs/basic_config.yaml", "batch": batch_size,
+                    "image": list(config.image_shape), "steps": steps,
+                    "val_batches": val_batches, "cli_seconds": cli_s, "losses": losses,
+                    "last_record": records[-1] if records else None, "launches": launches,
+                    "expected_launches": expected, "checkpoints": files}
+    checks += [
+        (launches == expected, f"kitti CLI launches {launches}, expected {expected}"),
+        (len(losses) == steps + 1 and np.isfinite(losses).all(), f"kitti losses {losses}"),
+        (files == ["epoch_00000.pth"], f"kitti checkpoints {files}"),
+    ]
+
+    # the same trainer over two more passes of the drive in one loader
+    # (8 threads, no decode cache) through prefetch_to_device, timed in the
+    # steady state: a CUDA event recorded after each step, ms a step from
+    # the first step's end to the last's (the loader's first fill, which
+    # the first step waits for, stays out), and the loop's wait for each
+    # batch, the first apart from the rest
+    dataset = UnSupKittiDataset(config)
+    train_idx, _ = dataset.train_val_indices(config.action.random_seed, config.action.split[1],
+                                             config.datasets.augmentation.shuffle)
+    trainer.log_fn = None  # no host sync a step
+    step_fn, ends = trainer.train_step, []
+
+    def timed_step(b):
+        result = step_fn(b)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return result
+
+    trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.run_epoch(prefetch_to_device(
+        dataset.batches(train_idx * 2, batch_size, KITTI_WORKERS, with_groundtruth=False),
+        device=device))
+    torch.cuda.synchronize()
+    out["timed_seconds"] = time.perf_counter() - t0
+    trainer.train_step = step_fn
+    waits = [w * 1e3 for w in trainer.batch_waits]
+    out["steps_timed"] = len(ends)
+    out["ms_per_step"] = ends[0].elapsed_time(ends[-1]) / (len(ends) - 1)
+    out["first_batch_wait_ms"] = waits[0]
+    out["wait_ms_per_step"] = float(np.mean(waits[1:]))
+    out["wait_ms_each_step"] = waits
+    out["final_metrics"] = metrics
+    checks.append((all(np.isfinite(v) for v in metrics.values()), f"kitti metrics {metrics}"))
+
+    # 3. one semi_sup_pose step (no flips): the pose net does not move
+    raw_semi = dict(raw, action=dict(raw["action"], semi_sup_pose=True),
+                    datasets=dict(raw["datasets"], augmentation=dict(
+                        raw["datasets"]["augmentation"], hflip=False)))
+    semi_path = os.path.join(tmp, "kitti_semi.yaml")
+    with open(semi_path, "w") as f:
+        yaml.safe_dump(raw_semi, f)
+    semi = Trainer(load_config(semi_path), dataset, device=device)
+    batch = next(iter(dataset.batches(train_idx[:batch_size], batch_size, KITTI_WORKERS,
+                                      with_groundtruth=False)))
+    pose_before = {k: v.clone() for k, v in semi.state.pose_model.state_dict().items()}
+    depth_before = {k: v.clone() for k, v in semi.state.depth_model.state_dict().items()}
+    kernels.reset_launch_counts()
+    semi_metrics = semi.run_epoch([batch])
+    semi_launches = dict(kernels.launch_counts)
+    pose_moved = [k for k, v in semi.state.pose_model.state_dict().items()
+                  if not torch.equal(v, pose_before[k])]
+    depth_moved = sum(not torch.equal(v, depth_before[k])
+                      for k, v in semi.state.depth_model.state_dict().items())
+    out["semi_sup_pose"] = {"metrics": semi_metrics, "pose_tensors_changed": len(pose_moved),
+                            "depth_tensors_changed": depth_moved, "launches": semi_launches}
+    checks += [
+        (not pose_moved, f"semi_sup_pose moved the pose net: {pose_moved[:5]}"),
+        (depth_moved > 0, "semi_sup_pose did not train the depth net"),
+        (all(np.isfinite(v) for v in semi_metrics.values()), f"semi metrics {semi_metrics}"),
+        (semi_launches == per_step, f"semi launches {semi_launches}"),
+    ]
+    del semi
+
+    # 4. the loss-side gradients of one augmented batch, card vs CPU: the
+    # parameters drawn once, applied on each device
+    params = draw_params(batch_size, config.action.random_seed, trainer.state.step)
+    on_card = augment_batch(normalize_uint8_batch(batch_to_device(batch, device)), params,
+                            jitter=True, flip=True)
+    on_cpu = augment_batch(normalize_uint8_batch(batch_to_device(batch, torch.device("cpu"))),
+                           params, jitter=True, flip=True)
+    aug_err = max(max_err(on_card[k].cpu(), on_cpu[k]) for k in ("tgt", "ref_imgs", "intrinsics"))
+    with torch.no_grad():
+        d_tgt, d_ref0, poses = forward_batch(trainer.state.depth_model,
+                                             trainer.state.pose_model, on_card)
+    inputs = {"tgt": on_card["tgt"],
+              "refs": [on_card["ref_imgs"][:, 0], on_card["ref_imgs"][:, 1]],
+              "disparities": [[d.float() for d in d_tgt], [d.float() for d in d_ref0]],
+              "poses": poses.float(), "intrinsics": on_card["intrinsics"]}
+    grad_rel = loss_grad_rel(trainer, None, inputs)
+    out["augmented_grads"] = {"flips": int(params.flip.sum()),
+                              "augmented_inputs_max_abs_err_cuda_vs_cpu": aug_err,
+                              "loss_grad_rel_l2_cuda_vs_cpu": grad_rel}
+    checks += [(aug_err <= 1e-6, f"augmentation card vs CPU: {aug_err}"),
+               (max(grad_rel.values()) <= GRAD_REL_L2,
+                f"augmented loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}")]
+    del trainer, on_card, on_cpu, inputs
+    torch.cuda.empty_cache()
+
+    # 5. cli.evaluate from the epoch-0 checkpoint: the Eigen protocol and
+    # pose metrics on the annotated split, velodyne ground truth on the
+    # drive split; the card (kernels) vs --device cpu (plain versions).
+    # The two runs' model forwards are independent (cuDNN vs the CPU's
+    # convolutions, ~1e-6 apart): the metrics continuous in the depth map
+    # are held at METRIC_RTOL, and d1-d3 — fractions of pixels under a
+    # ratio threshold, where a pixel within 1e-6 of 1.25^k crosses it — to
+    # one pixel an image. Every metric is held at METRIC_RTOL on the same
+    # tensors (a KITTI batch's loss inputs on the card and on the CPU).
+    out["evaluate"] = {}
+    eval_batches = 1  # the CPU run of DispResNet-18 at 1280x384 dominates the phase
+    for label, extra in (("annotated_eigen", ["--protocol", "eigen", "--pose-metrics"]),
+                         ("drive_velo_gt", ["--split", drive_split, "--velo-gt",
+                                            "--protocol", "eigen"])):
+        argv = ["--config", config_path, "--max-batches", str(eval_batches), *extra]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card_metrics, _ = _quiet(eval_cli.main, argv)
+        card_s = time.perf_counter() - t0
+        eval_launches = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        cpu_metrics, _ = _quiet(eval_cli.main, [*argv, "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        rel = {k: _rel(card_metrics[k], cpu_metrics[k]) for k in cpu_metrics}
+        # one pixel an image: the mean over images of 1 / valid pixels
+        eval_config = load_config(config_path)
+        if "--velo-gt" in extra:
+            eval_config.datasets.split, eval_config.datasets.velo_gt = drive_split, True
+        eval_data = UnSupKittiDataset(eval_config)
+        crop = eigen_crop_mask(*eval_config.image_shape)
+        valid = [int((crop & (gt > 1e-3) & (gt < 80.0)).sum()) for gt in (
+            torch.from_numpy(eval_data.load_sample(i)["groundtruth"])
+            for i in range(min(len(eval_data), eval_batches * batch_size)))]
+        one_pixel = float(np.mean([1.0 / n for n in valid]))
+        thresholds = ("d1", "d2", "d3")
+        out["evaluate"][label] = {"metrics_cuda": card_metrics, "metrics_cpu": cpu_metrics,
+                                  "rel_err_cuda_vs_cpu": rel, "cuda_seconds": card_s,
+                                  "cpu_seconds": cpu_s,
+                                  "valid_pixels": valid, "one_pixel_an_image": one_pixel,
+                                  "launches": eval_launches}
+        want = ["loss", *METRICS] + (["pose_ate", "pose_ate_unscaled", "pose_rot_err_deg",
+                                      "pose_scale"] if "--pose-metrics" in extra else [])
+        continuous = {k: v for k, v in rel.items() if k not in thresholds}
+        flips = {k: abs(card_metrics[k] - cpu_metrics[k]) for k in thresholds}
+        checks += [
+            (sorted(card_metrics) == sorted(want), f"{label} metrics {sorted(card_metrics)}"),
+            (all(np.isfinite(v) for v in card_metrics.values()), f"{label}: {card_metrics}"),
+            (max(continuous.values()) <= METRIC_RTOL,
+             f"{label} cuda vs cpu: {continuous} > {METRIC_RTOL}"),
+            (max(flips.values()) <= one_pixel * (1 + 1e-6),
+             f"{label} d1-d3 cuda vs cpu: {flips} > one pixel an image {one_pixel}"),
+            (eval_launches == {k: eval_batches * v for k, v in per_val.items()},
+             f"{label} launches {eval_launches}"),
+        ]
+    restored = Trainer(load_config(config_path), dataset, device=device)
+    restored.checkpoints.restore(restored.state)
+    step = make_eval_step(restored.state.depth_model, restored.state.pose_model,
+                          loss_mode=config.action.loss_mode, depth_norm=config.action.depth_norm,
+                          eval_protocol="eigen", pose_metrics=True, device=device)
+    inputs = step.loss_inputs(next(iter(dataset.batches(list(range(batch_size)), batch_size,
+                                                        KITTI_WORKERS))))
+    depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
+    same_card = {k: float(v) for k, v in step.metrics(inputs, depth_pred).items()}
+    same_cpu = {k: float(v) for k, v in
+                step.metrics(_to_cpu(inputs), depth_pred.cpu()).items()}
+    same_rel = {k: _rel(same_card[k], same_cpu[k]) for k in same_cpu}
+    out["evaluate"]["same_tensors"] = {"metrics_cuda": same_card, "rel_err_cuda_vs_cpu": same_rel}
+    checks += [(max(same_rel.values()) <= METRIC_RTOL,
+                f"metrics on the same tensors cuda vs cpu: {same_rel} > {METRIC_RTOL}"),
+               (len(same_card) == len(METRICS) + 4, f"same-tensor metrics {sorted(same_card)}")]
+    del restored, step, inputs
+
+    # 6. the velodyne rasterizer on one full scan at the training size
+    height, width = config.image_shape
+    calib = Calibration(os.path.dirname(drive_dir))
+    proj = calib.P.astype(np.float32).copy()
+    proj[0] *= width / KITTI_FRAME[1]
+    proj[1] *= height / KITTI_FRAME[0]
+    scan = torch.from_numpy(load_velo_scan(os.path.join(drive_dir, "velodyne_points", "data",
+                                                        "0000000000.bin")))
+    velo_to_rect = torch.from_numpy((calib.R_rect @ calib.T_velo_cam).astype(np.float32))
+    args = (velo_to_rect, torch.from_numpy(proj), width, height)
+    cpu_img = project_velo_to_depth_image(scan, *args)
+    card_scan = scan.to(device)
+    card_img = project_velo_to_depth_image(card_scan, *args).cpu()
+    both = (card_img > 0) & (cpu_img > 0)
+    differ = int(((card_img > 0) != (cpu_img > 0)).sum())
+    value_rel = float(((card_img - cpu_img).abs() / cpu_img.clamp(min=1e-9))[both].max())
+    out["velo2img"] = {"points": int(scan.shape[0]), "pixels_set": int((cpu_img > 0).sum()),
+                       "pixels_differing": differ, "max_rel_err": value_rel,
+                       "ms": device_time_ms(lambda: project_velo_to_depth_image(
+                           card_scan, *args))}
+    checks += [(differ <= 2, f"velo2img card vs CPU: {differ} pixels differ"),
+               (value_rel <= VELO_RTOL, f"velo2img values: rel {value_rel}")]
+
+    # 7. cli.odometry over the drive, and its ground truth against a
+    # float64 recomputation from the OXTS files
+    poses_out, gt_out = os.path.join(tmp, "poses.txt"), os.path.join(tmp, "gt_poses.txt")
+    t0 = time.perf_counter()
+    odo, _ = _quiet(odometry_cli.main, ["--config", config_path, "--out", poses_out,
+                                        "--gt-out", gt_out])
+    odo_s = time.perf_counter() - t0
+    with open(poses_out) as f:
+        pred_lines = f.read().splitlines()
+    with open(gt_out) as f:
+        gt_lines = f.read().splitlines()
+    world = load_oxts_packets_and_poses(sorted(
+        os.path.join(drive_dir, "oxts", "data", n)
+        for n in os.listdir(os.path.join(drive_dir, "oxts", "data"))))
+    c = calib.imu_to_cam
+    t0_inv = np.linalg.inv(world[0])
+    recomputed = kitti_odometry_lines(
+        np.stack([c @ t0_inv @ t @ np.linalg.inv(c) for t in world]))
+    out["odometry"] = {"lines": len(pred_lines), "gt_lines": len(gt_lines),
+                       "gt_equals_recomputation": gt_lines == recomputed,
+                       "metrics": odo, "seconds": odo_s}
+    checks += [
+        (len(pred_lines) == len(gt_lines) == KITTI_FRAMES, f"odometry lines {out['odometry']}"),
+        (gt_lines == recomputed, "the odometry GT file differs from the float64 recomputation"),
+        (all(np.isfinite(odo[k]) for k in odo if k.startswith("pose_")), f"odometry {odo}"),
+    ]
+
+    # the loader alone: ms a batch at KITTI_WORKERS threads (decode, resize,
+    # OXTS), the decoded-image cache cold and then warm
+    config.datasets.cache_dir = os.path.join(tmp, "decode_cache")
+    cached = UnSupKittiDataset(config)
+    for label in ("cold", "warm"):
+        t0 = time.perf_counter()
+        count = sum(1 for _ in cached.batches(train_idx, batch_size, KITTI_WORKERS,
+                                              with_groundtruth=False))
+        out[f"loader_ms_per_batch_{label}"] = (time.perf_counter() - t0) * 1e3 / count
+    out["loader_workers"] = KITTI_WORKERS
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return launches
 
 
 def _to_cpu(tree):

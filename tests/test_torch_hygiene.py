@@ -72,8 +72,11 @@ def test_importing_the_port_loads_no_jax():
 def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
+    from unsupervised_pseuso_lidar_tpu_torch.cli import evaluate as eval_cli
+    from unsupervised_pseuso_lidar_tpu_torch.cli import odometry as odometry_cli
     from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
     from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
+    from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
     from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
         DepthToPointCloudPipeline,
@@ -117,6 +120,10 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: next(prefetch_to_device(iter([{"x": np.zeros(2)}]))),
         lambda: train_cli.main(["--config", str(cfg), "--synthetic", "--epochs", "1",
                                 "--synthetic-batches", "1"]),
+        lambda: train_cli.main(["--config", str(cfg), "--epochs", "1"]),  # KITTI
+        lambda: eval_cli.main(["--config", str(cfg)]),
+        lambda: odometry_cli.main(["--config", str(cfg), "--out", str(tmp_path / "p.txt")]),
+        lambda: make_pose_eval_step(pose),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -91,13 +91,46 @@ def test_min_reprojection_loss_matches_jax(bidirectional, ident_scale, no_ssim):
         no_ssim=no_ssim, warp_impl="gather", ident_scale=ident_scale,
         depths_ref0=[jnp.asarray(d) for d in depths_ref0] if bidirectional else None,
     )
-    got = reprojection.min_reprojection_loss(
+    got, _ = reprojection.min_reprojection_loss(
         _nchw(tgt), [_nchw(ref0), _nchw(ref1)], [_nchw(d) for d in depths],
         torch.from_numpy(poses), torch.from_numpy(K), no_ssim=no_ssim,
         ident_scale=ident_scale,
         depths_ref0=[_nchw(d) for d in depths_ref0] if bidirectional else None,
     )
     np.testing.assert_allclose(float(got), float(ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("bidirectional,ident_scale", [(True, 1.0), (False, 1.0), (True, 1.5)])
+def test_automask_keep_matches_jax(bidirectional, ident_scale):
+    # the fraction of pixels whose warp error wins the joint min (JAX
+    # reports it with with_coverage): atol 1e-6, and the loss at rel 1e-5
+    rng = np.random.default_rng(22)
+    tgt, ref0, ref1 = _frames(rng)
+    poses = _poses(rng)
+    depths = [rng.uniform(2.0, 8.0, (B, H // 2 ** s, W // 2 ** s, 1)).astype(np.float32)
+              for s in range(2)]
+    depths_ref0 = [d * rng.uniform(0.9, 1.1, d.shape).astype(np.float32) for d in depths]
+    ref_loss, coverage = jax_reprojection.min_reprojection_loss(
+        jnp.asarray(tgt), [jnp.asarray(ref0), jnp.asarray(ref1)],
+        [jnp.asarray(d) for d in depths], jnp.asarray(poses), jnp.asarray(K),
+        warp_impl="gather", ident_scale=ident_scale, with_coverage=True,
+        depths_ref0=[jnp.asarray(d) for d in depths_ref0] if bidirectional else None,
+    )
+    args = ([_nchw(tgt), _nchw(ref0), _nchw(ref1)], [_nchw(d) for d in depths])
+    kwargs = dict(ident_scale=ident_scale,
+                  depths_ref0=[_nchw(d) for d in depths_ref0] if bidirectional else None)
+    loss, keep = reprojection.min_reprojection_loss(
+        args[0][0], args[0][1:], args[1], torch.from_numpy(poses), torch.from_numpy(K),
+        **kwargs)
+    assert 0.0 < float(coverage["automask_keep"]) < 1.0  # both outcomes occur
+    np.testing.assert_allclose(float(keep), float(coverage["automask_keep"]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    # total_loss hands it out in 'min' mode only
+    disps = [[_nchw(d) for d in depths], [_nchw(d) for d in depths_ref0]]
+    for mode, keys in (("min", ["automask_keep"]), ("mean", [])):
+        *_, extra = total.total_loss(args[0][0], args[0][1:], disps, torch.from_numpy(poses),
+                                     torch.from_numpy(K), mode=mode)
+        assert sorted(extra) == keys
 
 
 @pytest.mark.parametrize("smooth_on", ["depth", "disp"])
@@ -121,7 +154,8 @@ def test_total_loss_matches_jax(smooth_on):
         torch.from_numpy(intr), mode="min", smooth_on=smooth_on,
         smooth_weight=0.001, depth_norm=True,
     )
-    for g, r in zip(got, ref):
+    assert len(got) == 3 and sorted(got[2]) == ["automask_keep"]
+    for g, r in zip(got[:2], ref):
         np.testing.assert_allclose(float(g), float(r), rtol=1e-5)
 
 
@@ -198,7 +232,8 @@ def test_total_loss_other_modes_match_jax(mode):
         [[_nchw(d) for d in f] for f in disps], torch.from_numpy(poses),
         torch.from_numpy(K), mode=mode,
     )
-    for g, r in zip(got, ref):
+    assert len(got) == 3 and got[2] == {}
+    for g, r in zip(got[:2], ref):
         np.testing.assert_allclose(float(g), float(r), rtol=1e-5)
 
 

@@ -254,7 +254,7 @@ def test_loss_gradients_match_jax():
     )
     leaves = [_nchw(disps[0]).requires_grad_(), _nchw(disps[1]).requires_grad_(),
               torch.from_numpy(poses).requires_grad_()]
-    reproj, smooth = total.total_loss(
+    reproj, smooth, _ = total.total_loss(
         _nchw(tgt), [_nchw(ref0), _nchw(ref1)], [[leaves[0]], [leaves[1]]],
         leaves[2], torch.from_numpy(intr), mode="min", **LOSS_SETTINGS,
     )
@@ -301,20 +301,20 @@ def jax_models():
     return depth, pose, params, stats
 
 
-def _jax_step(jax_models, batch, accum_steps):
+def _jax_step(jax_models, batch, accum_steps, **step_kwargs):
     depth, pose, params, stats = jax_models
     tx = _grads_in_opt_state()
     body = make_train_step_body(depth, pose, tx, loss_mode="min", warp_impl="gather",
-                                accum_steps=accum_steps, **STEP_SETTINGS)
+                                accum_steps=accum_steps, **STEP_SETTINGS, **step_kwargs)
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
                           batch_stats={"depth": stats, "pose": {}},
                           opt_state=tx.init(params))
-    jax_batch = {k: jnp.asarray(batch[k]) for k in ("tgt", "ref_imgs", "intrinsics")}
+    jax_batch = {k: jnp.asarray(batch[k]) for k in ("tgt", "ref_imgs", "intrinsics", "oxts")}
     new_state, metrics = jax.jit(body)(state, jax_batch)
     return new_state, metrics
 
 
-def _port_step(jax_models, batch, accum_steps):
+def _port_step(jax_models, batch, accum_steps, **step_kwargs):
     _, _, params, stats = jax_models
     depth = build_model("DispResNet", device="cpu")
     depth.load_state_dict(state_dict_from_jax(params["depth"], stats, "DispResNet"))
@@ -324,22 +324,28 @@ def _port_step(jax_models, batch, accum_steps):
     optimizer = make_optimizer(cfg, depth, pose)
     state = TrainState(depth, pose, optimizer, make_lr_schedule(optimizer, 30, 0.1, 1))
     step = make_train_step(state, device="cpu", loss_mode="min",
-                           accum_steps=accum_steps, **STEP_SETTINGS)
+                           accum_steps=accum_steps, **STEP_SETTINGS, **step_kwargs)
     metrics = step(batch)
     assert state.step == 1
     return depth, pose, metrics
 
 
-def _compare_steps(jax_models, batch_size, accum_steps, seed):
+def _compare_steps(jax_models, batch_size, accum_steps, seed, oxts=None, **step_kwargs):
     # loss rel 1e-4 (the eval step's tolerance); every gradient per
     # state-dict key at rel L2 <= 1e-3, and the median key at 1e-4;
-    # BatchNorm running statistics after the step at 1e-5
+    # BatchNorm running statistics after the step at 1e-5. The port's
+    # automask_keep has no JAX counterpart with the gather warp (JAX
+    # reports it beside the banded warp's coverage; see test_losses)
     batch = next(SyntheticTripletDataset(1, batch_size, HEIGHT, WIDTH, seed=seed,
                                          uint8_images=True).batches())
-    new_state, ref = _jax_step(jax_models, batch, accum_steps)
-    depth, pose, got = _port_step(jax_models, batch, accum_steps)
+    if oxts is not None:
+        batch["oxts"] = oxts.astype(np.float32)
+    new_state, ref = _jax_step(jax_models, batch, accum_steps, **step_kwargs)
+    depth, pose, got = _port_step(jax_models, batch, accum_steps, **step_kwargs)
 
-    assert sorted(got) == sorted(ref) == ["loss", "mul_app_loss", "smoothness_loss"]
+    assert sorted(ref) == ["loss", "mul_app_loss", "smoothness_loss"]
+    assert sorted(got) == sorted([*ref, "automask_keep"])
+    assert 0.0 < float(got["automask_keep"]) <= 1.0
     for key in ref:
         np.testing.assert_allclose(float(got[key]), float(ref[key]), rtol=1e-4,
                                    err_msg=key)
@@ -370,10 +376,28 @@ def _compare_steps(jax_models, batch_size, accum_steps, seed):
         if key.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(buffers[key].numpy(), value.numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=key)
+    return depth, pose
 
 
 def test_train_step_matches_jax(jax_models):
     _compare_steps(jax_models, batch_size=2, accum_steps=1, seed=1)
+
+
+def test_semi_supervised_train_step_matches_jax(jax_models):
+    # semi_sup_pose: the batch's OXTS poses replace the pose net's, which
+    # then gets no gradient (JAX: zeros; the port: none) and does not move.
+    # The poses are drawn at the pose head's scale (jax_models): the
+    # synthetic scene's 0.3 m baseline would push every sample out of frame
+    # at the ~0.2 m depths of a fresh disparity head, leaving no
+    # photometric gradient to compare
+    oxts = (np.random.default_rng(6).normal(size=(2, 2, 6))
+            * np.array([0.005] * 3 + [0.03] * 3))
+    _, pose = _compare_steps(jax_models, batch_size=2, accum_steps=1, seed=3,
+                             oxts=oxts, semi_sup_pose=True)
+    assert all(p.grad is None for p in pose.parameters())
+    _, _, params, _ = jax_models
+    for key, value in state_dict_from_jax(params["pose"], {}, "PoseNet").items():
+        assert torch.equal(pose.state_dict()[key], value), key
 
 
 def test_accumulated_train_step_matches_jax(jax_models):
@@ -422,8 +446,9 @@ def test_adam_and_step_lr_match_optax(pose_lr):
 def test_trainer_runs_epochs_on_the_cpu():
     # the entry point end to end at a small size: run_epoch counts optimizer
     # steps and changes every parameter with a gradient (not the unused
-    # scale 1-3 disparity heads), validate averages the eval step, the
-    # wrappers launch nothing on the CPU, unported options raise
+    # scale 1-3 disparity heads) and records its waits for batches,
+    # validate averages the eval step, the wrappers launch nothing on the
+    # CPU, and hflip with semi_sup_pose is refused
     cfg = config.load_config(CONFIG)
     cfg.datasets.augmentation.image_height, cfg.datasets.augmentation.image_width = 32, 64
     cfg.action.batch_size, cfg.action.precision = 2, "fp32"
@@ -436,7 +461,7 @@ def test_trainer_runs_epochs_on_the_cpu():
     kernels.reset_launch_counts()
     metrics = trainer.run_epoch(data.batches())
     assert trainer.state.step == 2 and logged == [1, 2]
-    assert sorted(metrics) == ["loss", "mul_app_loss", "smoothness_loss"]
+    assert sorted(metrics) == ["automask_keep", "loss", "mul_app_loss", "smoothness_loss"]
     assert all(np.isfinite(v) for v in metrics.values())
     unchanged = sorted(k for k, p in params.items() if torch.equal(before[k], p))
     assert unchanged == [f"decoder.decoder.{i}.conv.{n}" for i in (11, 12, 13)
@@ -447,8 +472,9 @@ def test_trainer_runs_epochs_on_the_cpu():
     assert sorted(val) == sorted(["loss", *metrics_module.METRICS])
     assert all(np.isfinite(v) for v in val.values())
     assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
-    for name in ("color_jitter", "hflip"):
-        bad = config.load_config(CONFIG)
-        setattr(bad.datasets.augmentation, name, True)
-        with pytest.raises(NotImplementedError, match=name):
-            Trainer(bad, device="cpu")
+    assert len(trainer.batch_waits) == 2 and min(trainer.batch_waits) >= 0.0
+    # the config refuses what cannot be combined: a flip with OXTS poses
+    bad = config.load_config(CONFIG)
+    bad.datasets.augmentation.hflip = bad.action.semi_sup_pose = True
+    with pytest.raises(ValueError, match="hflip"):
+        bad.validate()

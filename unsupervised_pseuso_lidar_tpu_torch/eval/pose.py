@@ -1,7 +1,7 @@
 """Pose / ego-motion evaluation: snippet ATE and geodesic rotation error.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/eval/pose.py (_to_matrices
-:45, pose_errors :59, pose_forward :109). Per 3-frame snippet the
+:45, pose_errors :59, pose_forward :109, make_pose_eval_step :123). Per 3-frame snippet the
 predicted translations are scale-aligned to the ground truth by the least-
 squares factor s = <t_gt, t_pred> / <t_pred, t_pred> (monocular training
 has a global scale ambiguity), and the RMSE over the snippet's transforms
@@ -42,10 +42,15 @@ def pose_errors(
     eps: float = 1e-8,
 ) -> Dict[str, torch.Tensor]:
     """[B, N, 6] predicted and ground-truth tgt -> ref pose vectors ->
-    {'ate', 'ate_unscaled', 'rot_err_deg', 'scale'} as 0-dim tensors (ATE in
-    the ground truth's unit; scale is the mean least-squares factor)."""
-    rot_p, t_p = _to_matrices(pred_poses.float(), pred_mode)
-    rot_g, t_g = _to_matrices(gt_poses.float(), gt_mode)
+    {'ate', 'ate_unscaled', 'rot_err_deg', 'scale'} as 0-dim float64
+    tensors on the inputs' device (ATE in the ground truth's unit; scale is
+    the mean least-squares factor).
+
+    The work runs in float64: the rotation error is the arccos of a trace
+    next to 3, where one fp32 ulp of the trace moves a sub-degree angle by
+    ~1 %, so fp32 would leave the card and the CPU that far apart."""
+    rot_p, t_p = _to_matrices(pred_poses.double(), pred_mode)
+    rot_g, t_g = _to_matrices(gt_poses.double(), gt_mode)
 
     num = torch.sum(t_g * t_p, dim=(-2, -1))
     den = torch.clamp(torch.sum(t_p * t_p, dim=(-2, -1)), min=eps)
@@ -69,3 +74,32 @@ def pose_forward(pose_model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch
     """The pose net on a NORMALIZED NCHW batch -> [B, 2, 6]."""
     refs: Sequence[torch.Tensor] = [batch["ref_imgs"][:, 0], batch["ref_imgs"][:, 1]]
     return pose_model(batch["tgt"], refs)
+
+
+def make_pose_eval_step(pose_model: nn.Module, semi_sup_pose: bool = False,
+                        device: str | torch.device = "cuda"):
+    """step(batch) -> pose_errors of the pose net (eval mode) against the
+    batch's `oxts`, for host batches of the training schema (uint8 or
+    normalized NHWC images). The pose-only surface: the validation step
+    computes the same metrics from the pose forward its loss ran. With
+    semi_sup_pose the "prediction" is the oxts itself, so every error is
+    0 by construction."""
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+        batch_to_device,
+        normalize_uint8_batch,
+    )
+    from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    @torch.no_grad()
+    def step(batch) -> Dict[str, torch.Tensor]:
+        batch = normalize_uint8_batch(batch_to_device(batch, device))
+        if semi_sup_pose:
+            poses = batch["oxts"]
+        else:
+            pose_model.eval()
+            poses = pose_forward(pose_model, batch)
+        return pose_errors(poses, batch["oxts"])
+
+    return step

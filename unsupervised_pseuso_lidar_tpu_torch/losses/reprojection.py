@@ -133,7 +133,7 @@ def min_reprojection_loss(
     warp_impl: str = "gather",
     ident_scale: float = 1.0,
     depths_ref0: Sequence[torch.Tensor] | None = None,
-) -> torch.Tensor:
+):
     """monodepth2-style per-pixel minimum over the two references, with
     the joint-min automask: per pixel min(min_r reproj_r, min_r ident_r ·
     ident_scale + 1e-5), so static pixels contribute the identity error
@@ -148,7 +148,10 @@ def min_reprojection_loss(
         backward leg (tgt warped into ref0's frame with the inverted pose,
         automasked against the same identity pair) averaged with the
         forward direction.
-    Returns the scalar loss, mean over scales.
+    Returns (the scalar loss, mean over scales; automask_keep, the
+    fraction of pixels whose warp error wins the joint min — the pixels
+    that still carry photometric gradient — the two directions averaged,
+    then the scales, as JAX's with_coverage reports it; detached).
     """
     batch, _, height, width = tgt.shape
     bidirectional = depths_ref0 is not None
@@ -185,6 +188,7 @@ def min_reprojection_loss(
     ident_bwd = ident_pair[:batch].float() * ident_scale + 1e-5
 
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
+    keeps = []
     for i, scale_depth in enumerate(depths):
         depth_full = _full_res_depth(scale_depth, height, width)
         depth_maps = [depth_full, depth_full]
@@ -196,9 +200,12 @@ def min_reprojection_loss(
             warped, target, no_ssim=no_ssim, clip_loss=0.0
         ))  # [jobs*B, H, W]
         err_f = torch.minimum(err[:batch], err[batch : 2 * batch])
+        keep = (err_f <= ident).float().mean()
         scale_loss = torch.minimum(err_f, ident).mean()
         if bidirectional:
+            keep = 0.5 * (keep + (err[2 * batch :] <= ident_bwd).float().mean())
             err_b = torch.minimum(err[2 * batch :], ident_bwd)
             scale_loss = 0.5 * (scale_loss + err_b.mean())
+        keeps.append(keep)
         total = total + scale_loss
-    return total / len(depths)
+    return total / len(depths), torch.stack(keeps).mean().detach()

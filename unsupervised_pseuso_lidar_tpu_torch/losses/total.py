@@ -49,7 +49,9 @@ def total_loss(
     no_ssim: bool = False,
     min_bidirectional: bool = True,
 ):
-    """(reprojection_loss, smooth_weight · smoothness_loss).
+    """(reprojection_loss, smooth_weight · smoothness_loss, extra): extra
+    is {"automask_keep": fraction} in 'min' mode (min_reprojection_loss),
+    {} in the others.
 
     Args:
       tgt, refs: [B, 3, H, W] target and the two reference frames.
@@ -65,8 +67,9 @@ def total_loss(
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
         depths = [[normalize_depth(d) for d in frame] for frame in depths]
+    extra = {}
     if mode == "min":
-        loss_reproj = min_reprojection_loss(
+        loss_reproj, extra["automask_keep"] = min_reprojection_loss(
             tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
             ident_scale=ident_scale, no_ssim=no_ssim,
             depths_ref0=depths[1] if min_bidirectional else None,
@@ -80,4 +83,4 @@ def total_loss(
         loss_smooth = smooth_loss(disparities[0], decay=smooth_decay)
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
-    return loss_reproj, smooth_weight * loss_smooth
+    return loss_reproj, smooth_weight * loss_smooth, extra

@@ -3,9 +3,9 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/train/config.py, kept as a
 copy so the port never imports the JAX package: the same schema, defaults
 and validation, so every file under configs/ loads unchanged. Keys that
-only tune the TPU build (warp_impl, warp_col_band, num_workers,
-worker_type, remat) are parsed and ignored by the port — its warp is the
-one exact kernel whatever warp_impl says.
+only tune the TPU build (warp_impl, warp_col_band, remat) are parsed and
+ignored by the port — its warp is the one exact kernel whatever warp_impl
+says.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ class ActionConfig:
     num_epochs: int = 30
     num_workers: int = 8
     # 'thread' | 'process': process workers keep every host core decoding
-    # (PIL holds the GIL through resize/normalize; see data/kitti.batches)
+    # (the OXTS parse and the collation hold the GIL; see data/kitti.batches)
     worker_type: str = "thread"
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)

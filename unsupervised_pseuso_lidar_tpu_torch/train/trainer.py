@@ -4,8 +4,8 @@ Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
 :231-401, make_eval_step :480, Trainer :561, fit :783). The mesh, the
-multi-step scan, augmentation, semi_sup_pose and the epoch-end warp images
-and weight histograms of wandb are not ported yet.
+multi-step scan and the epoch-end warp images and weight histograms of
+wandb are not ported yet.
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
@@ -16,8 +16,10 @@ the device as NCHW tensors.
 
 from __future__ import annotations
 
+import itertools
 import os
 import signal
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from unsupervised_pseuso_lidar_tpu_torch.data.augment import augment_batch, draw_params
 from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import compute_errors, eigen_crop_mask
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth
@@ -88,11 +91,14 @@ def forward_batch(
     pose_model: nn.Module,
     batch: Dict[str, torch.Tensor],
     train: bool = False,
+    semi_sup_pose: bool = False,
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
     """Depth (tgt and ref0 stacked into one 2B pass, so train-mode
     BatchNorm statistics come from the joint batch, as in JAX) and pose
     forward on a normalized NCHW batch, the models in train or eval mode
-    -> (disps_tgt, disps_ref0, poses)."""
+    -> (disps_tgt, disps_ref0, poses). With semi_sup_pose the poses are
+    the batch's OXTS odometry [B, 2, 6] and the pose net does not run (so
+    it gets no gradient)."""
     depth_model.train(train)
     pose_model.train(train)
     tgt = batch["tgt"]
@@ -102,7 +108,10 @@ def forward_batch(
     disps = depth_model(torch.cat([tgt, ref0], dim=0))
     disps_tgt = [d[:bsz] for d in disps]
     disps_ref0 = [d[bsz:] for d in disps]
-    poses = pose_model(tgt, [ref0, ref1])
+    if semi_sup_pose:
+        poses = batch["oxts"]
+    else:
+        poses = pose_model(tgt, [ref0, ref1])
     return disps_tgt, disps_ref0, poses
 
 
@@ -186,10 +195,16 @@ def create_train_state(
 
 class TrainStep:
     """step(batch) -> metrics {loss, mul_app_loss, smoothness_loss[,
-    supervised_loss]} as 0-dim tensors (no host sync): one optimizer step.
+    automask_keep][, supervised_loss]} as 0-dim tensors (no host sync): one
+    optimizer step. automask_keep ('min' only) is the fraction of pixels
+    whose warp error wins the joint-min automask.
 
     The body of the JAX make_train_step_body: uint8 images normalized on
-    the device; the models in train mode under bf16 autocast when
+    the device; with color_jitter / hflip, the augmentations of
+    data/augment.py on the normalized batch, their parameters drawn from
+    (aug_seed, step) (a CPU generator, then moved to the device); with
+    semi_sup_pose, the batch's OXTS poses in place of the pose net's; the
+    models in train mode under bf16 autocast when
     precision is 'bf16'; disparities and poses cast to fp32 and the loss
     computed OUTSIDE the autocast region (autocast would otherwise run
     warp_coords' 3x3 products in bf16); the automask warm-up scale; the
@@ -217,19 +232,17 @@ class TrainStep:
         remat: bool = False,
         color_jitter: bool = False,
         hflip: bool = False,
+        aug_seed: int = 0,
         precision: str = "fp32",
         device: str | torch.device = "cuda",
     ):
-        for flag, name in ((semi_sup_pose, "semi_sup_pose"),
-                           (color_jitter, "color_jitter"), (hflip, "hflip")):
-            if flag:
-                raise NotImplementedError(f"{name} is not ported yet")
         _check_precision(precision)
         if accum_steps < 1:
             raise ValueError("accum_steps must be >= 1")
         self.device = resolve_device(device)
         self.state = state
         self.loss_mode = loss_mode
+        self.semi_sup_pose = semi_sup_pose
         self.smooth_weight = smooth_weight
         self.smooth_on = smooth_on
         self.depth_norm = depth_norm
@@ -238,6 +251,9 @@ class TrainStep:
         self.min_bidirectional = min_bidirectional
         self.supervised_weight = supervised_weight
         self.accum_steps = accum_steps
+        self.color_jitter = color_jitter
+        self.hflip = hflip
+        self.aug_seed = aug_seed
         self.precision = precision
 
     def _ident_scale(self) -> float:
@@ -253,11 +269,12 @@ class TrainStep:
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
-                state.depth_model, state.pose_model, batch, train=True
+                state.depth_model, state.pose_model, batch, train=True,
+                semi_sup_pose=self.semi_sup_pose,
             )
         disps_tgt = [d.float() for d in disps_tgt]
         disps_ref0 = [d.float() for d in disps_ref0]
-        reproj, smooth = total_loss(
+        reproj, smooth, extra = total_loss(
             batch["tgt"], [batch["ref_imgs"][:, 0], batch["ref_imgs"][:, 1]],
             [disps_tgt, disps_ref0], poses.float(), batch["intrinsics"],
             mode=self.loss_mode, smooth_weight=self.smooth_weight,
@@ -266,7 +283,6 @@ class TrainStep:
             min_bidirectional=self.min_bidirectional,
         )
         loss = reproj + smooth
-        extra = {}
         if self.supervised_weight and "groundtruth" in batch:
             # masked L1 in meters on the finest-scale depth; gt == 0 means
             # no LiDAR return
@@ -285,6 +301,10 @@ class TrainStep:
         batch = normalize_uint8_batch(batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
         ))
+        if self.color_jitter or self.hflip:
+            params = draw_params(batch["tgt"].shape[0], self.aug_seed, state.step)
+            batch = augment_batch(batch, params, jitter=self.color_jitter,
+                                  flip=self.hflip)
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
         state.optimizer.zero_grad(set_to_none=True)
@@ -334,7 +354,8 @@ class EvalStep:
 
     metrics: "loss"; with pose_metrics and `oxts` in the batch,
     pose_{ate, ate_unscaled, rot_err_deg, scale} of the poses the loss used
-    against oxts (eval/pose.py); with `groundtruth` in the batch the depth
+    against oxts (eval/pose.py; with semi_sup_pose the loss uses the oxts
+    poses themselves, so these are 0 by construction); with `groundtruth` in the batch the depth
     metrics of eval/metrics.py (silog, abs_rel, log10, rms, sq_rel,
     log_rms, d1, d2, d3), median-scaled when median_scale is set.
     eval_protocol 'eigen' is the KITTI Eigen-split monocular protocol:
@@ -345,6 +366,7 @@ class EvalStep:
                  loss_mode: str = "mean", depth_norm: bool = False,
                  precision: str = "fp32", median_scale: bool = False,
                  eval_protocol: str = "none", pose_metrics: bool = False,
+                 semi_sup_pose: bool = False,
                  device: str | torch.device = "cuda"):
         _check_precision(precision)
         if eval_protocol not in ("none", "eigen"):
@@ -358,6 +380,7 @@ class EvalStep:
         self.eigen = eval_protocol == "eigen"
         self.median_scale = median_scale or self.eigen
         self.pose_metrics = pose_metrics
+        self.semi_sup_pose = semi_sup_pose
 
     @torch.no_grad()
     def loss_inputs(self, batch: Dict) -> Dict:
@@ -370,7 +393,8 @@ class EvalStep:
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
-                self.depth_model, self.pose_model, batch, train=False
+                self.depth_model, self.pose_model, batch, train=False,
+                semi_sup_pose=self.semi_sup_pose,
             )
         inputs = {
             "tgt": batch["tgt"],
@@ -385,7 +409,7 @@ class EvalStep:
 
     @torch.no_grad()
     def loss(self, inputs: Dict) -> torch.Tensor:
-        reproj, smooth = total_loss(
+        reproj, smooth, _ = total_loss(
             inputs["tgt"], inputs["refs"], inputs["disparities"],
             inputs["poses"], inputs["intrinsics"], mode=self.loss_mode,
             depth_norm=self.depth_norm,
@@ -397,8 +421,8 @@ class EvalStep:
         """The pose and depth metrics of one batch's loss inputs."""
         out = {}
         if self.pose_metrics and "oxts" in inputs:
-            out.update({f"pose_{k}": v for k, v in
-                        pose_errors(inputs["poses"], inputs["oxts"]).items()})
+            errors = pose_errors(inputs["poses"], inputs["oxts"])
+            out.update({f"pose_{k}": v for k, v in errors.items()})
         if "groundtruth" in inputs:
             gt = inputs["groundtruth"]
             mask = None
@@ -420,12 +444,14 @@ def make_eval_step(depth_model: nn.Module, pose_model: nn.Module,
                    loss_mode: str = "mean", depth_norm: bool = False,
                    precision: str = "fp32", median_scale: bool = False,
                    eval_protocol: str = "none", pose_metrics: bool = False,
+                   semi_sup_pose: bool = False,
                    device: str | torch.device = "cuda") -> EvalStep:
     """Build the validation step (see EvalStep)."""
     return EvalStep(depth_model, pose_model, loss_mode=loss_mode,
                     depth_norm=depth_norm, precision=precision,
                     median_scale=median_scale, eval_protocol=eval_protocol,
-                    pose_metrics=pose_metrics, device=device)
+                    pose_metrics=pose_metrics, semi_sup_pose=semi_sup_pose,
+                    device=device)
 
 
 # --------------------------------------------------------------------------
@@ -456,6 +482,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.log_fn = log_fn
         self.epoch = 0
+        self.batch_waits: List[float] = []
         self.steps_per_epoch = (
             max(1, len(dataset) // act.batch_size) if dataset is not None else 1000
         )
@@ -472,14 +499,14 @@ class Trainer:
             supervised_weight=act.supervised_weight,
             accum_steps=act.accum_steps, remat=act.remat,
             color_jitter=aug.color_jitter, hflip=aug.hflip,
-            precision=act.precision,
+            aug_seed=act.random_seed, precision=act.precision,
         )
         self.eval_step = make_eval_step(
             self.state.depth_model, self.state.pose_model,
             loss_mode=act.loss_mode, depth_norm=act.depth_norm,
             precision=act.precision, median_scale=act.eval_median_scale,
             eval_protocol=act.eval_protocol, pose_metrics=act.eval_pose,
-            device=self.device,
+            semi_sup_pose=act.semi_sup_pose, device=self.device,
         )
         self.checkpoints = CheckpointManager(
             os.path.join(act.checkpoint_dir, config.model.name)
@@ -491,9 +518,18 @@ class Trainer:
 
     def run_epoch(self, train_batches) -> Dict[str, float]:
         """One pass over an iterable of host batches -> the last step's
-        metrics as floats (read from the device once, at the end)."""
+        metrics as floats (read from the device once, at the end).
+        self.batch_waits holds the seconds the loop waited for each batch
+        of the epoch (host clock; the steps before it run on unawaited)."""
         metrics = None
-        for i, batch in enumerate(train_batches):
+        self.batch_waits = []
+        batches = iter(train_batches)
+        for i in itertools.count():
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            self.batch_waits.append(time.perf_counter() - t0)
             metrics = self.train_step(batch)
             if self.log_fn is not None and (i + 1) % self.config.action.log_freq == 0:
                 self.log_fn({k: float(v) for k, v in metrics.items()},
