@@ -44,6 +44,18 @@ then drives the port's entry points with seeded random weights:
                 the drive (the loader's first fill apart), the loader's ms
                 a batch (decode cache cold and warm) and the loop's wait
                 for batches
+  serve_cli     the serving CLIs on the kitti phase's drive, configs/tpu_v5e.yaml
+                (640x192, bf16) with the seeded weights written as a reference
+                .pth: cli.pipeline with one camera (unpaced, lossless queue,
+                .bin clouds, read back and one frame held to the in-process
+                pipeline) and with two (the drive twice), frames/s of each;
+                the latency a frame at the reference's 10 Hz (FileImageSource
+                + run, latest-wins queue), from the source yielding a frame
+                to its result; cli.export of configs/basic_config.yaml
+                (1280x384) fused with the projector, batch-polymorphic, with
+                --verify, then run_exported at batch 1 and 2 against the live
+                module; cli.inference with a .bin cloud. A, A', B and C are
+                launched no time: the serving path holds no kernel of ops/cuda
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -62,6 +74,7 @@ it exits non-zero and prints no result.
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -76,7 +89,10 @@ import yaml
 from PIL import Image
 
 from unsupervised_pseuso_lidar_tpu_torch.cli import evaluate as eval_cli
+from unsupervised_pseuso_lidar_tpu_torch.cli import export as export_cli
+from unsupervised_pseuso_lidar_tpu_torch.cli import inference as inference_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import odometry as odometry_cli
+from unsupervised_pseuso_lidar_tpu_torch.cli import pipeline as pipeline_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import splits as splits_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
 from unsupervised_pseuso_lidar_tpu_torch.data.augment import augment_batch, draw_params
@@ -112,9 +128,15 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
     photometric_map_bwd,
 )
+from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import (
+    load_exported,
+    make_depth_cloud_fn,
+    make_depth_fn,
+    run_exported,
+)
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
     DepthToPointCloudPipeline,
-    depth_fn_from_model,
+    FileImageSource,
 )
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
     PseudoLiDAR,
@@ -122,10 +144,15 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.velo2img import (
     project_velo_to_depth_image,
 )
+from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
+    export_reference_checkpoint,
+    load_serving_weights,
+)
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     Trainer,
     batch_to_device,
+    create_train_state,
     forward_batch,
     make_eval_step,
     normalize_uint8_batch,
@@ -185,6 +212,12 @@ KITTI_FRAMES = 26
 KITTI_POINTS = 120_000
 KITTI_WORKERS = 8
 VELO_RTOL = 1e-6
+# serve_cli: the reference pipeline's replay rate; a CLI's cloud and depth
+# against the in-process pipeline's on the same device and program; an
+# exported program against its live module (cli.export --verify's bound)
+SERVE_RATE_HZ = 10.0
+SERVE_RTOL = 1e-6
+EXPORT_TOL = 2e-5
 # the real 2011_09_26 IMU -> velodyne transform
 IMU_TO_VELO = ("R: 9.999976e-01 7.553071e-04 -2.035826e-03 -7.854027e-04 "
                "9.998898e-01 -1.482298e-02 2.024406e-03 1.482454e-02 9.998881e-01\n"
@@ -311,7 +344,7 @@ def main(device="cuda:0"):
     with tempfile.TemporaryDirectory() as calib_dir:
         write_calib(calib_dir, height, width)
         pipeline = DepthToPointCloudPipeline(
-            depth_fn_from_model(depth_model, config.action.precision),
+            make_depth_fn(depth_model, precision=config.action.precision),
             PseudoLiDAR(calib_dir, device=device), device=device,
         )
         pipeline.process(frames[0])  # warm-up (cuDNN algorithm choice)
@@ -398,9 +431,11 @@ def main(device="cuda:0"):
     train_mean_phase(device)
 
     # 14. the KITTI path: splits, training, evaluation and odometry on a
-    # KITTI-shaped drive through the CLIs
+    # KITTI-shaped drive through the CLIs; 15. the serving CLIs on its frames
     with tempfile.TemporaryDirectory() as tmp:
-        kitti_launches = kitti_phase(device, tmp)
+        kitti_launches, drive_dir = kitti_phase(device, tmp)
+        torch.cuda.empty_cache()
+        serve_cli_phase(device, tmp, drive_dir)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
     torch.cuda.empty_cache()
@@ -949,7 +984,8 @@ def _rel(a, b):
 def kitti_phase(device, tmp):
     """The KITTI path through the port's CLIs on a KITTI-shaped drive (see
     write_kitti_drive). Prints the phase's record, then checks it; returns
-    the kernels' launches of the training CLI's run."""
+    (the kernels' launches of the training CLI's run, the drive's
+    directory)."""
     t_phase = time.perf_counter()
     out, checks = {"phase": "kitti", "frame": list(KITTI_FRAME), "frames": KITTI_FRAMES,
                    "points_per_scan": KITTI_POINTS}, []
@@ -1232,7 +1268,184 @@ def kitti_phase(device, tmp):
     emit(out)
     for ok, what in checks:
         check(ok, what)
-    return launches
+    return launches, drive_dir
+
+
+def serve_cli_phase(device, tmp, drive_dir):
+    """The serving stack through the port's CLIs on the kitti phase's drive
+    (KITTI_FRAMES PNGs of 1242x375 and its calib; see the module
+    docstring). Prints the phase's record, then checks it."""
+    t_phase = time.perf_counter()
+    image_dir = os.path.join(drive_dir, "image_02", "data")
+    calib_dir = os.path.dirname(drive_dir)
+    config = load_config(CONFIG)
+    height, width = config.image_shape
+    out = {"phase": "serve_cli", "config": "configs/tpu_v5e.yaml", "height": height,
+           "width": width, "precision": config.action.precision, "frames": KITTI_FRAMES}
+    checks = []
+    # the seeded models as a reference-schema .pth, the weights every CLI
+    # below serves
+    weights = os.path.join(tmp, "serve_weights.pth")
+    seeded = create_train_state(config, torch.Generator().manual_seed(SEED + 13), device=device)
+    export_reference_checkpoint(seeded.depth_model, seeded.pose_model, weights)
+    del seeded
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # 1. cli.pipeline, one camera, unpaced, lossless, .bin clouds (twice:
+    # the first run also pays for the process's first cuDNN plans)
+    base = ["--calib", calib_dir, "--config", CONFIG, "--torch-checkpoint", weights,
+            "--height", str(height), "--width", str(width), "--queue-size",
+            str(2 * KITTI_FRAMES), "--format", "bin"]
+    one = {}
+    for run in ("first", "second"):
+        save = os.path.join(tmp, f"clouds_one_{run}")
+        t0 = time.perf_counter()
+        one[run], _ = _quiet(pipeline_cli.main, ["--images", image_dir, *base, "--save-dir", save])
+        one[run]["cli_seconds"] = time.perf_counter() - t0
+    files = sorted(os.listdir(save))
+    clouds = [load_velo_scan(os.path.join(save, name)) for name in files]
+    out["one_camera"] = dict(one, frames_per_s=one["second"]["hz"])
+    checks += [
+        (all(r["frames"] == KITTI_FRAMES and r["streams"] == 1 for r in one.values()),
+         f"one camera: {one}"),
+        (files == [f"cloud_{i:06d}.bin" for i in range(KITTI_FRAMES)], f"cloud files {files}"),
+        (all(c.ndim == 2 and c.shape[1] == 4 and len(c) > 0 and np.isfinite(c).all()
+             for c in clouds), "a .bin cloud does not read back as [N, 4] finite points"),
+    ]
+
+    # 2. two cameras: the drive twice, one batch-2 forward a rig step
+    save2 = os.path.join(tmp, "clouds_two")
+    t0 = time.perf_counter()
+    two, _ = _quiet(pipeline_cli.main, ["--images", image_dir, image_dir, *base,
+                                        "--save-dir", save2])
+    two["cli_seconds"] = time.perf_counter() - t0
+    files2 = sorted(os.listdir(save2))
+    out["two_cameras"] = dict(two, rig_steps_per_s=two["hz"], frames_per_s=2 * two["hz"])
+    checks += [
+        (two["frames"] == KITTI_FRAMES and two["streams"] == 2, f"two cameras: {two}"),
+        (files2 == [f"cloud_cam{c}_{i:06d}.bin" for c in range(2) for i in range(KITTI_FRAMES)],
+         f"two-camera cloud files: {len(files2)}"),
+        (all(len(load_velo_scan(os.path.join(save2, n))) > 0 for n in files2),
+         "an empty two-camera cloud"),
+    ]
+
+    # 3. the in-process pipeline on the same weights and device: one
+    # frame's cloud as the CLI saved it, then the latency a frame at 10 Hz
+    state = create_train_state(config, torch.Generator().manual_seed(config.action.random_seed),
+                               device=device)
+    load_serving_weights(config, state, torch_checkpoint=weights)
+    pipeline = DepthToPointCloudPipeline(
+        make_depth_fn(state.depth_model, precision=config.action.precision),
+        PseudoLiDAR(calib_dir, device=device), device=device)
+    frame = 5
+    source = FileImageSource(image_dir, size_hw=(height, width))
+    in_process = pipeline.process(next(itertools.islice(iter(source), frame, None)), frame)
+    same_shape = in_process.points.shape == clouds[frame].shape
+    cloud_err = (float(np.abs(in_process.points - clouds[frame]).max()) if same_shape
+                 else float("inf"))
+    out["cloud_vs_in_process"] = {"frame": frame, "points": len(clouds[frame]),
+                                  "in_process_points": len(in_process.points),
+                                  "max_abs_err": cloud_err}
+    checks.append((same_shape and np.allclose(in_process.points, clouds[frame],
+                                              rtol=SERVE_RTOL, atol=0.0),
+                   f"CLI cloud vs in-process: {out['cloud_vs_in_process']}"))
+
+    yielded, latencies = {}, []
+
+    def stamped(frames):
+        for i, img in enumerate(frames):
+            yielded[i] = time.perf_counter()
+            yield img
+
+    def on_result(result):
+        latencies.append((time.perf_counter() - yielded[result.frame_index]) * 1e3)
+
+    paced = FileImageSource(image_dir, rate_hz=SERVE_RATE_HZ, size_hw=(height, width))
+    processed = pipeline.run(stamped(paced), on_result, queue_size=1)
+    out["paced"] = {"rate_hz": SERVE_RATE_HZ, "queue_size": 1, "frames": processed,
+                    "latency_ms_median": float(np.median(latencies)),
+                    "latency_ms_max": float(np.max(latencies)), "latency_ms": latencies}
+    checks.append((processed == len(latencies) == KITTI_FRAMES,
+                   f"paced run processed {processed} of {KITTI_FRAMES}"))
+
+    # 4. cli.inference on one frame with a .bin cloud: the in-process depth
+    cloud_path = os.path.join(tmp, "inference_cloud.bin")
+    depth, _ = _quiet(inference_cli.main, [
+        "--config", CONFIG, "--image", os.path.join(image_dir, f"{frame:010d}.png"),
+        "--torch-checkpoint", weights, "--calib", calib_dir, "--cloud", cloud_path])
+    inf_cloud = load_velo_scan(cloud_path)
+    depth_rel = float(np.max(np.abs(depth - in_process.depth) / in_process.depth))
+    out["inference"] = {"depth_shape": list(depth.shape), "points": len(inf_cloud),
+                        "depth_max_rel_err_vs_in_process": depth_rel}
+    checks += [(depth.shape == (height, width) and np.isfinite(depth).all(),
+                f"inference depth {depth.shape}"),
+               (depth_rel <= SERVE_RTOL, f"inference depth vs in-process: rel {depth_rel}"),
+               (len(inf_cloud) > 0 and np.isfinite(inf_cloud).all(), "inference cloud")]
+    del state, pipeline
+    torch.cuda.empty_cache()
+
+    # 5. cli.export on basic_config (1280x384, fp32) fused with the
+    # projector, batch-polymorphic, --verify; then run_exported at batch 1
+    # and 2 against the live fused module
+    basic = load_config(BASIC_CONFIG)
+    b_height, b_width = basic.image_shape
+    artifact = os.path.join(tmp, "depth_cloud.pt2")
+    t0 = time.perf_counter()
+    _, log = _quiet(export_cli.main, ["--config", BASIC_CONFIG, "--out", artifact,
+                                      "--torch-checkpoint", weights, "--calib", calib_dir,
+                                      "--batch-poly", "--verify"])
+    export_s = time.perf_counter() - t0
+    with open(artifact + ".json") as f:
+        sidecar = json.load(f)
+    state = create_train_state(basic, torch.Generator().manual_seed(basic.action.random_seed),
+                               device=device)
+    _quiet(load_serving_weights, basic, state, weights)  # PoseFc: a pose warning
+    live = make_depth_cloud_fn(make_depth_fn(state.depth_model, precision=basic.action.precision),
+                               PseudoLiDAR(calib_dir, device=device))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    runs, close = {}, []
+    for batch in (1, 2):
+        img = torch.rand(batch, b_height, b_width, 3, generator=gen, device=device) * 2 - 1
+        got = run_exported(artifact, img)
+        with torch.no_grad():
+            want = live(img)
+        runs[batch] = {"depth_max_abs_err": max_err(got[0], want[0]),
+                       "points_max_abs_err": max_err(got[1], want[1]),
+                       "mask_mismatch": float((got[2] != want[2]).float().mean()),
+                       "valid_points": int(got[2].sum())}
+        close.append(all(torch.allclose(a, b, rtol=EXPORT_TOL, atol=EXPORT_TOL)
+                         for a, b in zip(got[:2], want[:2])))
+    # the loaded program and the live module at batch 1, device time
+    program = load_exported(artifact).module()
+    img = img[:1]
+    with torch.no_grad():
+        program_ms = device_time_ms(lambda: program(img), calls=5, runs=3)
+        live_ms = device_time_ms(lambda: live(img), calls=5, runs=3)
+    out["export"] = {"config": "configs/basic_config.yaml", "height": b_height, "width": b_width,
+                     "cli_seconds": export_s, "size_bytes": sidecar["size_bytes"],
+                     "inputs": sidecar["inputs"], "outputs": sidecar["outputs"],
+                     "device": sidecar["device"], "weights": sidecar["weights"],
+                     "verify_ok": "verify OK" in log, "run_exported": runs,
+                     "program_ms_batch1": program_ms, "live_ms_batch1": live_ms}
+    checks += [
+        ("verify OK" in log, "cli.export --verify did not report OK"),
+        (sidecar["inputs"][0]["shape"] == ["b", str(b_height), str(b_width), "3"],
+         f"sidecar inputs {sidecar['inputs']}"),
+        (all(close) and all(r["mask_mismatch"] <= POINTS_MASK_MISMATCH and r["valid_points"] > 0
+                            for r in runs.values()), f"run_exported vs live: {runs}"),
+    ]
+    del state, live, program
+    torch.cuda.empty_cache()
+
+    launches = dict(kernels.launch_counts)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    checks.append((launches == dict.fromkeys(kernels.KERNELS, 0),
+                   f"serve launches {launches}: the serving path holds no kernel"))
+    for ok, what in checks:
+        check(ok, what)
 
 
 def _to_cpu(tree):

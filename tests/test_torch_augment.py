@@ -195,18 +195,36 @@ def test_a_resumed_run_draws_what_the_uninterrupted_run_drew(tmp_path, monkeypat
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_augmented_train_step_matches_jax(jax_models, monkeypatch):  # noqa: F811
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_augmented_train_step_matches_jax(jax_models, monkeypatch, accum_steps):  # noqa: F811
     # color_jitter and hflip in the full step (test_torch_train's harness
     # and margins), the port given the parameters JAX draws at step 0. As
     # there, the batch and draw are fixed where no gradient key sits next
     # to a jump: here a 1e-7 relative perturbation of the weights moves the
     # port's own gradient by <= 5e-5 per key (measured on the CPU), while
     # at batch seed 1 / draw seed 5 it moves the finest disparity head's
-    # bias by 1e-2, which no parity margin can cover
+    # bias by 1e-2, which no parity margin can cover. With accum_steps 2,
+    # JAX augments each micro-batch of 2 with the draws of (seed, step) at
+    # size 2, and so does the port: one draw, applied to both (batch seed
+    # 5: worst key 7e-5 on the CPU, where seeds 2, 3 and 6 put a key past
+    # 1e-3)
     seed = 1  # a draw that flips one of the two samples
     params = _jax_params(seed, 0, 2)
     assert int(params.flip.sum()) == 1
     monkeypatch.setattr(trainer_module, "draw_params",
                         lambda batch_size, s, step: _jax_params(s, step, batch_size))
-    _compare_steps(jax_models, batch_size=2, accum_steps=1, seed=4,
-                   color_jitter=True, hflip=True, aug_seed=seed)
+    applied = []
+
+    def recording(batch, params, **kwargs):
+        applied.append(params)
+        return augment.augment_batch(batch, params, **kwargs)
+
+    monkeypatch.setattr(trainer_module, "augment_batch", recording)
+    _compare_steps(jax_models, batch_size=2 * accum_steps, accum_steps=accum_steps,
+                   seed={1: 4, 2: 5}[accum_steps], color_jitter=True, hflip=True,
+                   aug_seed=seed)
+    assert len(applied) == accum_steps
+    for p in applied:
+        assert len(p.flip) == 2
+        assert all(torch.equal(x, y) for x, y in ((p.add, params.add), (p.scale, params.scale),
+                                                   (p.flip, params.flip)))

@@ -252,3 +252,90 @@ def test_fused_ssim_routes_only_fp32_to_the_kernel(cuda):
     np.testing.assert_allclose(
         ssim_distance_fused(x, x).cpu().numpy(), 0.0, atol=1e-6
     )
+
+
+def _small_calib(directory):
+    # a camera for 64x96 frames, the real KITTI velodyne->camera rotation
+    directory.mkdir()
+    (directory / "calib_cam_to_cam.txt").write_text(
+        "K_02: 100 0 48 0 100 32 0 0 1\nP_rect_02: 100 0 48 0.5 0 100 32 0.01 0 0 1 0\n"
+        "R_rect_02: 1 0 0 0 1 0 0 0 1\n")
+    (directory / "calib_velo_to_cam.txt").write_text(
+        "R: 7.533745e-03 -9.999714e-01 -6.166020e-04 1.480249e-02 7.280733e-04 "
+        "-9.998902e-01 9.998621e-01 7.523790e-03 1.480755e-02\n"
+        "T: -4.069766e-03 -7.631618e-02 -2.717806e-01\n")
+    (directory / "calib_imu_to_velo.txt").write_text("R: 1 0 0 0 1 0 0 0 1\nT: 0 0 0\n")
+    return str(directory)
+
+
+@pytest.fixture
+def fused_on_card(cuda, tmp_path):
+    """DispResNet-18 + the projector as one batch-polymorphic program,
+    traced on the card at batch 2 and saved; (path, live module)."""
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar import export
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
+
+    depth = build_model("DispResNet", torch.Generator().manual_seed(0), device=cuda)
+    fused = export.make_depth_cloud_fn(
+        export.make_depth_fn(depth), PseudoLiDAR(_small_calib(tmp_path / "calib"), device=cuda))
+    path = str(tmp_path / "fused.pt2")
+    export.export_program(fused, [torch.zeros(2, 64, 96, 3, device=cuda)], path,
+                          batch_poly=True)
+    return path, fused
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fused_export_round_trip_on_the_card(fused_on_card, batch):
+    # the reloaded program on the card vs the live module at cli.export
+    # --verify's bound (2e-5; the valid mask may flip only where a point
+    # sits on the crop's edge); no kernel of ops/cuda is on the serving path
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import run_exported
+
+    path, fused = fused_on_card
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    img = torch.rand(batch, 64, 96, 3, generator=gen, device="cuda") * 2 - 1
+    kernels.reset_launch_counts()
+    got = run_exported(path, img)
+    with torch.no_grad():
+        want = fused(img)
+    assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
+    assert got[1].shape == (batch, 64 * 96, 4) and bool(got[2].any())
+    assert all(a.device.type == "cuda" for a in got)
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+    assert float((got[2] != want[2]).float().mean()) <= 1e-3
+
+
+def test_run_exported_refuses_a_cpu_input_or_device(fused_on_card):
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import run_exported
+
+    path, _ = fused_on_card
+    with pytest.raises(ValueError, match="an input is on cpu"):
+        run_exported(path, torch.zeros(1, 64, 96, 3))
+    with pytest.raises(ValueError, match="traced on cuda"):
+        run_exported(path, np.zeros((1, 64, 96, 3), np.float32), device="cpu")
+
+
+def test_bf16_autocast_export_on_the_card(cuda, tmp_path):
+    # configs/tpu_v5e.yaml serves under bf16 autocast: the autocast region
+    # is captured in the program, the weights stay fp32, and the reloaded
+    # program matches the live module at 2e-5
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar import export
+
+    depth = build_model("DispResNet", torch.Generator().manual_seed(1), device=cuda)
+    fn = export.make_depth_fn(depth, precision="bf16")
+    path = str(tmp_path / "bf16.pt2")
+    export.export_program(fn, [torch.zeros(2, 64, 96, 3, device=cuda)], path, batch_poly=True)
+    program = export.load_exported(path)
+    assert all(t.dtype == torch.float32 for t in program.state_dict.values()
+               if t.is_floating_point())
+    img = torch.rand(1, 64, 96, 3, generator=torch.Generator(device="cuda").manual_seed(3),
+                     device="cuda")
+    with torch.no_grad():
+        want = fn(img)
+        fp32 = export.make_depth_fn(depth)(img)
+    got = export.run_exported(path, img)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert not torch.equal(want, fp32)  # autocast did run the model in bf16

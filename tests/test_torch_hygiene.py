@@ -73,11 +73,15 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
     from unsupervised_pseuso_lidar_tpu_torch.cli import evaluate as eval_cli
+    from unsupervised_pseuso_lidar_tpu_torch.cli import export as export_cli
+    from unsupervised_pseuso_lidar_tpu_torch.cli import inference as inference_cli
     from unsupervised_pseuso_lidar_tpu_torch.cli import odometry as odometry_cli
+    from unsupervised_pseuso_lidar_tpu_torch.cli import pipeline as pipeline_cli
     from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
     from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
     from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
     from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import run_exported
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
         DepthToPointCloudPipeline,
     )
@@ -124,6 +128,10 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: eval_cli.main(["--config", str(cfg)]),
         lambda: odometry_cli.main(["--config", str(cfg), "--out", str(tmp_path / "p.txt")]),
         lambda: make_pose_eval_step(pose),
+        lambda: pipeline_cli.main(["--images", str(tmp_path), "--calib", str(tmp_path)]),
+        lambda: inference_cli.main(["--config", str(cfg), "--image", str(tmp_path / "x.png")]),
+        lambda: export_cli.main(["--config", str(cfg), "--out", str(tmp_path / "x.pt2")]),
+        lambda: run_exported(str(tmp_path / "x.pt2"), np.zeros((1, 32, 64, 3), np.float32)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

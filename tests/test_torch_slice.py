@@ -23,10 +23,8 @@ from unsupervised_pseuso_lidar_tpu.train.trainer import TrainState
 from unsupervised_pseuso_lidar_tpu.train.trainer import make_eval_step as jax_make_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
-from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
-    DepthToPointCloudPipeline,
-    depth_fn_from_model,
-)
+from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import make_depth_fn
+from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import DepthToPointCloudPipeline
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import normalize_image
@@ -138,7 +136,7 @@ def test_pipeline_process_matches_jax(models, tmp_path):
     ref = jax_pipe.process(frame, frame_index=3)
 
     pipe = DepthToPointCloudPipeline(
-        depth_fn_from_model(depth), PseudoLiDAR(calib, device="cpu"), device="cpu"
+        make_depth_fn(depth), PseudoLiDAR(calib, device="cpu"), device="cpu"
     )
     got = pipe.process(frame, frame_index=3)
     assert got.frame_index == 3 and got.depth.shape == (HEIGHT, WIDTH)
@@ -160,7 +158,7 @@ def test_pipeline_streams_and_batches(models, tmp_path):
     # all; process_batch gives one result per camera, equal to process()
     _, _, _, depth, _ = models
     pipe = DepthToPointCloudPipeline(
-        depth_fn_from_model(depth),
+        make_depth_fn(depth),
         PseudoLiDAR(_write_calib(tmp_path / "calib"), device="cpu"), device="cpu",
     )
     rng = np.random.default_rng(9)

@@ -51,6 +51,7 @@ from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops import resample, ssim
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
 from unsupervised_pseuso_lidar_tpu_torch.train import config
+from unsupervised_pseuso_lidar_tpu_torch.train import trainer as trainer_module
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
@@ -301,20 +302,21 @@ def jax_models():
     return depth, pose, params, stats
 
 
-def _jax_step(jax_models, batch, accum_steps, **step_kwargs):
+def _jax_step(jax_models, batch, accum_steps, start_step=0, **step_kwargs):
     depth, pose, params, stats = jax_models
     tx = _grads_in_opt_state()
     body = make_train_step_body(depth, pose, tx, loss_mode="min", warp_impl="gather",
                                 accum_steps=accum_steps, **STEP_SETTINGS, **step_kwargs)
-    state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+    state = JaxTrainState(step=jnp.asarray(start_step, jnp.int32), params=params,
                           batch_stats={"depth": stats, "pose": {}},
                           opt_state=tx.init(params))
-    jax_batch = {k: jnp.asarray(batch[k]) for k in ("tgt", "ref_imgs", "intrinsics", "oxts")}
+    jax_batch = {k: jnp.asarray(batch[k]) for k in
+                 ("tgt", "ref_imgs", "intrinsics", "oxts", "groundtruth")}
     new_state, metrics = jax.jit(body)(state, jax_batch)
     return new_state, metrics
 
 
-def _port_step(jax_models, batch, accum_steps, **step_kwargs):
+def _port_step(jax_models, batch, accum_steps, start_step=0, **step_kwargs):
     _, _, params, stats = jax_models
     depth = build_model("DispResNet", device="cpu")
     depth.load_state_dict(state_dict_from_jax(params["depth"], stats, "DispResNet"))
@@ -325,25 +327,30 @@ def _port_step(jax_models, batch, accum_steps, **step_kwargs):
     state = TrainState(depth, pose, optimizer, make_lr_schedule(optimizer, 30, 0.1, 1))
     step = make_train_step(state, device="cpu", loss_mode="min",
                            accum_steps=accum_steps, **STEP_SETTINGS, **step_kwargs)
+    state.step = start_step
     metrics = step(batch)
-    assert state.step == 1
+    assert state.step == start_step + 1
     return depth, pose, metrics
 
 
-def _compare_steps(jax_models, batch_size, accum_steps, seed, oxts=None, **step_kwargs):
+def _compare_steps(jax_models, batch_size, accum_steps, seed, oxts=None, start_step=0,
+                   **step_kwargs):
     # loss rel 1e-4 (the eval step's tolerance); every gradient per
     # state-dict key at rel L2 <= 1e-3, and the median key at 1e-4;
     # BatchNorm running statistics after the step at 1e-5. The port's
     # automask_keep has no JAX counterpart with the gather warp (JAX
-    # reports it beside the banded warp's coverage; see test_losses)
+    # reports it beside the banded warp's coverage; see test_losses). Both
+    # steps start at optimizer step `start_step`
     batch = next(SyntheticTripletDataset(1, batch_size, HEIGHT, WIDTH, seed=seed,
                                          uint8_images=True).batches())
     if oxts is not None:
         batch["oxts"] = oxts.astype(np.float32)
-    new_state, ref = _jax_step(jax_models, batch, accum_steps, **step_kwargs)
-    depth, pose, got = _port_step(jax_models, batch, accum_steps, **step_kwargs)
+    new_state, ref = _jax_step(jax_models, batch, accum_steps, start_step, **step_kwargs)
+    depth, pose, got = _port_step(jax_models, batch, accum_steps, start_step, **step_kwargs)
 
-    assert sorted(ref) == ["loss", "mul_app_loss", "smoothness_loss"]
+    assert sorted(ref) == sorted(["loss", "mul_app_loss", "smoothness_loss"]
+                                 + (["supervised_loss"] if step_kwargs.get("supervised_weight")
+                                    else []))
     assert sorted(got) == sorted([*ref, "automask_keep"])
     assert 0.0 < float(got["automask_keep"]) <= 1.0
     for key in ref:
@@ -405,6 +412,65 @@ def test_accumulated_train_step_matches_jax(jax_models):
     # then averaged, BatchNorm statistics carried from the first to the
     # second
     _compare_steps(jax_models, batch_size=4, accum_steps=2, seed=2)
+
+
+def test_supervised_train_step_matches_jax(jax_models):
+    # the sparse-LiDAR term on the synthetic batch's dense groundtruth,
+    # its value reported as supervised_loss
+    _compare_steps(jax_models, batch_size=2, accum_steps=1, seed=1, supervised_weight=0.1)
+
+
+def test_supervised_term_gradient_at_a_tie_matches_jax():
+    # pred == gt exactly at one valid pixel: jnp.abs' rule gives +1 there
+    # (torch.abs would give 0), one invalid pixel (gt 0) gives nothing;
+    # d/d(disp) equal to jax.grad of JAX's expression (train/trainer.py)
+    from unsupervised_pseuso_lidar_tpu.geometry.warp import disp_to_depth as jax_disp_to_depth
+
+    disp = RNG.uniform(0.05, 0.9, (2, 1, 3, 4)).astype(np.float32)
+    gt = RNG.uniform(1.0, 50.0, (2, 3, 4)).astype(np.float32)
+    gt[0, 1, 2] = np.float32(1.0) / (np.float32(10.0) * disp[0, 0, 1, 2] + np.float32(0.01))
+    gt[1, 0, 0] = 0.0
+
+    def jax_term(d):
+        pred = jax_disp_to_depth(d[:, 0])
+        valid = (jnp.asarray(gt) > 1e-3).astype(jnp.float32)
+        return jnp.sum(jnp.abs(pred - gt) * valid) / jnp.maximum(valid.sum(), 1.0)
+
+    ref = np.asarray(jax.grad(jax_term)(jnp.asarray(disp)))
+    leaf = torch.from_numpy(disp).requires_grad_()
+    sup = trainer_module.supervised_loss(leaf, torch.from_numpy(gt))
+    (got,) = torch.autograd.grad(sup, leaf)
+    pred = 1.0 / (10.0 * leaf.detach() + 0.01)
+    assert float(pred[0, 0, 1, 2]) == float(gt[0, 1, 2])  # the tie is exact
+    assert float(got[0, 0, 1, 2]) != 0.0 and float(got[1, 0, 0, 0]) == 0.0
+    np.testing.assert_allclose(float(sup.detach()), float(jax_term(jnp.asarray(disp))), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("warmup", [1000, 300, 7, 12345])
+def test_automask_warmup_scale_matches_jax(warmup):
+    # JAX's expression (train/trainer.py make_train_step_body) jitted over
+    # steps 0..warmup+2, against the port's host computation: every step
+    # bit for bit
+    @jax.jit
+    def jax_scale(step_idx):
+        ramp = jnp.clip(step_idx.astype(jnp.float32) / warmup, 0.0, 1.0)
+        return 10.0 ** (4.0 * (1.0 - ramp))
+
+    steps = np.arange(warmup + 3)
+    ref = np.asarray(jax_scale(jnp.asarray(steps, jnp.int32)))
+    got = np.array([trainer_module.automask_ident_scale(int(s), warmup) for s in steps],
+                   np.float32)
+    differ = [int(s) for s in steps[got != ref]]
+    assert not differ, differ
+    assert got[0] == 1e4 and got[-1] == 1.0
+
+
+def test_mid_warmup_train_step_matches_jax(jax_models):
+    # the 'min' objective at step 5 of a 10-step automask warm-up: the
+    # identity term scaled by 10 ** 2
+    _compare_steps(jax_models, batch_size=2, accum_steps=1, seed=1, start_step=5,
+                   automask_warmup=10)
 
 
 @pytest.mark.parametrize("pose_lr", [1e-3, 3e-4])

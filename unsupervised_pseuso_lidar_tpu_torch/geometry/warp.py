@@ -1,7 +1,8 @@
 """Inverse warping: disparity -> depth, sample coordinates, the warp.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/geometry/warp.py
-(disp_to_depth :23, warp_coords :54-109, sample_with_impl :112).
+(disp_to_depth :23, depth_to_disp :32, disp_to_depth_ranged :39,
+warp_coords :54-109, sample_with_impl :112).
 """
 
 from __future__ import annotations
@@ -17,6 +18,21 @@ WARP_IMPLS = ("gather", "mxu", "pallas")
 def disp_to_depth(disp: torch.Tensor, alpha: float = 10.0, beta: float = 0.01):
     """Network sigmoid output -> depth: D = 1 / (alpha * disp + beta)."""
     return 1.0 / (alpha * disp + beta)
+
+
+def depth_to_disp(depth: torch.Tensor, alpha: float = 10.0, beta: float = 0.01):
+    """Inverse of disp_to_depth: disp = (1 / D - beta) / alpha."""
+    return (1.0 / depth - beta) / alpha
+
+
+def disp_to_depth_ranged(disp: torch.Tensor, min_depth: float = 0.1,
+                         max_depth: float = 100.0):
+    """The monodepth2 range mapping -> (scaled_disp, depth), depth in
+    [min_depth, max_depth]."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    scaled_disp = min_disp + (max_disp - min_disp) * disp
+    return scaled_disp, 1.0 / scaled_disp
 
 
 def warp_coords(

@@ -21,6 +21,8 @@ MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "PoseNet": PoseNet,
     "PoseFc": PoseFc,
 }
+# the JAX package's other models, by the ROADMAP.md slice that ports them
+NOT_PORTED = {"BtsModel": 9, "DispNetS": 10, "StnDispNet": 10, "PoseDecoder": 10}
 # models whose parameter shapes depend on the image size (PoseFc's first
 # Linear); flax infers such widths at init, torch needs them when building
 _TAKES_IMAGE_SHAPE = {"PoseFc"}
@@ -36,7 +38,11 @@ def build_model(
     """Instantiate a registered model on `device`, its weights drawn from
     `generator` when one is given (else torch's global RNG). `image_shape`
     (H, W) reaches the models whose layers depend on it and is ignored by
-    the others."""
+    the others. A model of the JAX package that is not ported yet raises
+    NotImplementedError."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} is not ported yet (ROADMAP.md slice {NOT_PORTED[name]})")
     if name not in MODEL_REGISTRY:
         known = ", ".join(sorted(MODEL_REGISTRY))
         raise KeyError(f"Unknown model '{name}'. Registered models: {known}")

@@ -1,9 +1,10 @@
 """Pseudo-LiDAR generation: depth maps -> Velodyne-frame point clouds.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/pseudolidar/projector.py
-(depth_to_pointcloud :28, PseudoLiDAR :96). The batched op keeps the
-static-shape contract: (points [B, H·W, 4], valid [B, H·W]) with the crop
-and sparsity folded into the mask; project_PL compacts on the host.
+(depth_to_pointcloud :28, PseudoLiDAR :96, save_cloud :129). The batched
+op keeps the static-shape contract: (points [B, H·W, 4], valid [B, H·W])
+with the crop and sparsity folded into the mask; project_PL compacts on
+the host.
 """
 
 from __future__ import annotations
@@ -97,3 +98,14 @@ class PseudoLiDAR:
         """[H, W] depth -> compacted [N, 4] numpy cloud."""
         points, valid = self.project_batch(torch.as_tensor(depth_img)[None])
         return points[0][valid[0]].cpu().numpy()
+
+
+def save_cloud(path: str, points: np.ndarray) -> None:
+    """Write an [N, 4] cloud, its format by extension: `.bin` is raw
+    float32 x/y/z/intensity rows (KITTI's velodyne format, which 3D
+    detectors read and geometry/oxts.load_velo_scan reads back), anything
+    else numpy's .npy."""
+    if path.endswith(".bin"):
+        np.ascontiguousarray(points, dtype=np.float32).tofile(path)
+    else:
+        np.save(path, points)

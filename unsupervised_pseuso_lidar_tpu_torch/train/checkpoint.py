@@ -3,7 +3,8 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/train/checkpoint.py
 (CheckpointManager :42-78, normalize_depth_pretrained_state :620,
 load_pretrained_depth :676, load_pretrained_pose :688,
-export_reference_checkpoint :824, load_torch_checkpoint :882).
+export_reference_checkpoint :824, load_torch_checkpoint :882,
+load_serving_weights :891, without orbax).
 
 A checkpoint is one `.pth` file per epoch,
 `<directory>/epoch_<nnnnn>.pth`, holding the reference trainer's schema
@@ -136,7 +137,11 @@ def load_pretrained_depth(model: nn.Module, path: str) -> None:
     normalize_depth_pretrained_state). An encoder-only blob must cover
     every encoder tensor and leaves the decoder at its init; any other
     blob loads strictly."""
-    state, encoder_only = normalize_depth_pretrained_state(_load_blob(path))
+    _load_depth_blob(model, _load_blob(path), path)
+
+
+def _load_depth_blob(model: nn.Module, blob: Dict[str, Any], path: str) -> None:
+    state, encoder_only = normalize_depth_pretrained_state(blob)
     if not encoder_only:
         model.load_state_dict(state)
         return
@@ -196,3 +201,43 @@ def export_reference_checkpoint(
     }
     torch.save(checkpoint, path)
     return checkpoint
+
+
+def load_serving_weights(config, state, torch_checkpoint: Optional[str] = None,
+                         checkpoint: Optional[str] = None) -> str:
+    """Load the weights a serving entry point serves into `state` (a
+    TrainState of the config's models, in place); returns where they came
+    from, "init (untrained)" when nothing was restored.
+
+      * torch_checkpoint: a `.pth` or `.npz` blob — a reference checkpoint,
+        a bare DispResNet state dict, or a torchvision resnet18 state dict
+        (encoder only; normalize_depth_pretrained_state). A blob with
+        pose_mdl_state_dict restores the pose net too; pose weights of
+        another schema than model.pose.name leave it at its init, with a
+        warning.
+      * checkpoint: a CheckpointManager directory (its latest epoch). An
+        explicit directory that restores nothing raises FileNotFoundError:
+        the init weights would be served under that path's name.
+      * neither: the config's checkpoint directory when action.from_scratch
+        is False (a warning when it holds none), else the init weights.
+    """
+    if torch_checkpoint:
+        blob = _load_blob(torch_checkpoint)
+        _load_depth_blob(state.depth_model, blob, torch_checkpoint)
+        if "pose_mdl_state_dict" in blob:
+            pose = _strip_module_prefix(blob["pose_mdl_state_dict"])
+            own = state.pose_model.state_dict()
+            if sorted(pose) == sorted(own) and all(pose[k].shape == own[k].shape for k in own):
+                state.pose_model.load_state_dict(pose)
+            else:
+                print(f"warning: pose weights in {torch_checkpoint} do not match "
+                      f"model.pose.name={config.model.pose.name}; pose stays at random init")
+        return torch_checkpoint
+    if checkpoint or not config.action.from_scratch:
+        path = checkpoint or os.path.join(config.action.checkpoint_dir, config.model.name)
+        if CheckpointManager(path).restore(state) is not None:
+            return path
+        if checkpoint:
+            raise FileNotFoundError(f"--checkpoint {checkpoint}: no restorable state found")
+        print(f"warning: no checkpoint under {path}; using init weights")
+    return "init (untrained)"

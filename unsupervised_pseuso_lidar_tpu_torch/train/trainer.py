@@ -40,6 +40,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -193,6 +194,29 @@ def create_train_state(
     return TrainState(depth_model, pose_model, optimizer, scheduler)
 
 
+def automask_ident_scale(step: int, warmup: int) -> float:
+    """The automask warm-up's scale of the identity term at `step`: from
+    1e4 (unreachable) down to 1 (exact) over `warmup` steps, 10 ** (4 (1 −
+    clip(step / warmup, 0, 1))) with JAX's fp32 bits: XLA divides by the
+    constant as a multiply by its fp32 reciprocal, and a 0-dim fp32
+    torch.pow takes the scalar power XLA's CPU power gives (torch's
+    vectorized pow does not). Host arithmetic: the same value on every
+    device."""
+    ramp = torch.tensor(step, dtype=torch.float32) * torch.reciprocal(
+        torch.tensor(warmup, dtype=torch.float32))
+    exponent = 4.0 * (1.0 - torch.clamp(ramp, 0.0, 1.0))
+    return float(torch.pow(torch.tensor(10.0), exponent))
+
+
+def supervised_loss(disp: torch.Tensor, groundtruth: torch.Tensor) -> torch.Tensor:
+    """The sparse-LiDAR term: masked L1 in meters between the finest-scale
+    depth of `disp` [B, 1, H, W] and `groundtruth` [B, H, W] (0 = no
+    LiDAR return), with jnp.abs' gradient rule at a tie."""
+    pred = disp_to_depth(disp[:, 0])
+    valid = (groundtruth > 1e-3).float()
+    return torch.sum(abs_(pred - groundtruth) * valid) / torch.clamp(valid.sum(), min=1.0)
+
+
 class TrainStep:
     """step(batch) -> metrics {loss, mul_app_loss, smoothness_loss[,
     automask_keep][, supervised_loss]} as 0-dim tensors (no host sync): one
@@ -202,7 +226,8 @@ class TrainStep:
     The body of the JAX make_train_step_body: uint8 images normalized on
     the device; with color_jitter / hflip, the augmentations of
     data/augment.py on the normalized batch, their parameters drawn from
-    (aug_seed, step) (a CPU generator, then moved to the device); with
+    (aug_seed, step) at the micro-batch's size (a CPU generator, then moved
+    to the device) and applied alike to every micro-batch; with
     semi_sup_pose, the batch's OXTS poses in place of the pose net's; the
     models in train mode under bf16 autocast when
     precision is 'bf16'; disparities and poses cast to fp32 and the loss
@@ -259,9 +284,7 @@ class TrainStep:
     def _ident_scale(self) -> float:
         if not (self.automask_warmup and self.loss_mode == "min"):
             return 1.0
-        # ramp the identity term from unreachable (1e4x) to exact
-        ramp = min(max(self.state.step / self.automask_warmup, 0.0), 1.0)
-        return 10.0 ** (4.0 * (1.0 - ramp))
+        return automask_ident_scale(self.state.step, self.automask_warmup)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
         """(loss, reproj, smooth, extra) of one normalized (micro-)batch."""
@@ -284,14 +307,7 @@ class TrainStep:
         )
         loss = reproj + smooth
         if self.supervised_weight and "groundtruth" in batch:
-            # masked L1 in meters on the finest-scale depth; gt == 0 means
-            # no LiDAR return
-            gt = batch["groundtruth"]
-            pred = disp_to_depth(disps_tgt[0][:, 0])
-            valid = (gt > 1e-3).float()
-            sup = torch.sum(torch.abs(pred - gt) * valid) / torch.clamp(
-                valid.sum(), min=1.0
-            )
+            sup = supervised_loss(disps_tgt[0], batch["groundtruth"])
             loss = loss + self.supervised_weight * sup
             extra["supervised_loss"] = sup
         return loss, reproj, smooth, extra
@@ -301,18 +317,22 @@ class TrainStep:
         batch = normalize_uint8_batch(batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
         ))
-        if self.color_jitter or self.hflip:
-            params = draw_params(batch["tgt"].shape[0], self.aug_seed, state.step)
-            batch = augment_batch(batch, params, jitter=self.color_jitter,
-                                  flip=self.hflip)
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
+        micro_size = batch["tgt"].shape[0] // self.accum_steps
+        # as in JAX, every micro-batch is augmented with the same draws:
+        # those of (aug_seed, step) at the micro-batch's size
+        params = (draw_params(micro_size, self.aug_seed, state.step)
+                  if self.color_jitter or self.hflip else None)
         state.optimizer.zero_grad(set_to_none=True)
         # micro-batch i is rows [i·mb, (i+1)·mb), the JAX reshape's order
         chunks = {k: v.chunk(self.accum_steps) for k, v in batch.items()}
         sums: Dict[str, torch.Tensor] = {}
         for i in range(self.accum_steps):
             micro = {k: v[i] for k, v in chunks.items()}
+            if params is not None:
+                micro = augment_batch(micro, params, jitter=self.color_jitter,
+                                      flip=self.hflip)
             loss, reproj, smooth, extra = self.loss_fn(micro)
             loss.backward()
             values = {"loss": loss, "mul_app_loss": reproj,
