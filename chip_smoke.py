@@ -56,12 +56,27 @@ then drives the port's entry points with seeded random weights:
                 --verify, then run_exported at batch 1 and 2 against the live
                 module; cli.inference with a .bin cloud. A, A', B and C are
                 launched no time: the serving path holds no kernel of ops/cuda
+  profile       torch.profiler on the card (utils/trace.op_breakdown): the
+                device time of a training step by op family, 3 steps after 2
+                of warm-up, on basic_config (TF32 off as everywhere here, then
+                with cuDNN's TF32 on as a user's cli.train leaves it) and on
+                tpu_v5e: the top families, the device ms and the host window
+                a step, the device's busy share, and each kernel's in-step ms
+                and launches as the profiler counts them (equal to the
+                wrappers' counts); cli.train --op-breakdown --profile on the
+                kitti drive (the KITTI step's device ms beside kitti's
+                steady ms a step; the fit's trace holds the four kernels as
+                often as their wrappers launched them); Trainer.log_warps on
+                a basic_config batch (three PNGs, one launch of A)
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
 calls, divided by 20, the median of 5 such runs (`ms`);
 `ms_per_call_host_incl` is the older measure, events around one call,
 which also counts the host's work before the launch.
+
+The kernels record gains each kernel's in-step device ms and launches
+from the profile phase (`profiled_ms_per_step`, `profiled_launches`).
 
 Every phase prints one JSON line; every check that fails raises, and the
 script exits non-zero. Before the last line it prints the per-kernel
@@ -159,6 +174,11 @@ from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import card, device_time_ms
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
+from unsupervised_pseuso_lidar_tpu_torch.utils.trace import (
+    newest_trace,
+    op_breakdown,
+    summarize_trace,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     normalize_image,
 )
@@ -219,6 +239,15 @@ SERVE_RATE_HZ = 10.0
 SERVE_RTOL = 1e-6
 EXPORT_TOL = 2e-5
 # the real 2011_09_26 IMU -> velodyne transform
+PROFILE_STEPS, PROFILE_WARMUP = 3, 2
+# each kernel's family in the profiler's trace (utils/trace._op_family)
+PROFILED_FAMILY = {"warp_bilinear_fwd": "warp_bilinear_fwd_kernel",
+                   "warp_bilinear_bwd": "warp_bilinear_bwd_grid_kernel",
+                   "ssim_fwd": "ssim_fwd_kernel", "ssim_bwd": "ssim_bwd_kernel"}
+# the families of cuDNN's and cuBLAS's convolution and GEMM kernels, the
+# FFT convolutions' transforms and the layout conversions around them
+CONV_WORDS = ("conv", "fft", "fprop", "dgrad", "wgrad", "xmma", "gemm", "cutlass",
+              "pointwise_mult_and_sum_complex", "nchwToNhwc", "nhwcToNchw")
 IMU_TO_VELO = ("R: 9.999976e-01 7.553071e-04 -2.035826e-03 -7.854027e-04 "
                "9.998898e-01 -1.482298e-02 2.024406e-03 1.482454e-02 9.998881e-01\n"
                "T: -8.086759e-01 3.195559e-01 -7.997231e-01\n")
@@ -433,11 +462,18 @@ def main(device="cuda:0"):
     # 14. the KITTI path: splits, training, evaluation and odometry on a
     # KITTI-shaped drive through the CLIs; 15. the serving CLIs on its frames
     with tempfile.TemporaryDirectory() as tmp:
-        kitti_launches, drive_dir = kitti_phase(device, tmp)
+        kitti_launches, drive_dir, kitti = kitti_phase(device, tmp)
         torch.cuda.empty_cache()
         serve_cli_phase(device, tmp, drive_dir)
+        torch.cuda.empty_cache()
+        # 16. where a training step's time goes, by torch.profiler
+        profiled = profile_phase(device, tmp, kitti, records_1280)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
+    for config_name, recs in (("basic_config", records_1280), ("tpu_v5e", records)):
+        for name, record in recs.items():
+            record["profiled_ms_per_step"] = profiled[config_name][name]["ms_per_step"]
+            record["profiled_launches"] = profiled[config_name][name]["launches"]
     torch.cuda.empty_cache()
 
     emit({"kernels": list(records.values()) + list(records_1280.values())})
@@ -1268,7 +1304,7 @@ def kitti_phase(device, tmp):
     emit(out)
     for ok, what in checks:
         check(ok, what)
-    return launches, drive_dir
+    return launches, drive_dir, out
 
 
 def serve_cli_phase(device, tmp, drive_dir):
@@ -1446,6 +1482,173 @@ def serve_cli_phase(device, tmp, drive_dir):
                    f"serve launches {launches}: the serving path holds no kernel"))
     for ok, what in checks:
         check(ok, what)
+
+
+def event_ms_per_step(fn, steps=PROFILE_STEPS):
+    """CUDA events around `steps` back-to-back calls of fn, after one more
+    call: device ms a call (the host's work overlaps the card's)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def breakdown_record(result, loss_mode, steps, kernel_records=None):
+    """The record of one op_breakdown of `steps` training steps, and its
+    checks: each kernel present, launched as often as expected_launches
+    says, and a positive device time no longer than the host window."""
+    per_step = expected_launches(loss_mode)
+    conv = {f: ms for f, ms in result.items() if any(w in f for w in CONV_WORDS)}
+    record = {
+        "steps": steps, "families": len(result),
+        "top_families_ms_per_step": dict(list(result.items())[:20]),
+        "device_ms_per_step": result.total_ms, "host_ms_per_step": result.host_ms,
+        "device_events_per_step": sum(result.counts.values()) / steps,
+        "busy_share": result.busy, "conv_families_ms_per_step": sum(conv.values()),
+        "conv_families": sorted(conv), "kernels": {},
+    }
+    checks = [(result.on_device and 0 < result.total_ms <= result.host_ms,
+               f"device {result.total_ms} ms/step vs host window {result.host_ms}")]
+    for name, family in PROFILED_FAMILY.items():
+        k = {"family": family, "ms_per_step": result.get(family),
+             "launches": result.counts.get(family), "expected": steps * per_step[name]}
+        if kernel_records is not None:
+            k["kernel_phase_ms"] = kernel_records[name]["ms"]
+        record["kernels"][name] = k
+        checks.append((k["launches"] == k["expected"] and (k["ms_per_step"] or 0) > 0,
+                       f"profiled {family}: {k}"))
+    return record, checks
+
+
+def profile_phase(device, tmp, kitti, records_1280):
+    """torch.profiler's view of the training step (see the docstring's
+    `profile`). Prints the phase's record, then checks it; returns
+    {config: {kernel: {ms_per_step, launches}}} for the kernels record."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "profile", "steps": PROFILE_STEPS,
+                   "warmup": PROFILE_WARMUP}, []
+
+    def device_batch(config, seed):
+        batch = next(SyntheticTripletDataset(1, config.action.batch_size, *config.image_shape,
+                                             seed=seed, uint8_images=True).batches())
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+    def profile(trainer, batch):
+        print(f"[profile] {trainer.config.model.name}, cudnn.allow_tf32="
+              f"{torch.backends.cudnn.allow_tf32}", flush=True)
+        return op_breakdown(lambda: trainer.train_step(batch), steps=PROFILE_STEPS,
+                            warmup=PROFILE_WARMUP)
+
+    # 1. basic_config, TF32 off; then the same step with cuDNN's TF32 on
+    config = load_config(BASIC_CONFIG)
+    config.action.checkpoint_dir = os.path.join(tmp, "profile_checkpoints")
+    trainer = Trainer(config, device=device)
+    batch = device_batch(config, SEED + 13)
+    result = profile(trainer, batch)
+    out["basic_config"], more = breakdown_record(result, config.action.loss_mode,
+                                                 PROFILE_STEPS, records_1280)
+    out["basic_config"]["ms_per_step_cuda_events"] = event_ms_per_step(
+        lambda: trainer.train_step(batch))
+    checks += more
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        result = profile(trainer, batch)
+        tf32, _ = breakdown_record(result, config.action.loss_mode, PROFILE_STEPS)
+        tf32["ms_per_step_cuda_events"] = event_ms_per_step(lambda: trainer.train_step(batch))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["basic_config_tf32"] = {k: tf32[k] for k in (
+        "device_ms_per_step", "host_ms_per_step", "device_events_per_step", "busy_share",
+        "ms_per_step_cuda_events",
+        "conv_families_ms_per_step", "conv_families", "top_families_ms_per_step")}
+
+    # 2. Trainer.log_warps on one basic_config batch: kernel A once
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    paths = trainer.log_warps(batch, step=trainer.state.step,
+                              out_dir=os.path.join(tmp, "images"))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    shapes = {name: list(np.asarray(Image.open(path)).shape) for name, path in paths.items()}
+    out["log_warps"] = {"files": sorted(paths), "shapes": shapes, "launches": launches}
+    height, width = config.image_shape
+    checks += [
+        (len(paths) == 3 and all(s == [height, width, 3] for s in shapes.values()),
+         f"log_warps wrote {shapes}"),
+        (launches == {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 0, "ssim_fwd": 0,
+                      "ssim_bwd": 0}, f"log_warps launches {launches}"),
+    ]
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # 3. tpu_v5e (bf16 models)
+    config = load_config(CONFIG)
+    config.action.checkpoint_dir = os.path.join(tmp, "profile_checkpoints")
+    trainer = Trainer(config, device=device)
+    batch = device_batch(config, SEED + 17)
+    result = profile(trainer, batch)
+    out["tpu_v5e"], more = breakdown_record(result, config.action.loss_mode, PROFILE_STEPS)
+    out["tpu_v5e"]["ms_per_step_cuda_events"] = event_ms_per_step(
+        lambda: trainer.train_step(batch))
+    checks += more
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # 4. cli.train --op-breakdown --profile on the kitti drive (1 epoch):
+    # the fit's trace, and the breakdown of the KITTI step (jitter, flips)
+    trace_dir = os.path.join(tmp, "kitti_trace")
+    steps, val_batches = kitti["train"]["steps"], kitti["train"]["val_batches"]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, log = _quiet(train_cli.main, ["--config", os.path.join(tmp, "kitti_config.yaml"),
+                                           "--epochs", "1", "--op-breakdown",
+                                           "--profile", trace_dir])
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    result = trainer.op_breakdown
+    per_step, per_val = expected_launches("min"), {"warp_bilinear_fwd": 1, "ssim_fwd": 2}
+    fit_launches = {k: launches[k] - (PROFILE_WARMUP + PROFILE_STEPS) * per_step[k]
+                    for k in per_step}
+    expected_fit = {k: steps * per_step[k] + val_batches * per_val.get(k, 0)
+                    for k in per_step}
+    path = newest_trace(trace_dir)
+    fit_rows = summarize_trace(path) if path else []
+    fit_counts = {fam: n for fam, _, n in fit_rows}
+    record, more = breakdown_record(result, "min", PROFILE_STEPS)
+    out["kitti_cli"] = {
+        "cli_seconds": cli_s, "fit_steps": steps, "fit_val_batches": val_batches,
+        "trace_file": os.path.basename(path) if path else None,
+        "trace_bytes": os.path.getsize(path) if path else 0,
+        "fit_trace_device_ms": sum(ms for _, ms, _ in fit_rows),
+        "fit_trace_kernel_launches": {k: fit_counts.get(f) for k, f in PROFILED_FAMILY.items()},
+        "fit_wrapper_launches": fit_launches,
+        "kitti_step_device_ms": result.total_ms,
+        "kitti_step_host_window_ms": result.host_ms,
+        "kitti_steady_ms_per_step": kitti["ms_per_step"],
+        **{k: record[k] for k in ("busy_share", "conv_families_ms_per_step", "kernels")},
+        "top_families_ms_per_step": dict(list(result.items())[:10]),
+    }
+    checks += more + [
+        (path is not None and path.endswith(".pt.trace.json"), f"no trace in {trace_dir}"),
+        (fit_launches == expected_fit, f"fit launches {fit_launches}, expected {expected_fit}"),
+        (all(fit_counts.get(f) == fit_launches[k] for k, f in PROFILED_FAMILY.items()),
+         f"the fit's trace counts {out['kitti_cli']['fit_trace_kernel_launches']}"),
+        ("[trace] device time by op family" in log, "cli.train printed no breakdown"),
+    ]
+    del trainer
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return {name: out[name]["kernels"] for name in ("basic_config", "tpu_v5e")}
 
 
 def _to_cpu(tree):

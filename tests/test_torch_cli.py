@@ -101,12 +101,42 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys, name, pose_net, lo
 
 @pytest.mark.parametrize("argv,error", [
     (["--synthetic", "--mesh", "2"], ValueError),
-    (["--synthetic", "--profile", "trace_dir"], NotImplementedError),
-    (["--synthetic", "--op-breakdown"], NotImplementedError),
+    # a config naming a model of a later slice (ROADMAP.md slices 9, 10)
+    (["--synthetic", "--config", "BtsModel.yaml"], NotImplementedError),
+    (["--synthetic", "--config", "PoseDecoder.yaml"], NotImplementedError),
 ])
-def test_cli_refuses_what_is_not_ported(argv, error):
+def test_cli_refuses_what_is_not_ported(tmp_path, argv, error):
+    for name, head in (("BtsModel", "depth"), ("PoseDecoder", "pose")):
+        raw = yaml.safe_load(open(os.path.join("configs", "test_config.yaml")))
+        raw["model"][head]["name"] = name
+        (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(raw))
+    argv = [str(tmp_path / a) if a.endswith(".yaml") else a for a in argv]
     with pytest.raises(error):
         train_cli.main(["--config", "configs/basic_config.yaml", "--device", "cpu", *argv])
+
+
+def test_cli_profiles_the_fit_and_breaks_down_a_step(tmp_path, capsys):
+    # --profile traces the whole fit into a *.pt.trace.json; --op-breakdown
+    # then prints the per-family time of 3 train steps (CPU self time here:
+    # no card) and keeps it on the trainer
+    from unsupervised_pseuso_lidar_tpu_torch.utils.trace import newest_trace, summarize_trace
+
+    config = _write_config(tmp_path, "test_config.yaml")
+    trace_dir = tmp_path / "trace"
+    trainer = train_cli.main(["--config", config, "--synthetic", "--epochs", "1",
+                              "--synthetic-batches", "2", "--device", "cpu",
+                              "--op-breakdown", "--profile", str(trace_dir)])
+    out = capsys.readouterr().out
+    assert "[trace] CPU self time by op family" in out and "host window" in out
+    breakdown = trainer.op_breakdown
+    assert breakdown.steps == 3 and not breakdown.on_device and breakdown.total_ms > 0
+    assert breakdown["aten::convolution_backward"] > 0
+    # 2 steps of the fit, 2 warm-up and 3 profiled ones
+    assert trainer.state.step == 7
+    path = newest_trace(str(trace_dir))
+    assert path is not None and path.endswith(".pt.trace.json")
+    families = {fam for fam, _, _ in summarize_trace(path)}
+    assert "aten::convolution_backward" in families and "aten::mkldnn_convolution" in families
 
 
 def test_prefetch_yields_every_batch_in_order():

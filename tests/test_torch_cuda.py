@@ -339,3 +339,44 @@ def test_bf16_autocast_export_on_the_card(cuda, tmp_path):
     got = export.run_exported(path, img)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert not torch.equal(want, fp32)  # autocast did run the model in bf16
+
+
+def test_op_breakdown_of_a_training_step_sees_the_four_kernels(cuda, tmp_path):
+    # configs/tpu_v5e.yaml at full width and batch: one profiled step after
+    # one of warm-up; CUPTI reports each kernel's launches (the backward's
+    # from the autograd engine's thread too), and the device time is real
+    from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
+    from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
+    from unsupervised_pseuso_lidar_tpu_torch.utils.trace import op_breakdown
+
+    config = load_config("configs/tpu_v5e.yaml")
+    config.action.checkpoint_dir = str(tmp_path)
+    data = SyntheticTripletDataset(1, config.action.batch_size, *config.image_shape,
+                                   uint8_images=True)
+    trainer = Trainer(config, data, device=cuda)
+    batch = {k: torch.as_tensor(v).to(cuda) for k, v in next(iter(data.batches())).items()}
+    result = op_breakdown(lambda: trainer.train_step(batch), steps=1, warmup=1,
+                          verbose=False)
+    assert result.on_device and 0 < result.total_ms <= result.host_ms
+    for family, count in (("warp_bilinear_fwd_kernel", 1), ("warp_bilinear_bwd_grid_kernel", 1),
+                          ("ssim_fwd_kernel", 2), ("ssim_bwd_kernel", 1)):
+        assert result.counts.get(family) == count, (family, result.counts.get(family))
+        assert result[family] > 0
+
+
+@pytest.mark.parametrize("invert", [False, True])
+def test_inverse_warp_on_the_card_matches_the_cpu(cuda, invert):
+    from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import inverse_warp
+
+    gen = torch.Generator().manual_seed(4)
+    img = torch.randn(2, 3, 96, 160, generator=gen)
+    depth = torch.rand(2, 96, 160, generator=gen) * 18 + 2
+    pose = torch.randn(2, 6, generator=gen) * torch.tensor([0.02] * 3 + [0.2] * 3)
+    K = torch.tensor([[100.0, 0.0, 80.0], [0.0, 100.0, 48.0], [0.0, 0.0, 1.0]])
+    want = inverse_warp(img, depth, pose, K, invert_pose=invert)
+    before = kernels.launch_counts["warp_bilinear_fwd"]
+    got = inverse_warp(img.to(cuda), depth.to(cuda), pose.to(cuda), K.to(cuda),
+                       invert_pose=invert)
+    assert kernels.launch_counts["warp_bilinear_fwd"] == before + 1
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

@@ -3,7 +3,8 @@
   * No module of the port, and not chip_smoke.py, imports jax or the JAX
     package (the module name is matched whole, so the port's own
     ``unsupervised_pseuso_lidar_tpu_torch`` does not count).
-  * Importing every module of the port loads no jax module.
+  * Importing every module of the port loads no jax module, and importing
+    each of its packages on its own loads none and builds no kernel.
   * Entry points called with their default device raise when CUDA is not
     available, instead of running on the CPU.
 """
@@ -62,6 +63,29 @@ def test_importing_the_port_loads_no_jax():
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'unsupervised_pseuso_lidar_tpu'))\n"
         "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_each_package_imports_alone_without_jax_or_a_kernel_build():
+    packages = sorted(
+        os.path.relpath(root, REPO).replace(os.sep, ".")
+        for root, _, names in os.walk(PORT) if "__init__.py" in names
+    )
+    assert len(packages) >= 12
+    code = (
+        "import importlib, sys\n"
+        f"for name in {packages!r}:\n"
+        "    before = set(sys.modules)\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'unsupervised_pseuso_lidar_tpu'))\n"
+        "    assert not bad, (name, bad)\n"
+        "from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import build\n"
+        "assert not build._libraries, build._libraries\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -19,14 +19,21 @@ file or calibration exits with the error. `--synthetic` trains on the
 synthetic scene (data/synthetic.py), `--synthetic-batches` batches an
 epoch (50, as in the JAX CLI).
 
-The port runs on one card (`--mesh` above 1 raises). `--profile` and
-`--op-breakdown` wait for utils/profiling and utils/trace and raise
-NotImplementedError.
+`--profile DIR` traces the whole `fit` with torch.profiler
+(utils/profiling.trace) into a `*.pt.trace.json` under DIR, which
+Perfetto and TensorBoard open; keep the epochs short, since the profiler
+holds every event in host memory. `--op-breakdown` then profiles 3 calls
+of the train step on one batch (2 more warm it up) and prints the ms a
+step by op family (utils/trace.op_breakdown: device time on the card, the
+device's busy share beside it); the result is kept as
+`trainer.op_breakdown`. The port runs on one card (`--mesh` above 1
+raises).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 
 def main(argv=None):
@@ -44,24 +51,22 @@ def main(argv=None):
                         help="torch device (default cuda; cpu runs the "
                         "kernels' plain versions)")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="not ported yet (utils/profiling)")
+                        help="capture a torch.profiler trace of the whole fit "
+                        "(every epoch: keep them few) into DIR")
     parser.add_argument("--op-breakdown", action="store_true",
-                        help="not ported yet (utils/trace)")
+                        help="after training, print per-op-family device "
+                        "ms/step of one train step (utils/trace.py)")
     args = parser.parse_args(argv)
 
     if args.mesh > 1:
         raise ValueError("--mesh: the port trains on one card")
-    if args.profile or args.op_breakdown:
-        raise NotImplementedError(
-            "--profile / --op-breakdown: utils/profiling and utils/trace are "
-            "not ported yet"
-        )
 
     from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
     from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
     from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
     from unsupervised_pseuso_lidar_tpu_torch.utils.logging import MetricLogger
+    from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import trace
 
     config = load_config(args.config)
     if args.epochs is not None:
@@ -69,6 +74,8 @@ def main(argv=None):
     if args.batch_size is not None:
         config.action.batch_size = args.batch_size
     device = resolve_device(args.device)
+    profile_ctx = (trace(args.profile, device=device) if args.profile
+                   else contextlib.nullcontext())
 
     if args.synthetic:
         from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
@@ -82,8 +89,12 @@ def main(argv=None):
         )
         trainer = Trainer(config, dataset=dataset, log_fn=MetricLogger(config),
                           device=device)
-        trainer.fit(make_train_iter=lambda epoch: prefetch_to_device(
-            dataset.batches(epoch), device=trainer.device))
+        with profile_ctx:
+            trainer.fit(make_train_iter=lambda epoch: prefetch_to_device(
+                dataset.batches(epoch), device=trainer.device))
+        if args.op_breakdown:
+            trainer.op_breakdown = _op_breakdown_step(
+                trainer, next(iter(dataset.batches(0))))
         return trainer
 
     import numpy as np
@@ -114,15 +125,37 @@ def main(argv=None):
         rng = np.random.default_rng(config.action.random_seed + 1_000_003 * (epoch + 1))
         return [int(i) for i in rng.permutation(train_idx)]
 
-    trainer.fit(
-        make_train_iter=lambda epoch: prefetch_to_device(
-            dataset.batches(epoch_indices(epoch), batch_size, workers,
-                            use_processes=procs, with_groundtruth=with_gt),
-            device=trainer.device,
-        ),
-        make_val_iter=lambda: dataset.batches(val_idx, batch_size, workers),
-    )
+    with profile_ctx:
+        trainer.fit(
+            make_train_iter=lambda epoch: prefetch_to_device(
+                dataset.batches(epoch_indices(epoch), batch_size, workers,
+                                use_processes=procs, with_groundtruth=with_gt),
+                device=trainer.device,
+            ),
+            make_val_iter=lambda: dataset.batches(val_idx, batch_size, workers),
+        )
+    if args.op_breakdown:
+        # the first batch of the training indices, as in JAX
+        trainer.op_breakdown = _op_breakdown_step(trainer, next(iter(dataset.batches(
+            train_idx[:batch_size], batch_size, workers, with_groundtruth=with_gt))))
     return trainer
+
+
+def _op_breakdown_step(trainer, batch):
+    """Print and return the per-op-family device time of one train step
+    (utils/trace.op_breakdown over 3 calls after 2 of warm-up) on `batch`,
+    placed on the trainer's device first as the training loop's batches
+    are. The batch keeps its ground truth when the supervised term reads
+    it, so the profiled step is the trained one. The calls train: they
+    advance the optimizer and the step count."""
+    import torch
+
+    from unsupervised_pseuso_lidar_tpu_torch.utils.trace import op_breakdown
+
+    if not trainer.config.action.supervised_weight:
+        batch = {k: v for k, v in batch.items() if k != "groundtruth"}
+    device_batch = {k: torch.as_tensor(v).to(trainer.device) for k, v in batch.items()}
+    return op_breakdown(lambda: trainer.train_step(device_batch), steps=3)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """SE(3) algebra for the warp: axis-angle poses -> rigid transforms.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/geometry/se3.py
-(euler2mat :43, rot_from_axisangle :101, transformation_from_parameters
-:153, pose_matrix :192, invert_pose :209). Batched, dtype-preserving.
+(is_rotation_matrix :27, euler2mat :43, mat2euler :73, rot_from_axisangle
+:101, transformation_from_parameters :153, pose_vec2mat :177, pose_matrix
+:192, invert_pose :209). Batched, dtype-preserving.
 
 Conventions: batched rigid transforms are [B, 4, 4]; 6-DoF pose vectors
 are [B, 6] = (rx, ry, rz, tx, ty, tz), rotation as axis-angle.
@@ -11,6 +12,15 @@ are [B, 6] = (rx, ry, rz, tx, ty, tz), rotation as axis-angle.
 from __future__ import annotations
 
 import torch
+
+
+def is_rotation_matrix(rot, tol: float = 1e-6) -> torch.Tensor:
+    """||R.T R - I||_F < tol per matrix: a bool for [3, 3], [B] bools for
+    [B, 3, 3]."""
+    rot = torch.as_tensor(rot)
+    eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
+    err = torch.linalg.matrix_norm(rot.transpose(-1, -2) @ rot - eye)
+    return err < tol
 
 
 def euler2mat(angles: torch.Tensor) -> torch.Tensor:
@@ -30,6 +40,20 @@ def euler2mat(angles: torch.Tensor) -> torch.Tensor:
     ymat = mat(cy, zero, sy, zero, one, zero, -sy, zero, cy)
     xmat = mat(one, zero, zero, zero, cx, -sx, zero, sx, cx)
     return xmat @ ymat @ zmat
+
+
+def mat2euler(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices [..., 3, 3] -> Euler angles [..., 3] (x, y, z) for
+    R = Rz @ Ry @ Rx, the OXTS world-pose convention (so not the inverse of
+    euler2mat's Rx @ Ry @ Rz); branch-free, batched."""
+    sy = torch.sqrt(rot[..., 0, 0] ** 2 + rot[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    x = torch.where(singular, torch.atan2(-rot[..., 1, 2], rot[..., 1, 1]),
+                    torch.atan2(rot[..., 2, 1], rot[..., 2, 2]))
+    y = torch.atan2(-rot[..., 2, 0], sy)
+    z = torch.where(singular, torch.zeros_like(sy),
+                    torch.atan2(rot[..., 1, 0], rot[..., 0, 0]))
+    return torch.stack([x, y, z], dim=-1)
 
 
 def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
@@ -80,6 +104,17 @@ def transformation_from_parameters(
         translation = -translation
     trans = _translation_matrix(translation)
     return rot @ trans if invert else trans @ rot
+
+
+def pose_vec2mat(vec: torch.Tensor, mode: str | None = "euler") -> torch.Tensor:
+    """6-DoF pose vector [..., 6] (rx, ry, rz, tx, ty, tz) -> [..., 3, 4]
+    transform, the rotation from Euler angles (euler2mat); mode None
+    returns `vec` unchanged."""
+    if mode is None:
+        return vec
+    if mode != "euler":
+        raise ValueError(f"Rotation mode not supported: {mode}")
+    return torch.cat([euler2mat(vec[..., :3]), vec[..., 3:, None]], dim=-1)
 
 
 def invert_pose(transform: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,16 @@
 
 Counterpart of unsupervised_pseuso_lidar_tpu/geometry/warp.py
 (disp_to_depth :23, depth_to_disp :32, disp_to_depth_ranged :39,
-warp_coords :54-109, sample_with_impl :112).
+warp_coords :54-109, sample_with_impl :112, inverse_warp_from_matrix
+:202, inverse_warp :284). `in_frame_fraction` stands where JAX's
+coverage_from_coords (:237) reads the banded warp's coverage.
 """
 
 from __future__ import annotations
 
 import torch
 
+from unsupervised_pseuso_lidar_tpu_torch.geometry.se3 import pose_matrix
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda.kernels import warp_bilinear
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import div
 
@@ -97,3 +100,63 @@ def sample_with_impl(
     if impl not in WARP_IMPLS:
         raise ValueError(f"Unknown warp impl: {impl}")
     return warp_bilinear(img.contiguous(), coords.contiguous())
+
+
+def in_frame_fraction(coords: torch.Tensor) -> torch.Tensor:
+    """Fraction of the sample points of normalized `coords` [B, H, W, 2]
+    that land in the image, with ops/resample.band_coverage's in-image test
+    of JAX (the row y in [-1, H], and here also the column x in [-1, W], in
+    pixels): 0.0 exactly when every sample reads the zero padding — the
+    zeros-warp collapse that Trainer._warn_if_collapsed reports. A 0-dim
+    fp32 tensor, detached (no host sync)."""
+    with torch.no_grad():
+        _, height, width, _ = coords.shape
+        x = (coords[..., 0] + 1.0) * 0.5 * (width - 1)
+        y = (coords[..., 1] + 1.0) * 0.5 * (height - 1)
+        inside = (y >= -1.0) & (y <= height) & (x >= -1.0) & (x <= width)
+        return inside.float().mean()
+
+
+def inverse_warp_from_matrix(
+    img: torch.Tensor,
+    depth: torch.Tensor,
+    transform: torch.Tensor,
+    intrinsics: torch.Tensor,
+    padding_mode: str = "zeros",
+    impl: str = "gather",
+) -> torch.Tensor:
+    """inverse_warp with a pre-assembled [B, 4, 4] rigid transform: NCHW
+    `img` [B, C, H, W] sampled at the projection of target-frame `depth`
+    [B, H, W] through `transform` and `intrinsics` ([B, 3, 3] or [3, 3])
+    -> [B, C, H, W] (kernel A on the card). The warp pads with zeros (the
+    reference's mode), the only padding the port's kernel has."""
+    if padding_mode != "zeros":
+        raise ValueError(f"the port's warp pads with zeros only, not {padding_mode!r}")
+    coords = warp_coords(depth, transform, intrinsics)
+    return sample_with_impl(img, coords, impl=impl)
+
+
+def inverse_warp(
+    img: torch.Tensor,
+    depth: torch.Tensor,
+    pose: torch.Tensor,
+    intrinsics: torch.Tensor,
+    invert_pose: bool = False,
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """Warp a source image into the target frame via target depth + pose.
+
+    Args:
+      img: [B, C, H, W] source image (where pixels are sampled from).
+      depth: [B, H, W] target-frame depth map.
+      pose: [B, 6] 6-DoF pose (axis-angle[3], translation[3]),
+        target -> source.
+      intrinsics: [B, 3, 3] or [3, 3].
+      invert_pose: use the inverted pose.
+    Returns [B, C, H, W], the source image on the target image plane. The
+    transform is built in fp64, as the loss builds it, so the sample
+    coordinates are the same bits on every device (see warp_coords).
+    """
+    transform = pose_matrix(pose.double(), invert=invert_pose)
+    return inverse_warp_from_matrix(img, depth, transform, intrinsics,
+                                    padding_mode=padding_mode)

@@ -1,7 +1,7 @@
 """Photometric appearance error: SSIM/L1 blend with the outlier clamp.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/losses/photometric.py
-(photometric_loss :24).
+(l1_loss :19, photometric_loss :24).
 """
 
 from __future__ import annotations
@@ -10,6 +10,12 @@ import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import ssim_distance_fused
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Scalar mean absolute error (nn.L1Loss' default reduction), with
+    jnp.abs' gradient rule at a tie."""
+    return torch.mean(abs_(pred - target))
 
 
 def photometric_loss(

@@ -4,8 +4,11 @@ joint-min automask ('min').
 
 Counterpart of unsupervised_pseuso_lidar_tpu/losses/reprojection.py
 (_full_res_depth :41, reprojection_loss :82, min_reprojection_loss :203).
-The port's warp is exact (JAX's warp_impl='gather'), so the banded-warp
-coverage metrics have no counterpart.
+The port's warp is exact (JAX's warp_impl='gather'), so it has no band
+whose coverage to report; with_coverage reports in its place the fraction
+of warp samples that land in the image (geometry/warp.in_frame_fraction),
+which reads 0.0 exactly where JAX's band_coverage does: when no sample
+lands in the image.
 
 All warp jobs of a call run as ONE batched warp (kernel A on the card):
 'min' stacks [ref0 -> tgt, ref1 -> tgt, tgt -> ref0] per scale, and
@@ -23,6 +26,7 @@ import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.geometry.se3 import invert_pose, pose_matrix
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
+    in_frame_fraction,
     sample_with_impl,
     warp_coords,
 )
@@ -59,7 +63,8 @@ def reprojection_loss(
     intrinsics: torch.Tensor,
     mode: str = "mean",
     warp_impl: str = "gather",
-) -> torch.Tensor:
+    with_coverage: bool = False,
+):
     """Bidirectional multi-scale reprojection loss.
 
     Args:
@@ -71,7 +76,8 @@ def reprojection_loss(
       mode: 'mean' or 'l1' (|warped - target|, jnp.abs' rule at a tie),
         'mse' ((warped - target)²) or 'ssim' (photometric_loss: the 0.85
         SSIM + 0.15 L1 blend with its mean + 0.5 std clamp).
-    Returns the scalar loss. Each scale's depth is upsampled to full
+    Returns the scalar loss, or (loss, in-frame fraction of every job's
+    samples) with with_coverage. Each scale's depth is upsampled to full
     resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
     tgt's depth at weight 1/(4S), then per scale tgt -> ref0 with ref0's
     depth and the inverted pose at weight 1/(2S); the loss is the weighted
@@ -119,8 +125,11 @@ def reprojection_loss(
     else:
         err = photometric_loss(warped, target, no_ssim=False)
     per_job = err.reshape(jobs, -1).mean(dim=1)
-    return torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
+    loss = torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
                                             device=per_job.device))
+    if with_coverage:
+        return loss, in_frame_fraction(coords)
+    return loss
 
 
 def min_reprojection_loss(
@@ -133,6 +142,7 @@ def min_reprojection_loss(
     warp_impl: str = "gather",
     ident_scale: float = 1.0,
     depths_ref0: Sequence[torch.Tensor] | None = None,
+    with_coverage: bool = False,
 ):
     """monodepth2-style per-pixel minimum over the two references, with
     the joint-min automask: per pixel min(min_r reproj_r, min_r ident_r ·
@@ -151,7 +161,10 @@ def min_reprojection_loss(
     Returns (the scalar loss, mean over scales; automask_keep, the
     fraction of pixels whose warp error wins the joint min — the pixels
     that still carry photometric gradient — the two directions averaged,
-    then the scales, as JAX's with_coverage reports it; detached).
+    then the scales, as JAX's with_coverage reports it; detached), and
+    with with_coverage the in-frame fraction of the warp samples (the mean
+    over scales of each scale's stacked jobs, as JAX averages its
+    coverage).
     """
     batch, _, height, width = tgt.shape
     bidirectional = depths_ref0 is not None
@@ -188,13 +201,15 @@ def min_reprojection_loss(
     ident_bwd = ident_pair[:batch].float() * ident_scale + 1e-5
 
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
-    keeps = []
+    keeps, in_frame = [], []
     for i, scale_depth in enumerate(depths):
         depth_full = _full_res_depth(scale_depth, height, width)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
             depth_maps.append(_full_res_depth(depths_ref0[i], height, width))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled)
+        if with_coverage:
+            in_frame.append(in_frame_fraction(coords))
         warped = sample_with_impl(src, coords, impl=warp_impl)
         err = _channel_mean(photometric_loss(
             warped, target, no_ssim=no_ssim, clip_loss=0.0
@@ -208,4 +223,7 @@ def min_reprojection_loss(
             scale_loss = 0.5 * (scale_loss + err_b.mean())
         keeps.append(keep)
         total = total + scale_loss
-    return total / len(depths), torch.stack(keeps).mean().detach()
+    out = (total / len(depths), torch.stack(keeps).mean().detach())
+    if with_coverage:
+        out += (torch.stack(in_frame).mean(),)
+    return out

@@ -1,11 +1,12 @@
 """Top-level objective: reprojection + smoothness.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/losses/total.py
-(normalize_depth :22, total_loss :53).
+(normalize_depth :22, total_loss :53, Losses :143).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -48,10 +49,12 @@ def total_loss(
     ident_scale: float = 1.0,
     no_ssim: bool = False,
     min_bidirectional: bool = True,
+    with_coverage: bool = False,
 ):
     """(reprojection_loss, smooth_weight · smoothness_loss, extra): extra
-    is {"automask_keep": fraction} in 'min' mode (min_reprojection_loss),
-    {} in the others.
+    holds {"automask_keep": fraction} in 'min' mode (min_reprojection_loss)
+    and, with with_coverage, {"warp_in_frame": the fraction of the warp's
+    samples that land in the image} (JAX's coverage metrics stand here).
 
     Args:
       tgt, refs: [B, 3, H, W] target and the two reference frames.
@@ -69,14 +72,18 @@ def total_loss(
         depths = [[normalize_depth(d) for d in frame] for frame in depths]
     extra = {}
     if mode == "min":
-        loss_reproj, extra["automask_keep"] = min_reprojection_loss(
+        loss_reproj, extra["automask_keep"], *in_frame = min_reprojection_loss(
             tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
             ident_scale=ident_scale, no_ssim=no_ssim,
             depths_ref0=depths[1] if min_bidirectional else None,
+            with_coverage=with_coverage,
         )
     else:
-        loss_reproj = reprojection_loss(tgt, refs, depths, poses, intrinsics,
-                                        mode=mode, warp_impl=warp_impl)
+        result = reprojection_loss(tgt, refs, depths, poses, intrinsics, mode=mode,
+                                   warp_impl=warp_impl, with_coverage=with_coverage)
+        loss_reproj, *in_frame = result if with_coverage else (result,)
+    if with_coverage:
+        extra["warp_in_frame"] = in_frame[0]
     if smooth_on == "depth":
         loss_smooth = smooth_loss(depths[0], decay=smooth_decay)
     elif smooth_on == "disp":
@@ -84,3 +91,25 @@ def total_loss(
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
     return loss_reproj, smooth_weight * loss_smooth, extra
+
+
+@dataclass
+class Losses:
+    """Object-style wrapper of total_loss (the reference's Losses API):
+    losses(tgt, refs, disparities, poses, intrinsics) -> total_loss with
+    these settings."""
+
+    mode: str = "mean"
+    smooth_decay: float = 2.3
+    smooth_weight: float = 1.0
+    smooth_on: str = "depth"
+    warp_impl: str = "gather"
+
+    def forward(self, tgt, refs, disparities, poses, intrinsics, gt=None):
+        return total_loss(
+            tgt, refs, disparities, poses, intrinsics, mode=self.mode,
+            smooth_decay=self.smooth_decay, smooth_weight=self.smooth_weight,
+            smooth_on=self.smooth_on, warp_impl=self.warp_impl,
+        )
+
+    __call__ = forward

@@ -1,7 +1,8 @@
 """Model registry — config name -> constructor.
 
-Counterpart of unsupervised_pseuso_lidar_tpu/models/registry.py, holding
-the models ported so far (DispResNet, PoseNet, PoseFc).
+Counterpart of unsupervised_pseuso_lidar_tpu/models/registry.py
+(register_model :16, build_model :24), holding the models ported so far
+(DispResNet, PoseNet, PoseFc) and any a user registers.
 """
 
 from __future__ import annotations
@@ -28,6 +29,17 @@ NOT_PORTED = {"BtsModel": 9, "DispNetS": 10, "StnDispNet": 10, "PoseDecoder": 10
 _TAKES_IMAGE_SHAPE = {"PoseFc"}
 
 
+def register_model(name: str):
+    """Class decorator: register a model constructor under `name` (a
+    registered name is built even where NOT_PORTED lists it). A model built
+    with a generator must have reset_parameters(generator)."""
+    def wrap(ctor):
+        MODEL_REGISTRY[name] = ctor
+        return ctor
+
+    return wrap
+
+
 def build_model(
     name: str,
     generator: torch.Generator | None = None,
@@ -40,7 +52,7 @@ def build_model(
     (H, W) reaches the models whose layers depend on it and is ignored by
     the others. A model of the JAX package that is not ported yet raises
     NotImplementedError."""
-    if name in NOT_PORTED:
+    if name in NOT_PORTED and name not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP.md slice {NOT_PORTED[name]})")
     if name not in MODEL_REGISTRY:

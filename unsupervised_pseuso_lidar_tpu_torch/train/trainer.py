@@ -3,9 +3,9 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
-:231-401, make_eval_step :480, Trainer :561, fit :783). The mesh, the
-multi-step scan and the epoch-end warp images and weight histograms of
-wandb are not ported yet.
+:231-401, make_eval_step :480, Trainer :561, _warn_if_collapsed :683,
+log_warps :742, fit :783). The mesh and the multi-step scan are not
+ported yet.
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
@@ -30,7 +30,7 @@ from torch import nn
 from unsupervised_pseuso_lidar_tpu_torch.data.augment import augment_batch, draw_params
 from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import compute_errors, eigen_crop_mask
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
-from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth
+from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth, inverse_warp
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
@@ -219,9 +219,11 @@ def supervised_loss(disp: torch.Tensor, groundtruth: torch.Tensor) -> torch.Tens
 
 class TrainStep:
     """step(batch) -> metrics {loss, mul_app_loss, smoothness_loss[,
-    automask_keep][, supervised_loss]} as 0-dim tensors (no host sync): one
-    optimizer step. automask_keep ('min' only) is the fraction of pixels
-    whose warp error wins the joint-min automask.
+    automask_keep][, warp_in_frame][, supervised_loss]} as 0-dim tensors
+    (no host sync): one optimizer step. automask_keep ('min' only) is the
+    fraction of pixels whose warp error wins the joint-min automask;
+    warp_in_frame (with_coverage) the fraction of the warp's samples that
+    land in the image, the port's stand-in for JAX's coverage metrics.
 
     The body of the JAX make_train_step_body: uint8 images normalized on
     the device; with color_jitter / hflip, the augmentations of
@@ -259,6 +261,7 @@ class TrainStep:
         hflip: bool = False,
         aug_seed: int = 0,
         precision: str = "fp32",
+        with_coverage: bool = False,
         device: str | torch.device = "cuda",
     ):
         _check_precision(precision)
@@ -280,6 +283,7 @@ class TrainStep:
         self.hflip = hflip
         self.aug_seed = aug_seed
         self.precision = precision
+        self.with_coverage = with_coverage
 
     def _ident_scale(self) -> float:
         if not (self.automask_warmup and self.loss_mode == "min"):
@@ -304,6 +308,7 @@ class TrainStep:
             smooth_on=self.smooth_on, depth_norm=self.depth_norm,
             ident_scale=self._ident_scale(), no_ssim=self.no_ssim,
             min_bidirectional=self.min_bidirectional,
+            with_coverage=self.with_coverage,
         )
         loss = reproj + smooth
         if self.supervised_weight and "groundtruth" in batch:
@@ -503,6 +508,7 @@ class Trainer:
         self.log_fn = log_fn
         self.epoch = 0
         self.batch_waits: List[float] = []
+        self._last_batch = None
         self.steps_per_epoch = (
             max(1, len(dataset) // act.batch_size) if dataset is not None else 1000
         )
@@ -520,6 +526,8 @@ class Trainer:
             accum_steps=act.accum_steps, remat=act.remat,
             color_jitter=aug.color_jitter, hflip=aug.hflip,
             aug_seed=act.random_seed, precision=act.precision,
+            # JAX reports its warp coverage with the banded warps
+            with_coverage=act.warp_impl in ("mxu", "pallas"),
         )
         self.eval_step = make_eval_step(
             self.state.depth_model, self.state.pose_model,
@@ -540,9 +548,12 @@ class Trainer:
         """One pass over an iterable of host batches -> the last step's
         metrics as floats (read from the device once, at the end).
         self.batch_waits holds the seconds the loop waited for each batch
-        of the epoch (host clock; the steps before it run on unawaited)."""
+        of the epoch (host clock; the steps before it run on unawaited).
+        The epoch's last batch is kept for fit's warp pictures; a read
+        warp_in_frame of 0.0 warns once (_warn_if_collapsed)."""
         metrics = None
         self.batch_waits = []
+        self._last_batch = None  # never carry a stale batch across epochs
         batches = iter(train_batches)
         for i in itertools.count():
             t0 = time.perf_counter()
@@ -550,13 +561,70 @@ class Trainer:
             if batch is None:
                 break
             self.batch_waits.append(time.perf_counter() - t0)
+            self._last_batch = batch
             metrics = self.train_step(batch)
             if self.log_fn is not None and (i + 1) % self.config.action.log_freq == 0:
                 self.log_fn({k: float(v) for k, v in metrics.items()},
                             self.state.step)
         if metrics is None:  # empty iterator
             return {}
-        return {k: float(v) for k, v in metrics.items()}
+        out = {k: float(v) for k, v in metrics.items()}
+        self._warn_if_collapsed(out)
+        return out
+
+    def _warn_if_collapsed(self, metrics: Dict[str, float]) -> None:
+        """Warn once when training has fallen into the zeros-warp trivial
+        solution: the zeros-padded 'mean' objective is minimized by pushing
+        every warp sample out of frame, after which the warped image is all
+        zeros, the loss is frozen at mean|tgt| and no gradient flows back
+        through the out-of-frame taps. warp_in_frame reads exactly 0.0 only
+        when no sample lands in the image. 'min' is immune: its joint-min
+        automask leaves an out-of-frame warp at the identity-error floor."""
+        if getattr(self, "_collapse_warned", False):
+            return
+        if metrics.get("warp_in_frame") == 0.0:
+            self._collapse_warned = True
+            print(
+                "[trainer] WARNING: warp coverage is 0.0 — every sample "
+                "projects out of frame, so the photometric gradient is "
+                "dead and the loss is frozen at mean|tgt| (the zeros-warp "
+                "trivial solution of the zeros-padded 'mean' objective). "
+                "Training cannot recover from here. Restart with "
+                "action.loss_mode: 'min' (its joint-min automask leaves "
+                "an out-of-frame warp at the identity-error floor, never "
+                "an improvement) and smooth_on: 'disp' — see "
+                "benchmarks/reference_loop.py and docs/DESIGN.md §8.",
+                flush=True,
+            )
+
+    @torch.no_grad()
+    def log_warps(self, batch, step: int = 0, out_dir: str = "./images") -> Dict[str, str]:
+        """Render the first sample's target, ref0 warped into the target
+        frame (pose 0, kernel A on the card) and depth as PNGs under
+        out_dir (utils/visualization.save_warp_visualization); returns
+        {file name: path}. The models run in eval mode, as in JAX; the
+        batch is normalized first, so a uint8 batch renders as a float one."""
+        from unsupervised_pseuso_lidar_tpu_torch.utils.visualization import (
+            save_warp_visualization,
+        )
+
+        act = self.config.action
+        batch = normalize_uint8_batch(batch_to_device(batch, self.device))
+        with torch.autocast(self.device.type, torch.bfloat16,
+                            enabled=act.precision == "bf16"):
+            disps_tgt, _, poses = forward_batch(
+                self.state.depth_model, self.state.pose_model, batch, train=False,
+                semi_sup_pose=act.semi_sup_pose,
+            )
+        depth = disp_to_depth(disps_tgt[0][:, 0].float())
+        warped = inverse_warp(batch["ref_imgs"][:, 0], depth, poses[:, 0].float(),
+                              batch["intrinsics"])
+
+        def hwc(x):
+            return x[0].permute(1, 2, 0).cpu().numpy()
+
+        return save_warp_visualization(out_dir, step, hwc(batch["tgt"]), hwc(warped),
+                                       depth[0].cpu().numpy())
 
     def validate(self, val_batches) -> Dict[str, float]:
         """Mean of the eval step's metrics over an iterable of batches (the
@@ -574,7 +642,9 @@ class Trainer:
     def fit(self, make_train_iter, make_val_iter=None) -> Dict[str, float]:
         """Train from self.epoch to action.num_epochs: each epoch runs
         make_train_iter(epoch), then validates on make_val_iter() (when
-        given) and logs, then saves a checkpoint. A SIGTERM or SIGINT
+        given) and logs; with a wandb logger it also logs the warp pictures
+        of the epoch's last batch (log_warps) and the weight histograms;
+        then it saves a checkpoint. A SIGTERM or SIGINT
         during an epoch lets it finish, checkpoints it and stops (resume
         with from_scratch: False). Returns the last epoch's metrics."""
         interrupted = []
@@ -593,6 +663,13 @@ class Trainer:
                     metrics.update({f"val_{k}": v for k, v in val.items()})
                     if self.log_fn is not None:
                         self.log_fn(metrics, self.state.step)
+                if getattr(self.log_fn, "_wandb", None) is not None:
+                    if self._last_batch is not None:
+                        paths = self.log_warps(self._last_batch, step=self.state.step)
+                        self.log_fn.log_images(paths, self.state.step)
+                    self.log_fn.log_param_histograms(
+                        {"depth": self.state.depth_model, "pose": self.state.pose_model},
+                        self.state.step)
                 self.checkpoints.save(self.state, self.epoch)
                 if interrupted:
                     print(f"[trainer] interrupted: checkpointed epoch {self.epoch}",

@@ -1,16 +1,18 @@
 """Metric logging: JSON lines on stdout always, wandb behind the MLOps flag.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/utils/logging.py
-(MetricLogger :15-37). wandb is optional: it runs only when
-`action.MLOps` is on and `import wandb` succeeds. Image logging and the
-parameter histograms come with utils/visualization.
+(MetricLogger :15-37, log_images :39, log_param_histograms :51). wandb is
+optional: it runs only when `action.MLOps` is on and `import wandb`
+succeeds; without it the image and histogram calls do nothing.
 """
 
 from __future__ import annotations
 
 import json
 import time
-from typing import Dict
+from typing import Dict, Mapping
+
+from torch import nn
 
 
 class MetricLogger:
@@ -34,3 +36,26 @@ class MetricLogger:
         print(json.dumps(record), flush=True)
         if self._wandb is not None:
             self._wandb.log(metrics, step=step)
+
+    def log_images(self, images: Dict[str, str], step: int) -> None:
+        """Log rendered images (name -> PNG path or HWC array). No-op
+        without wandb."""
+        if self._wandb is None:
+            return
+        self._wandb.log({name: self._wandb.Image(img) for name, img in images.items()},
+                        step=step)
+
+    def log_param_histograms(self, models: Mapping[str, nn.Module], step: int) -> None:
+        """One weight histogram a parameter tensor, keyed
+        params/<net>/<parameter name with '.' -> '/'> (nets: {"depth": ...,
+        "pose": ...}), wandb.watch's view of the weights. No-op without
+        wandb."""
+        if self._wandb is None:
+            return
+        hists = {
+            f"params/{net}/" + name.replace(".", "/"):
+                self._wandb.Histogram(param.detach().float().cpu().numpy().ravel())
+            for net, model in models.items()
+            for name, param in model.named_parameters()
+        }
+        self._wandb.log(hists, step=step)

@@ -2,12 +2,12 @@
 
 Counterpart of unsupervised_pseuso_lidar_tpu/utils/transforms.py
 (load_image :23, load_depth_png :49, load_image_uint8 :70,
-load_image_uint8_cached :91, normalize_image :129). The loaders decode
-and resize with PIL exactly as the JAX ones do — Image.open, then
-resize(BILINEAR) for frames and resize(NEAREST) for 16-bit depth PNGs —
-so they return the same bytes: uint8 or float HWC frames with the
-original height and width (for the intrinsics rescale), and depth as
-uint16 / 256 in meters.
+load_image_uint8_cached :91, normalize_image :129, unnormalize_image
+:134). The loaders decode and resize with PIL exactly as the JAX ones do
+— Image.open, then resize(BILINEAR) for frames and resize(NEAREST) for
+16-bit depth PNGs — so they return the same bytes: uint8 or float HWC
+frames with the original height and width (for the intrinsics rescale),
+and depth as uint16 / 256 in meters.
 """
 
 from __future__ import annotations
@@ -108,3 +108,8 @@ def load_image_uint8_cached(
 def normalize_image(img: np.ndarray) -> np.ndarray:
     """ImageNet-normalize a float HWC image in [0, 1]."""
     return (img - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def unnormalize_image(img: np.ndarray) -> np.ndarray:
+    """Inverse of normalize_image (for visualization)."""
+    return img * IMAGENET_STD + IMAGENET_MEAN
