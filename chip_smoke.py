@@ -68,6 +68,22 @@ then drives the port's entry points with seeded random weights:
                 steady ms a step; the fit's trace holds the four kernels as
                 often as their wrappers launched them); Trainer.log_warps on
                 a basic_config batch (three PNGs, one launch of A)
+  models        the rest of the model zoo. BtsModel (DenseNet-161 + ASPP + LPG),
+                the reference ROS node's model, at its 352x1216, batch 1, fp32,
+                seeded weights, on the kitti drive's frames: cli.export
+                --format bts-serving writes the ROS blob, cli.pipeline
+                serves it (frames/s; latency at 10 Hz), one frame held to the
+                in-process make_depth_cloud_fn(make_depth_fn(bts,
+                metric_output=True)), cli.export fused with the projector
+                (--verify; run_exported vs the live module), the forward card
+                vs CPU, peak memory, and no launch of A, A', B or C. Then
+                basic_config's training (1280x384, batch 4, fp32, 'min',
+                PoseFc) with its depth net replaced by DispNetS (4 scales),
+                StnDispNet with its spatial transformer (1 scale) and
+                DispResNet-50 with all_scales (4 scales): 3 timed steps each,
+                launches {S, S, S + 1, S} a step for S scales, finite losses,
+                peak memory, loss gradients card vs CPU; and PoseDecoder over
+                ResNet-50 encoder features, card vs CPU
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -236,6 +252,19 @@ VELO_RTOL = 1e-6
 # against the in-process pipeline's on the same device and program; an
 # exported program against its live module (cli.export --verify's bound)
 SERVE_RATE_HZ = 10.0
+# the models phase: BtsModel at the reference ROS node's frame size (H, W);
+# its five outputs card vs CPU (relative L2, TF32 off)
+BTS_SHAPE = (352, 1216)
+BTS_REL_L2 = 1e-5
+# the depth nets trained at basic_config's shape: (name, kwargs, output
+# scales)
+ZOO_TRAIN = (("DispNetS", {}, 4), ("StnDispNet", {"use_stn": True}, 1),
+             ("DispResNet", {"num_layers": 50, "all_scales": True}, 4))
+# PoseDecoder's 0.01-scaled outputs card vs CPU
+POSE_DECODER_ATOL = 1e-6
+# the zoo's loss gradients card vs CPU on the first rows of a batch only
+# (the CPU's plain warp and SSIM over four scales at 1280x384 are slow)
+ZOO_GRAD_ROWS = 2
 SERVE_RTOL = 1e-6
 EXPORT_TOL = 2e-5
 # the real 2011_09_26 IMU -> velodyne transform
@@ -468,6 +497,10 @@ def main(device="cuda:0"):
         torch.cuda.empty_cache()
         # 16. where a training step's time goes, by torch.profiler
         profiled = profile_phase(device, tmp, kitti, records_1280)
+        torch.cuda.empty_cache()
+        # 17. the rest of the model zoo: BtsModel serving at the ROS node's
+        # shape, the multi-scale and transformer depth nets' training steps
+        models_phase(device, tmp, drive_dir)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
     for config_name, recs in (("basic_config", records_1280), ("tpu_v5e", records)):
@@ -690,10 +723,17 @@ def div3_phase(device, chunk=1 << 27):
     check(mismatches == 0, f"div3 disagrees with x / 3.0 on {mismatches} patterns")
 
 
-def expected_launches(loss_mode):
-    """Launches of one training step: {A, A', B, C} by objective."""
-    return {"min": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
-                    "ssim_fwd": 2, "ssim_bwd": 1},
+def expected_launches(loss_mode, scales=1):
+    """Launches of one training step: {A, A', B, C} by objective, for a
+    depth net of `scales` output scales. 'min'
+    (losses/reprojection.min_reprojection_loss) warps and scores each
+    scale apart: per scale one A, one B on the warped frames, and in the
+    backward one A' and one C; plus one B for the identity error, which
+    is scale-free and needs no gradient -> {S, S, S + 1, S}. 'mean' and
+    'ssim' (reprojection_loss) stack every scale's jobs into one warp and
+    ('ssim') one SSIM pass -> {1, 1, 0, 0} and {1, 1, 1, 1} at any S."""
+    return {"min": {"warp_bilinear_fwd": scales, "warp_bilinear_bwd": scales,
+                    "ssim_fwd": scales + 1, "ssim_bwd": scales},
             "mean": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
                      "ssim_fwd": 0, "ssim_bwd": 0},
             "ssim": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
@@ -775,21 +815,35 @@ def loss_grad_rel(trainer, batch, inputs=None):
     if inputs is None:
         inputs = trainer.eval_step.loss_inputs(batch)
 
+    scales = len(inputs["disparities"][0])
+    names = [f"{frame}{f'_s{i}' if i else ''}" for frame in ("disp_tgt", "disp_ref0")
+             for i in range(scales)] + ["poses"]
+
     def loss_grads(inp):
-        leaves = [d.clone().requires_grad_() for d in
-                  (inp["disparities"][0][0], inp["disparities"][1][0], inp["poses"])]
+        disps = [[d.clone().requires_grad_() for d in frame] for frame in inp["disparities"]]
+        pose = inp["poses"].clone().requires_grad_()
         reproj, smooth, _ = total_loss(
-            inp["tgt"], inp["refs"], [[leaves[0]], [leaves[1]]], leaves[2],
+            inp["tgt"], inp["refs"], disps, pose,
             inp["intrinsics"], mode=act.loss_mode, smooth_weight=act.smooth_weight,
             smooth_on=act.smooth_on, depth_norm=act.depth_norm,
             min_bidirectional=act.min_bidirectional,
         )
-        return torch.autograd.grad(reproj + smooth, leaves)
+        return torch.autograd.grad(reproj + smooth, [*disps[0], *disps[1], pose],
+                                   allow_unused=True)
 
     on_gpu = loss_grads(inputs)
     on_cpu = loss_grads(_to_cpu(inputs))
-    return {name: rel_l2(a.cpu(), b) for name, a, b in
-            zip(("disp_tgt", "disp_ref0", "poses"), on_gpu, on_cpu)}
+    out = {}
+    for name, a, b in zip(names, on_gpu, on_cpu):
+        if a is None and b is None:
+            out[name] = 0.0  # an input the objective does not read
+        elif a is None or b is None:
+            out[name] = float("inf")
+        elif float(b.abs().max()) == 0.0:
+            out[name] = float(a.abs().max())  # both exactly 0 where they agree
+        else:
+            out[name] = rel_l2(a.cpu(), b)
+    return out
 
 
 def _state_tensors(trainer):
@@ -1307,6 +1361,27 @@ def kitti_phase(device, tmp):
     return launches, drive_dir, out
 
 
+def paced_latency(pipeline, image_dir, height, width):
+    """`pipeline` over the drive's frames at the reference's SERVE_RATE_HZ
+    (FileImageSource + run, latest-wins queue of 1): the latency a frame,
+    from the source yielding it to its result, in ms."""
+    yielded, latencies = {}, []
+
+    def stamped(frames):
+        for i, img in enumerate(frames):
+            yielded[i] = time.perf_counter()
+            yield img
+
+    def on_result(result):
+        latencies.append((time.perf_counter() - yielded[result.frame_index]) * 1e3)
+
+    paced = FileImageSource(image_dir, rate_hz=SERVE_RATE_HZ, size_hw=(height, width))
+    processed = pipeline.run(stamped(paced), on_result, queue_size=1)
+    return {"rate_hz": SERVE_RATE_HZ, "queue_size": 1, "frames": processed,
+            "latency_ms_median": float(np.median(latencies)),
+            "latency_ms_max": float(np.max(latencies)), "latency_ms": latencies}
+
+
 def serve_cli_phase(device, tmp, drive_dir):
     """The serving stack through the port's CLIs on the kitti phase's drive
     (KITTI_FRAMES PNGs of 1242x375 and its calib; see the module
@@ -1387,23 +1462,9 @@ def serve_cli_phase(device, tmp, drive_dir):
                                               rtol=SERVE_RTOL, atol=0.0),
                    f"CLI cloud vs in-process: {out['cloud_vs_in_process']}"))
 
-    yielded, latencies = {}, []
-
-    def stamped(frames):
-        for i, img in enumerate(frames):
-            yielded[i] = time.perf_counter()
-            yield img
-
-    def on_result(result):
-        latencies.append((time.perf_counter() - yielded[result.frame_index]) * 1e3)
-
-    paced = FileImageSource(image_dir, rate_hz=SERVE_RATE_HZ, size_hw=(height, width))
-    processed = pipeline.run(stamped(paced), on_result, queue_size=1)
-    out["paced"] = {"rate_hz": SERVE_RATE_HZ, "queue_size": 1, "frames": processed,
-                    "latency_ms_median": float(np.median(latencies)),
-                    "latency_ms_max": float(np.max(latencies)), "latency_ms": latencies}
-    checks.append((processed == len(latencies) == KITTI_FRAMES,
-                   f"paced run processed {processed} of {KITTI_FRAMES}"))
+    out["paced"] = paced_latency(pipeline, image_dir, height, width)
+    checks.append((out["paced"]["frames"] == len(out["paced"]["latency_ms"]) == KITTI_FRAMES,
+                   f"paced run: {out['paced']}"))
 
     # 4. cli.inference on one frame with a .bin cloud: the in-process depth
     cloud_path = os.path.join(tmp, "inference_cloud.bin")
@@ -1482,6 +1543,253 @@ def serve_cli_phase(device, tmp, drive_dir):
                    f"serve launches {launches}: the serving path holds no kernel"))
     for ok, what in checks:
         check(ok, what)
+
+
+def _write_yaml(path, raw):
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def bts_serving_check(device, tmp, drive_dir):
+    """BtsModel serving at the reference ROS node's BTS_SHAPE (batch 1,
+    fp32, seeded weights) through the port's CLIs on the kitti drive: the
+    ROS blob by cli.export --format bts-serving, cli.pipeline serving it
+    (frames/s, the latency at 10 Hz), one frame against the in-process
+    fused depth+cloud module, cli.export of the config fused with the
+    projector (--verify, then run_exported against the live module), the
+    forward card vs CPU, peak memory, and no launch of A, A', B or C.
+    -> (record, checks)."""
+    t_check = time.perf_counter()
+    height, width = BTS_SHAPE
+    image_dir = os.path.join(drive_dir, "image_02", "data")
+    calib_dir = os.path.dirname(drive_dir)
+    config_path = _write_yaml(os.path.join(tmp, "bts.yaml"), {
+        "model": {"name": "bts", "depth": {"name": "BtsModel"}, "pose": {"name": "PoseNet"}},
+        "datasets": {"augmentation": {"image_height": height, "image_width": width}},
+        "action": {"checkpoint_dir": os.path.join(tmp, "bts_checkpoints"), "precision": "fp32"},
+    })
+    config = load_config(config_path)
+    out = {"model": "BtsModel", "height": height, "width": width, "batch": 1,
+           "precision": config.action.precision, "frames": KITTI_FRAMES}
+    checks = []
+    weights = os.path.join(tmp, "bts_weights.pth")
+    seeded = create_train_state(config, torch.Generator().manual_seed(SEED + 19), device=device)
+    out["depth_parameters"] = sum(p.numel() for p in seeded.depth_model.parameters())
+    export_reference_checkpoint(seeded.depth_model, seeded.pose_model, weights)
+    del seeded
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    # 1. the ROS node's blob
+    blob = os.path.join(tmp, "bts_serving.pth")
+    _, log = _quiet(export_cli.main, ["--config", config_path, "--torch-checkpoint", weights,
+                                      "--out", blob, "--format", "bts-serving"])
+    ros = torch.load(blob, map_location="cpu", weights_only=True)
+    out["ros_blob"] = {"bytes": os.path.getsize(blob), "tensors": len(ros["model"])}
+    checks.append((sorted(ros) == ["model"] and all(k.startswith("module.") for k in ros["model"])
+                   and "BTS serving blob" in log, f"ROS blob {out['ros_blob']}"))
+
+    # 2. cli.pipeline serving it, one camera, unpaced, lossless, .bin
+    # clouds (twice: the first run also pays for the process's first cuDNN
+    # plans at this shape)
+    base = ["--images", image_dir, "--calib", calib_dir, "--config", config_path,
+            "--torch-checkpoint", blob, "--height", str(height), "--width", str(width),
+            "--queue-size", str(2 * KITTI_FRAMES), "--format", "bin"]
+    runs = {}
+    for run in ("first", "second"):
+        save = os.path.join(tmp, f"bts_clouds_{run}")
+        t0 = time.perf_counter()
+        runs[run], log = _quiet(pipeline_cli.main, [*base, "--save-dir", save])
+        runs[run]["cli_seconds"] = time.perf_counter() - t0
+    files = sorted(os.listdir(save))
+    clouds = [load_velo_scan(os.path.join(save, name)) for name in files]
+    out["pipeline"] = dict(runs, frames_per_s=runs["second"]["hz"])
+    checks += [
+        (all(r["frames"] == KITTI_FRAMES for r in runs.values()), f"BTS pipeline: {runs}"),
+        (f"serving BtsModel weights from {blob}" in log, "the pipeline did not serve the blob"),
+        (files == [f"cloud_{i:06d}.bin" for i in range(KITTI_FRAMES)], f"BTS clouds {files}"),
+        (all(len(c) > 0 and np.isfinite(c).all() for c in clouds), "an empty BTS cloud"),
+    ]
+
+    # 3. one frame against the in-process fused module of the same weights;
+    # then the latency a frame at 10 Hz
+    state = create_train_state(config, torch.Generator().manual_seed(SEED), device=device)
+    load_serving_weights(config, state, torch_checkpoint=blob)
+    model = state.depth_model.eval()
+    projector = PseudoLiDAR(calib_dir, device=device)
+    fused = make_depth_cloud_fn(make_depth_fn(model, metric_output=True), projector)
+    frame = 5
+    img = next(itertools.islice(iter(FileImageSource(image_dir, size_hw=(height, width))),
+                                frame, None))
+    img_t = torch.as_tensor(img[None], device=device)
+    with torch.no_grad():
+        depth, points, valid = fused(img_t)
+    in_process = points[0][valid[0]].cpu().numpy()
+    same = in_process.shape == clouds[frame].shape
+    out["cloud_vs_in_process"] = {
+        "frame": frame, "points": len(clouds[frame]), "in_process_points": len(in_process),
+        "max_abs_err": float(np.abs(in_process - clouds[frame]).max()) if same else None,
+        "depth_min_m": float(depth.min()), "depth_max_m": float(depth.max())}
+    checks.append((same and np.allclose(in_process, clouds[frame], rtol=SERVE_RTOL, atol=0.0),
+                   f"BTS CLI cloud vs in-process: {out['cloud_vs_in_process']}"))
+    pipeline = DepthToPointCloudPipeline(make_depth_fn(model, metric_output=True), projector,
+                                         device=device)
+    out["paced"] = paced_latency(pipeline, image_dir, height, width)
+    checks.append((out["paced"]["frames"] == KITTI_FRAMES, f"BTS paced: {out['paced']}"))
+    with torch.no_grad():
+        out["forward_ms_batch1"] = device_time_ms(lambda: model(img_t.permute(0, 3, 1, 2)),
+                                                  calls=5, runs=3)
+
+    # 4. cli.export of the config fused with the projector, --verify; the
+    # program at batch 1 against the live module
+    artifact = os.path.join(tmp, "bts_cloud.pt2")
+    t0 = time.perf_counter()
+    _, log = _quiet(export_cli.main, ["--config", config_path, "--out", artifact,
+                                      "--torch-checkpoint", blob, "--calib", calib_dir,
+                                      "--verify"])
+    export_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = run_exported(artifact, img_t)
+        want = fused(img_t)
+    out["export"] = {"cli_seconds": export_s, "verify_ok": "verify OK" in log,
+                     "size_bytes": os.path.getsize(artifact),
+                     "depth_max_abs_err": max_err(got[0], want[0]),
+                     "points_max_abs_err": max_err(got[1], want[1]),
+                     "mask_mismatch": float((got[2] != want[2]).float().mean())}
+    checks += [("verify OK" in log, "BTS cli.export --verify did not report OK"),
+               (all(torch.allclose(a, b, rtol=EXPORT_TOL, atol=EXPORT_TOL)
+                    for a, b in zip(got[:2], want[:2]))
+                and out["export"]["mask_mismatch"] <= POINTS_MASK_MISMATCH,
+                f"BTS run_exported vs live: {out['export']}")]
+    out["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # 5. the forward on the card vs the CPU on the same frame
+    t0 = time.perf_counter()
+    cpu_model = build_model("BtsModel", device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        on_gpu = model(img_t.permute(0, 3, 1, 2))
+        on_cpu = cpu_model.eval()(img_t.permute(0, 3, 1, 2).cpu())
+    names = ("depth_8x8", "depth_4x4", "depth_2x2", "reduc1x1", "final_depth")
+    out["forward_rel_l2_cuda_vs_cpu"] = {n: rel_l2(a.cpu(), b) for n, a, b in
+                                         zip(names, on_gpu, on_cpu)}
+    out["final_depth_max_abs_err_cuda_vs_cpu"] = max_err(on_gpu[4].cpu(), on_cpu[4])
+    checks.append((max(out["forward_rel_l2_cuda_vs_cpu"].values()) <= BTS_REL_L2,
+                   f"BTS forward cuda vs cpu: {out['forward_rel_l2_cuda_vs_cpu']}"))
+    del state, model, cpu_model, fused, pipeline
+    torch.cuda.empty_cache()
+    out["cpu_forward_seconds"] = time.perf_counter() - t0
+
+    out["launches"] = dict(kernels.launch_counts)
+    checks.append((out["launches"] == dict.fromkeys(kernels.KERNELS, 0),
+                   f"BTS serving launches {out['launches']}: it holds no kernel of ops/cuda"))
+    out["seconds"] = time.perf_counter() - t_check
+    return out, checks
+
+
+def zoo_train_check(device, tmp, name, kwargs, scales):
+    """Trainer.run_epoch of configs/basic_config.yaml (1280x384, batch 4,
+    fp32, 'min', PoseFc) with its depth net replaced by `name`(**kwargs),
+    1 warm-up and TRAIN_STEPS timed steps: ms a step, launches against
+    expected_launches for `scales` output scales, finite losses, peak
+    memory, and the loss-side gradients card vs CPU on ZOO_GRAD_ROWS rows
+    of a batch. -> (record, checks, the trainer)."""
+    t_check = time.perf_counter()
+    with open(BASIC_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["depth"] = {"name": name, **kwargs}
+    raw["action"]["checkpoint_dir"] = os.path.join(tmp, "zoo_checkpoints")
+    config = load_config(_write_yaml(os.path.join(tmp, f"zoo_{name}.yaml"), raw))
+    batch_size = config.action.batch_size
+    height, width = config.image_shape
+    data = SyntheticTripletDataset(1 + TRAIN_STEPS, batch_size, height, width,
+                                   seed=SEED + 23, uint8_images=True)
+    batches = list(data.batches())
+    losses = []
+    config.action.log_freq = 1
+    trainer = Trainer(config, data, log_fn=lambda m, step: losses.append(m["loss"]),
+                      device=device)
+    trainer.run_epoch(batches[:1])  # warm-up (cuDNN algorithm choice)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses.clear()
+    metrics, host_ms, event_ms, launches = timed_epoch(trainer, batches[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    grad_rel = loss_grad_rel(trainer, {k: v[:ZOO_GRAD_ROWS] for k, v in batches[1].items()})
+    grad_s = time.perf_counter() - t0
+    per_step = expected_launches(config.action.loss_mode, scales)
+    expected = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    out = {"model": name, "kwargs": kwargs, "pose": config.model.pose.name,
+           "batch": batch_size, "height": height, "width": width,
+           "precision": config.action.precision, "loss_mode": config.action.loss_mode,
+           "scales": scales, "steps": TRAIN_STEPS, "ms_per_step_cuda_events": event_ms,
+           "ms_per_step_host": host_ms, "losses": losses, "final_metrics": metrics,
+           "launches": launches, "expected_launches_per_step": per_step,
+           "depth_parameters": sum(p.numel() for p in trainer.state.depth_model.parameters()),
+           "loss_grad_rel_l2_cuda_vs_cpu": grad_rel, "loss_grad_rows": ZOO_GRAD_ROWS,
+           "loss_grad_seconds": grad_s, "max_memory_allocated_gib": peak}
+    checks = [
+        (launches == expected, f"{name}: launches {launches}, expected {expected}"),
+        (len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), f"{name}: losses {losses}"),
+        (max(grad_rel.values()) <= GRAD_REL_L2,
+         f"{name}: loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}"),
+    ]
+    out["seconds"] = time.perf_counter() - t_check
+    return out, checks, trainer
+
+
+def models_phase(device, tmp, drive_dir):
+    """The rest of the model zoo on the card: BtsModel serving at
+    BTS_SHAPE (bts_serving_check), a training step of each multi-scale or
+    transformer depth net at basic_config's shape (zoo_train_check), and
+    PoseDecoder over ResNet-50 encoder features card vs CPU. Prints the
+    phase's record, then checks it."""
+    t_phase = time.perf_counter()
+    out = {"phase": "models"}
+    out["bts_serving"], checks = bts_serving_check(device, tmp, drive_dir)
+    out["train"] = {}
+    for name, kwargs, scales in ZOO_TRAIN:
+        record, more, trainer = zoo_train_check(device, tmp, name, kwargs, scales)
+        out["train"][record["model"] + ("-stn" if kwargs.get("use_stn") else "")
+                     + (f"-{kwargs['num_layers']}" if "num_layers" in kwargs else "")] = record
+        checks += more
+        if name == "DispResNet":
+            out["pose_decoder"] = pose_decoder_check(trainer, device)
+            checks.append((out["pose_decoder"]["max_abs_err_cuda_vs_cpu"] <= POSE_DECODER_ATOL,
+                           f"PoseDecoder cuda vs cpu: {out['pose_decoder']}"))
+        del trainer
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+
+
+def pose_decoder_check(trainer, device):
+    """PoseDecoder (seeded, ResNet-50 widths) over the encoder features of
+    a trained DispResNet-50's target and first reference frames, on the
+    card and on the CPU."""
+    encoder = trainer.state.depth_model.encoder.eval()
+    batch = normalize_uint8_batch(batch_to_device(
+        next(SyntheticTripletDataset(1, 2, *trainer.config.image_shape, seed=SEED + 29,
+                                     uint8_images=True).batches()), device))
+    decoder = build_model("PoseDecoder", torch.Generator().manual_seed(SEED), device=device,
+                          num_ch_enc=encoder.num_ch_enc)
+    cpu_decoder = build_model("PoseDecoder", device="cpu", num_ch_enc=encoder.num_ch_enc)
+    cpu_decoder.load_state_dict(decoder.state_dict())
+    with torch.no_grad():
+        feats = [encoder(batch["tgt"]), encoder(batch["ref_imgs"][:, 0])]
+        on_gpu = decoder(feats)
+        on_cpu = cpu_decoder([[f.cpu() for f in frame] for frame in feats])
+    return {"num_ch_enc": list(encoder.num_ch_enc),
+            "feature_shapes": [list(f.shape) for f in feats[0]],
+            "axisangle_shape": list(on_gpu[0].shape),
+            "max_abs_err_cuda_vs_cpu": max(max_err(a.cpu(), b) for a, b in zip(on_gpu, on_cpu)),
+            "translation_max_abs": float(on_cpu[1].abs().max())}
 
 
 def event_ms_per_step(fn, steps=PROFILE_STEPS):

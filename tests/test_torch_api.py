@@ -19,6 +19,7 @@ from unsupervised_pseuso_lidar_tpu.geometry import camera as jax_camera
 from unsupervised_pseuso_lidar_tpu.geometry import se3 as jax_se3
 from unsupervised_pseuso_lidar_tpu.losses import photometric as jax_photometric
 from unsupervised_pseuso_lidar_tpu.losses import total as jax_total
+from unsupervised_pseuso_lidar_tpu.models import registry as jax_registry
 from unsupervised_pseuso_lidar_tpu_torch.geometry import calibration, camera, se3
 from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import l1_loss
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import Losses
@@ -212,25 +213,28 @@ def test_register_model_adds_a_buildable_model():
                                      device="cpu", width=3)
         assert isinstance(model, Tiny) and model.fc.out_features == 3
         assert torch.equal(model.fc.weight, again.fc.weight)
-        # a registered name is built even where the port had none yet
-        registry.register_model("PoseDecoder")(Tiny)
-        assert isinstance(registry.build_model("PoseDecoder", device="cpu"), Tiny)
     finally:
         registry.MODEL_REGISTRY.pop("TinyForTest", None)
-        registry.MODEL_REGISTRY.pop("PoseDecoder", None)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        registry.build_model("PoseDecoder", device="cpu")
+    # every name of JAX's registry builds, seeded, on the CPU
+    jax_registry.build_model("PoseNet")  # fills JAX's registry
+    assert sorted(registry.MODEL_REGISTRY) == sorted(jax_registry.MODEL_REGISTRY)
+    for name in jax_registry.MODEL_REGISTRY:
+        model = registry.build_model(name, torch.Generator().manual_seed(0), device="cpu",
+                                     image_shape=(64, 96))
+        assert type(model).__name__ == name
+    with pytest.raises(KeyError, match="Registered models"):
+        registry.build_model("NoSuchNet", device="cpu")
 
 
 # the JAX __init__s' names that the port does not have, each with its reason
 NOT_IN_PORT = {
-    "ops": {"band_coverage", "grid_sample_mxu",  # the TPU's banded warp
-            "resize_nearest"},  # BtsModel, ROADMAP.md slice 9
+    "ops": {"band_coverage", "grid_sample_mxu"},  # the TPU's banded warp
 }
 
 
 @pytest.mark.parametrize("package", ["data", "eval", "geometry", "losses", "models", "ops",
-                                     "pseudolidar", "train", "utils"])
+                                     "pseudolidar", "train", "utils", "models.depth",
+                                     "models.pose"])
 def test_each_package_exports_what_jax_exports(package):
     ref = importlib.import_module(f"unsupervised_pseuso_lidar_tpu.{package}")
     ours = importlib.import_module(f"unsupervised_pseuso_lidar_tpu_torch.{package}")

@@ -31,6 +31,7 @@ from unsupervised_pseuso_lidar_tpu.cli import train as jax_train_cli
 from unsupervised_pseuso_lidar_tpu.data import kitti as jax_kitti
 from unsupervised_pseuso_lidar_tpu.eval import pose as jax_pose_eval
 from unsupervised_pseuso_lidar_tpu.eval import trajectory as jax_trajectory
+from unsupervised_pseuso_lidar_tpu.losses import total as jax_total
 from unsupervised_pseuso_lidar_tpu.models import build_model as jax_build_model
 from unsupervised_pseuso_lidar_tpu.train import config as jax_config
 from unsupervised_pseuso_lidar_tpu.train import trainer as jax_trainer
@@ -39,6 +40,7 @@ from unsupervised_pseuso_lidar_tpu_torch.cli import odometry as odometry_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import splits as splits_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
 from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
+from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import synthetic_triplet_batch
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.train import config as config_module
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import CheckpointManager
@@ -101,18 +103,80 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys, name, pose_net, lo
 
 @pytest.mark.parametrize("argv,error", [
     (["--synthetic", "--mesh", "2"], ValueError),
-    # a config naming a model of a later slice (ROADMAP.md slices 9, 10)
-    (["--synthetic", "--config", "BtsModel.yaml"], NotImplementedError),
-    (["--synthetic", "--config", "PoseDecoder.yaml"], NotImplementedError),
+    # PoseDecoder takes encoder features, not frames: JAX's
+    # create_train_state raises TypeError calling it as the pose net
+    (["--synthetic", "--config", "PoseDecoder.yaml"], TypeError),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, error):
-    for name, head in (("BtsModel", "depth"), ("PoseDecoder", "pose")):
-        raw = yaml.safe_load(open(os.path.join("configs", "test_config.yaml")))
-        raw["model"][head]["name"] = name
-        (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(raw))
+    raw = yaml.safe_load(open(os.path.join("configs", "test_config.yaml")))
+    raw["model"]["pose"]["name"] = "PoseDecoder"
+    (tmp_path / "PoseDecoder.yaml").write_text(yaml.safe_dump(raw))
     argv = [str(tmp_path / a) if a.endswith(".yaml") else a for a in argv]
     with pytest.raises(error):
         train_cli.main(["--config", "configs/basic_config.yaml", "--device", "cpu", *argv])
+    if error is TypeError:
+        jax_cfg = jax_config.load_config(str(tmp_path / "PoseDecoder.yaml"))
+        jax_cfg.datasets.augmentation.image_height = HEIGHT
+        jax_cfg.datasets.augmentation.image_width = WIDTH
+        with pytest.raises(TypeError, match="positional argument"):
+            jax_trainer.create_train_state(jax_cfg, jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("depth", [
+    {"name": "DispNetS"}, {"name": "StnDispNet", "use_stn": True},
+    {"name": "DispResNet", "num_layers": 50, "all_scales": True},
+])
+def test_cli_trains_the_model_zoo(tmp_path, depth):
+    # basic_config ('min', PoseFc) with its depth net replaced: an epoch of
+    # two steps and a checkpoint of the reference schema that a fresh model
+    # of the config loads strictly; every output scale reaches the loss
+    raw = yaml.safe_load(open(_write_config(tmp_path, "basic_config.yaml")))
+    raw["model"]["depth"] = depth
+    (tmp_path / "zoo.yaml").write_text(yaml.safe_dump(raw))
+    trainer = _main(str(tmp_path / "zoo.yaml"), epochs=1)
+    assert trainer.state.step == 2
+    model = trainer.state.depth_model
+    with torch.no_grad():
+        outputs = model.eval()(torch.zeros(1, 3, HEIGHT, WIDTH))
+    assert len(outputs) == (1 if depth["name"] == "StnDispNet" else 4)
+    (path,) = [os.path.join(trainer.checkpoints.directory, f)
+               for f in os.listdir(trainer.checkpoints.directory)]
+    state = torch.load(path, map_location="cpu", weights_only=True)["dpth_mdl_state_dict"]
+    fresh = build_model(depth["name"], device="cpu", image_shape=(HEIGHT, WIDTH),
+                        **{k: v for k, v in depth.items() if k != "name"})
+    fresh.load_state_dict(state)
+
+
+def test_cli_trains_bts_as_jax_does(tmp_path):
+    # JAX's cli.train takes a BtsModel depth net as it takes any other
+    # (one step at 32x64 trains on the CPU): its five outputs (d8, d4, d2,
+    # reduc1x1, final depth, all full resolution) are the five disparity
+    # scales of the objective. The port's CLI trains it for an epoch, and
+    # the objective of one batch of its outputs equals JAX's total_loss of
+    # them (rel 1e-5)
+    config = _write_config(tmp_path, "test_config.yaml")
+    raw = yaml.safe_load(open(config))
+    raw["model"]["depth"] = {"name": "BtsModel", "num_features": 128}
+    (tmp_path / "bts.yaml").write_text(yaml.safe_dump(raw))
+    trainer = _main(str(tmp_path / "bts.yaml"), epochs=1)
+    assert type(trainer.state.depth_model).__name__ == "BtsModel"
+    assert trainer.state.step == 2
+    batch = synthetic_triplet_batch(BATCH, HEIGHT, WIDTH, seed=3)
+    inputs = trainer.eval_step.loss_inputs(batch)
+    assert len(inputs["disparities"][0]) == 5
+    assert all(d.shape == (BATCH, 1, HEIGHT, WIDTH) for d in inputs["disparities"][0])
+    ours = float(trainer.eval_step.loss(inputs))
+
+    def nhwc(t):
+        return jnp.asarray(np.moveaxis(t.numpy(), 1, -1))
+
+    reproj, smooth = jax_total.total_loss(
+        nhwc(inputs["tgt"]), [nhwc(r) for r in inputs["refs"]],
+        [[nhwc(d) for d in frame] for frame in inputs["disparities"]],
+        jnp.asarray(inputs["poses"].numpy()), jnp.asarray(inputs["intrinsics"].numpy()),
+        mode=trainer.config.action.loss_mode, warp_impl="gather")
+    assert np.isfinite(ours)
+    np.testing.assert_allclose(ours, float(reproj + smooth), rtol=1e-5)
 
 
 def test_cli_profiles_the_fit_and_breaks_down_a_step(tmp_path, capsys):

@@ -380,3 +380,54 @@ def test_inverse_warp_on_the_card_matches_the_cpu(cuda, invert):
                        invert_pose=invert)
     assert kernels.launch_counts["warp_bilinear_fwd"] == before + 1
     assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+def test_bts_forward_on_the_card_matches_the_cpu(cuda):
+    # BtsModel at the reference ROS node's 352x1216, seeded, eval mode, TF32
+    # off: the five outputs on the card vs the CPU at relative L2 1e-5
+    # (final depth 80·sigmoid also elementwise at 1e-4 of its range), and
+    # no launch of the loss kernels
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model("BtsModel", torch.Generator().manual_seed(0), device="cpu").eval()
+    img = torch.randn(1, 3, 352, 1216, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(img)
+        kernels.reset_launch_counts()
+        got = model.to(cuda)(img.to(cuda))
+    assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
+    for g, w in zip(got, want):
+        g = g.cpu().double()
+        assert g.shape == w.shape == (1, 1, 352, 1216)
+        assert float((g - w).norm() / w.double().norm()) <= 1e-5
+    assert float((got[4].cpu() - want[4]).abs().max()) <= 1e-4 * 80.0
+
+
+@pytest.mark.parametrize("model,kwargs,scales", [
+    ("DispNetS", {}, 4), ("DispResNet", {"num_layers": 50, "all_scales": True}, 4),
+    ("StnDispNet", {"use_stn": True}, 1)])
+def test_zoo_training_step_launches_the_kernels_once_a_scale(cuda, model, kwargs, scales):
+    # one 'min' step of each depth net on the card launches, per output
+    # scale, one warp (A) and its grid gradient (A'), one SSIM pass (B)
+    # and its backward (C), plus the identity pass's one B
+    from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import synthetic_triplet_batch
+    from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+
+    config = Config()
+    config.model.depth.name, config.model.depth.kwargs = model, kwargs
+    config.datasets.augmentation.image_height = 128
+    config.datasets.augmentation.image_width = 256
+    state = create_train_state(config, torch.Generator().manual_seed(0), device=cuda)
+    step = make_train_step(state, device=cuda, loss_mode="min")
+    batch = synthetic_triplet_batch(2, 128, 256, seed=0)
+    kernels.reset_launch_counts()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert kernels.launch_counts == {"warp_bilinear_fwd": scales, "warp_bilinear_bwd": scales,
+                                     "ssim_fwd": scales + 1, "ssim_bwd": scales}

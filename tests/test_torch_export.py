@@ -176,17 +176,34 @@ def test_cli_export_verify_and_torch_format(tmp_path, capsys):
     assert "conv1.0.weight" in ckpt["pose_mdl_state_dict"]
 
 
-def test_cli_export_refuses(tmp_path):
-    # an explicit checkpoint that restores nothing, the BTS serving blob and
-    # a depth model that is not ported yet
+def test_cli_export_refuses(tmp_path, capsys):
+    # an explicit checkpoint that restores nothing, and the BTS serving
+    # blob of a config whose depth model is not BtsModel (JAX's
+    # parser.error)
     base = ["--out", str(tmp_path / "x.pt2"), "--device", "cpu"]
     with pytest.raises(FileNotFoundError, match="no restorable state"):
         export_cli.main(["--config", "configs/test_config.yaml", *base,
                          "--checkpoint", str(tmp_path / "no_such_ckpt")])
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(SystemExit):
         export_cli.main(["--config", "configs/test_config.yaml", *base,
                          "--format", "bts-serving"])
-    cfg = tmp_path / "stn.yaml"
-    cfg.write_text("model:\n  depth:\n    name: StnDispNet\n")
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        export_cli.main(["--config", str(cfg), *base])
+    assert "requires model.depth.name: BtsModel" in capsys.readouterr().err
+
+
+def test_cli_export_serves_the_other_depth_models(tmp_path, capsys):
+    # StnDispNet's and DispNetS' programs with --verify (the finest scale
+    # through disp_to_depth), and BtsModel's metric depth (its last
+    # output, 80·sigmoid), each against its live module
+    for name in ("StnDispNet", "DispNetS", "BtsModel"):
+        cfg = tmp_path / f"{name}.yaml"
+        cfg.write_text(f"model:\n  depth:\n    name: {name}\n")
+        out = str(tmp_path / f"{name}.pt2")
+        export_cli.main(["--config", str(cfg), "--out", out, "--height", str(HEIGHT),
+                         "--width", str(WIDTH), "--verify", "--device", "cpu"])
+        assert "verify OK" in capsys.readouterr().out
+        with open(out + ".json") as f:
+            assert json.load(f)["model"] == name
+        depth = export.run_exported(out, _img(1), device="cpu")
+        assert depth.shape == (1, HEIGHT, WIDTH)
+        if name == "BtsModel":
+            assert 0.0 < float(depth.min()) and float(depth.max()) < 80.0

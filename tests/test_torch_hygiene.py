@@ -134,10 +134,15 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("datasets:\n  augmentation:\n    image_width: 64\n"
                    "    image_height: 32\naction:\n  batch_size: 1\n")
+    bts_cfg = tmp_path / "bts.yaml"
+    bts_cfg.write_text("model:\n  depth:\n    name: BtsModel\n")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (
         lambda: build_model("PoseNet"),
         lambda: build_model("PoseFc"),
+        *(lambda name=name: build_model(name) for name in
+          ("BtsModel", "DispNetS", "StnDispNet", "PoseDecoder")),
+        lambda: build_model("DispResNet", num_layers=50, all_scales=True),
         lambda: make_eval_step(depth, pose),
         lambda: PseudoLiDAR(str(tmp_path)),
         lambda: DepthToPointCloudPipeline(lambda img: img, projector),
@@ -155,6 +160,10 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: pipeline_cli.main(["--images", str(tmp_path), "--calib", str(tmp_path)]),
         lambda: inference_cli.main(["--config", str(cfg), "--image", str(tmp_path / "x.png")]),
         lambda: export_cli.main(["--config", str(cfg), "--out", str(tmp_path / "x.pt2")]),
+        lambda: export_cli.main(["--config", str(bts_cfg), "--out", str(tmp_path / "b.pth"),
+                                 "--format", "bts-serving"]),
+        lambda: pipeline_cli.main(["--images", str(tmp_path), "--calib", str(tmp_path),
+                                   "--model", "BtsModel"]),
         lambda: run_exported(str(tmp_path / "x.pt2"), np.zeros((1, 32, 64, 3), np.float32)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -340,13 +340,46 @@ def test_pipeline_cli_matches_jax(mini_kitti, served, tmp_path, capsys):  # noqa
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--checkpoint", "ckpt"], SystemExit, "need --config"),
-    (["--model", "BtsModel"], NotImplementedError, "slice 9"),
-    (["--model", "StnDispNet"], NotImplementedError, "slice 10"),
 ])
 def test_pipeline_cli_refuses(mini_kitti, argv, error, match):  # noqa: F811
     with pytest.raises(error, match=match):
         pipeline_cli.main(["--images", _frames_dir(mini_kitti), "--calib",
                            os.path.join(mini_kitti["kitti"], DATE), "--device", "cpu", *argv])
+
+
+def test_pipeline_cli_serves_stndispnet_like_jax(mini_kitti, tmp_path, capsys):  # noqa: F811
+    # a StnDispNet config with its weights as a reference .pth: the same
+    # clouds as JAX's CLI from the same file (tests/test_torch_bts.py holds
+    # BtsModel to JAX's CLI the same way); --model without --config builds
+    # each of the JAX CLI's choices at its seeded init
+    depth = build_model("StnDispNet", torch.Generator().manual_seed(4), device="cpu")
+    pose = build_model("PoseNet", torch.Generator().manual_seed(5), device="cpu")
+    pth = str(tmp_path / "stn.pth")
+    export_reference_checkpoint(depth, pose, pth)
+    raw = {"model": {"name": "stn", "depth": {"name": "StnDispNet"}, "pose": {"name": "PoseNet"}},
+           "datasets": {"augmentation": {"image_height": HEIGHT, "image_width": WIDTH}},
+           "action": {"checkpoint_dir": str(tmp_path / "ckpt")}}
+    config = tmp_path / "stn.yaml"
+    config.write_text(yaml.safe_dump(raw))
+    calib = os.path.join(mini_kitti["kitti"], DATE)
+    common = ["--images", _frames_dir(mini_kitti), "--calib", calib, "--config", str(config),
+              "--torch-checkpoint", pth, "--height", str(HEIGHT), "--width", str(WIDTH),
+              "--max-frames", "2", "--queue-size", "8", "--format", "bin"]
+    pipeline_cli.main([*common, "--save-dir", str(tmp_path / "port"), "--device", "cpu"])
+    jax_pipeline_cli.main([*common, "--save-dir", str(tmp_path / "jax")])
+    assert capsys.readouterr().out.count("serving StnDispNet weights from") == 2
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "port")) == [f"cloud_{i:06d}.bin"
+                                                              for i in range(2)]
+    cal = Calibration(calib)
+    for name in files:
+        _assert_clouds_match(load_velo_scan(str(tmp_path / "port" / name)),
+                             load_velo_scan(str(tmp_path / "jax" / name)), cal)
+    for model in ("DispNetS", "StnDispNet", "BtsModel"):
+        stats = pipeline_cli.main(["--images", _frames_dir(mini_kitti), "--calib", calib,
+                                   "--model", model, "--height", str(HEIGHT), "--width",
+                                   str(WIDTH), "--max-frames", "1", "--device", "cpu"])
+        assert stats["frames"] == 1
 
 
 def test_inference_cli_matches_jax(mini_kitti, served, tmp_path):  # noqa: F811

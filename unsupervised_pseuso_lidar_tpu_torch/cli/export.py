@@ -7,7 +7,9 @@ graph and the weights in one archive, a `.json` sidecar beside it); JAX's
 is a StableHLO `jax.export`. `--format torch` (or an `--out` ending in
 .pth) instead writes a reference-schema training checkpoint ({epoch,
 dpth_mdl_state_dict, pose_mdl_state_dict, optimizer_state_dict, loss,
-valid_acc}) from the serving weights.
+valid_acc}) from the serving weights, and `--format bts-serving` (a
+BtsModel config) the `{"model": module.*}` blob the reference's ROS node
+loads. A BtsModel's program serves its final metric depth.
 
   python -m unsupervised_pseuso_lidar_tpu_torch.cli.export \\
       --config configs/basic_config.yaml --out artifacts/depth.pt2 \\
@@ -15,8 +17,7 @@ valid_acc}) from the serving weights.
       [--calib KITTI/2011_09_26] [--verify] [--device cpu]
 
 `--device` (default cuda) is where the program is traced and where it
-runs: a `.pt2` is bound to its device. `--format bts-serving` waits for
-the BtsModel port and raises NotImplementedError.
+runs: a `.pt2` is bound to its device.
 """
 
 from __future__ import annotations
@@ -65,14 +66,12 @@ def main(argv=None):
                         "cuda; raises without one)")
     args = parser.parse_args(argv)
     fmt = args.format or ("torch" if args.out.endswith(".pth") else "pt2")
-    if fmt == "bts-serving":
-        raise NotImplementedError("--format bts-serving: BtsModel is not ported yet "
-                                  "(ROADMAP.md slice 9)")
 
     import numpy as np
     import torch
 
     from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
+        export_bts_serving_checkpoint,
         export_reference_checkpoint,
         load_serving_weights,
         load_torch_checkpoint,
@@ -83,6 +82,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     config = load_config(args.config)
+    depth_name = config.model.depth.name
+    if fmt == "bts-serving" and depth_name != "BtsModel":
+        parser.error("--format bts-serving requires model.depth.name: "
+                     f"BtsModel (config has {depth_name})")
     state = create_train_state(
         config, torch.Generator().manual_seed(config.action.random_seed), device=device
     )
@@ -109,6 +112,11 @@ def main(argv=None):
         print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes, "
               f"reference .pth schema, weights={weight_source})")
         return None
+    if fmt == "bts-serving":
+        export_bts_serving_checkpoint(state.depth_model, args.out)
+        print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes, "
+              f"BTS serving blob, weights={weight_source})")
+        return None
 
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import (
         export_program,
@@ -119,7 +127,8 @@ def main(argv=None):
 
     height, width = config.image_shape
     height, width = args.height or height, args.width or width
-    fn = make_depth_fn(state.depth_model, precision=config.action.precision)
+    fn = make_depth_fn(state.depth_model, metric_output=depth_name == "BtsModel",
+                       precision=config.action.precision)
     if args.calib:
         from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
 
@@ -130,7 +139,7 @@ def main(argv=None):
     program = export_program(
         fn, [example], args.out, batch_poly=args.batch_poly,
         metadata={
-            "model": config.model.depth.name,
+            "model": depth_name,
             "image_height": height,
             "image_width": width,
             "fused_pointcloud": bool(args.calib),

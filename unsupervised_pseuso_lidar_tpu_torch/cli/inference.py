@@ -3,7 +3,10 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/cli/inference.py (main
 :20-99): the config's depth model with its serving weights
 (train/checkpoint.load_serving_weights) on one frame -> depth in meters,
-optionally saved, and optionally a pseudo-LiDAR cloud.
+optionally saved, and optionally a pseudo-LiDAR cloud. As in JAX, the
+depth is the model's first output through disp_to_depth for every model,
+BtsModel too (whose first output is its 8x8 LPG depth / 80, not a
+disparity; cli.pipeline and cli.export serve its metric depth).
 
   python -m unsupervised_pseuso_lidar_tpu_torch.cli.inference \\
       --config configs/basic_config.yaml --image frame.png \\

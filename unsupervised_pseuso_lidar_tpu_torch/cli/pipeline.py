@@ -13,9 +13,10 @@ batch), optionally save each cloud, and print one JSON line of stats.
 
 Arguments may come from a file, one '--flag value' per line (the
 reference's pseudo-lidar/config_test.txt layout): `@args.txt`. Without
---config the model is a DispResNet at its seeded init. The other depth
-models of the JAX package are not ported yet and raise
-NotImplementedError.
+--config the model is --model (DispResNet, DispNetS, StnDispNet or
+BtsModel) at its seeded init. A BtsModel serves its last output, metric
+depth (the reference ROS node's model); the others their finest
+disparity through disp_to_depth.
 """
 
 from __future__ import annotations
@@ -102,15 +103,18 @@ def main(argv=None):
         source = load_serving_weights(config, state, torch_checkpoint=args.torch_checkpoint,
                                       checkpoint=args.checkpoint)
         model, precision = state.depth_model, config.action.precision
-        print(f"serving {config.model.depth.name} weights from {source}")
+        model_name = config.model.depth.name
+        print(f"serving {model_name} weights from {source}")
     else:
         if args.checkpoint or args.torch_checkpoint:
             raise SystemExit("--checkpoint/--torch-checkpoint need --config "
                              "(to know the model architecture)")
-        model = build_model(args.model, torch.Generator().manual_seed(0), device=device)
+        model_name = args.model
+        model = build_model(model_name, torch.Generator().manual_seed(0), device=device,
+                            image_shape=(args.height, args.width))
 
     pipeline = DepthToPointCloudPipeline(
-        make_depth_fn(model, precision=precision),
+        make_depth_fn(model, metric_output=model_name == "BtsModel", precision=precision),
         PseudoLiDAR(args.calib, sparsity=args.sparsity, device=device), device=device,
     )
     if args.save_dir:

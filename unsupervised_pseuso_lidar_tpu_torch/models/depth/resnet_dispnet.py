@@ -1,7 +1,9 @@
 """DispResNet — ResNet encoder + monodepth2 depth decoder (NCHW).
 
 Counterpart of unsupervised_pseuso_lidar_tpu/models/depth/resnet_dispnet.py
-(ResnetEncoder :123, DepthDecoder :183, DispResNet :276). Module and
+(BasicBlock :50, Bottleneck :84, ResnetEncoder :123, DepthDecoder :183,
+DispResNet :276) at every depth there: 18 and 34 of basic blocks, 50, 101
+and 152 of bottleneck blocks (4x channel expansion). Module and
 parameter names follow the torch state-dict schema the JAX package exports
 (train/checkpoint.py _dispresnet_mapping), so weights.state_dict_from_jax
 output loads with strict=True.
@@ -13,45 +15,34 @@ import math
 from typing import List, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
+    BatchNorm2d,
     Conv3x3,
     ConvBlock,
     torch_default_init_,
 )
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import upsample2x_nearest
 
-# ResNet-18 blocks per stage; the other depths (34/50/101/152) are not
-# ported yet
-RESNET_STAGE_BLOCKS = {18: (2, 2, 2, 2)}
-NUM_CH_ENC = (64, 64, 128, 256, 512)
+# blocks per stage, by depth
+RESNET_STAGE_BLOCKS = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+# the depths built of Bottleneck blocks
+BOTTLENECK_DEPTHS = frozenset({50, 101, 152})
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d with flax's running-statistics update in train mode.
-
-    flax BatchNorm(momentum=0.9, epsilon=1e-5) normalizes a training batch
-    as torch does, but moves running_var toward the BIASED batch variance
-    E[x²] − E[x]² (fp32, clipped at 0), where torch uses the unbiased one
-    (a factor n/(n−1): 4 % at 24 values per channel). Here the running
-    statistics are updated the flax way — 0.9 · running + 0.1 · batch —
-    from the batch in fp32; eval mode is torch's own."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            decay = 1.0 - self.momentum
-            self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
-            self.running_var.copy_(decay * self.running_var + self.momentum * var)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+def num_ch_enc(num_layers: int) -> tuple:
+    """Widths of the encoder's five feature maps."""
+    if num_layers in BOTTLENECK_DEPTHS:
+        return (64, 256, 512, 1024, 2048)
+    return (64, 64, 128, 256, 512)
 
 
 def _bn(channels: int) -> BatchNorm2d:
@@ -82,6 +73,37 @@ class BasicBlock(nn.Module):
         return torch.relu(out + residual)
 
 
+class Bottleneck(nn.Module):
+    """ResNet bottleneck block (torchvision v1.5: the stride on the 3x3):
+    1x1 conv-bn-relu, 3x3 conv-bn-relu, 1x1 (4x width) conv-bn, projected
+    skip, relu. Output channels = 4 · channels."""
+
+    expansion = 4
+
+    def __init__(self, in_channels: int, channels: int, stride: int = 1):
+        super().__init__()
+        out_ch = self.expansion * channels
+        self.conv1 = nn.Conv2d(in_channels, channels, 1, bias=False)
+        self.bn1 = _bn(channels)
+        self.conv2 = nn.Conv2d(channels, channels, 3, stride, 1, bias=False)
+        self.bn2 = _bn(channels)
+        self.conv3 = nn.Conv2d(channels, out_ch, 1, bias=False)
+        self.bn3 = _bn(out_ch)
+        self.downsample = None
+        if stride != 1 or in_channels != out_ch:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_channels, out_ch, 1, stride, bias=False),
+                _bn(out_ch),
+            )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
 class _ResNetTrunk(nn.Module):
     """torchvision's ResNet layout without the classifier head."""
 
@@ -91,25 +113,28 @@ class _ResNetTrunk(nn.Module):
         self.bn1 = _bn(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, 2, 1)
+        bottleneck = num_layers in BOTTLENECK_DEPTHS
+        block_cls = Bottleneck if bottleneck else BasicBlock
         in_ch = 64
         for stage, num_blocks in enumerate(RESNET_STAGE_BLOCKS[num_layers]):
             width = 64 * 2 ** stage
             blocks = []
             for b in range(num_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                blocks.append(BasicBlock(in_ch, width, stride))
-                in_ch = width
+                blocks.append(block_cls(in_ch, width, stride))
+                in_ch = width * (Bottleneck.expansion if bottleneck else 1)
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
 
 class ResnetEncoder(nn.Module):
     """ResNet feature pyramid: [relu(bn(conv1)), layer1, …, layer4] with
-    widths (64, 64, 128, 256, 512)."""
+    widths num_ch_enc(num_layers)."""
 
     def __init__(self, num_layers: int = 18):
         super().__init__()
         if num_layers not in RESNET_STAGE_BLOCKS:
             raise ValueError(f"{num_layers} is not a supported resnet depth")
+        self.num_ch_enc = num_ch_enc(num_layers)
         self.encoder = _ResNetTrunk(num_layers)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -128,24 +153,27 @@ class DepthDecoder(nn.Module):
     sigmoid disparity head per scale.
 
     ``decoder`` is the flat ModuleList of the torch schema: index
-    2·(4-i)+j holds upconv(i, j), index 10+s the scale-s head. Only the
-    scale-0 head runs in forward (DispResNet returns [disp0]); the others
-    keep their parameters so checkpoints load either way."""
+    2·(4-i)+j holds upconv(i, j), index 10+s the scale-s head. The heads
+    of `scales` run in forward; every head keeps its parameters so
+    checkpoints load either way."""
 
-    def __init__(self):
+    def __init__(self, num_ch_enc: Sequence[int] = num_ch_enc(18)):
         super().__init__()
         blocks = []
         for i in range(4, -1, -1):
-            cin = NUM_CH_ENC[-1] if i == 4 else NUM_CH_DEC[i + 1]
+            cin = num_ch_enc[-1] if i == 4 else NUM_CH_DEC[i + 1]
             blocks.append(ConvBlock(cin, NUM_CH_DEC[i]))
-            cin = NUM_CH_DEC[i] + (NUM_CH_ENC[i - 1] if i > 0 else 0)
+            cin = NUM_CH_DEC[i] + (num_ch_enc[i - 1] if i > 0 else 0)
             blocks.append(ConvBlock(cin, NUM_CH_DEC[i]))
         heads = [Conv3x3(NUM_CH_DEC[s], 1) for s in range(4)]
         self.decoder = nn.ModuleList(blocks + heads)
 
-    def forward(self, features: Sequence[torch.Tensor], image_shape) -> torch.Tensor:
-        """-> scale-0 disparity [B, 1, H, W], cropped to `image_shape`."""
+    def forward(self, features: Sequence[torch.Tensor], image_shape,
+                scales: Sequence[int] = (0,)) -> List[torch.Tensor]:
+        """-> the disparities [B, 1, ceil(H/2^s), ceil(W/2^s)] of `scales`,
+        finest first, each cropped to its pyramid size of `image_shape`."""
         x = features[-1]
+        outputs = {}
         for i in range(4, -1, -1):
             x = self.decoder[2 * (4 - i)](x)
             x = upsample2x_nearest(x)
@@ -155,21 +183,27 @@ class DepthDecoder(nn.Module):
                 skip = features[i - 1]
                 x = torch.cat([x[:, :, : skip.shape[2], : skip.shape[3]], skip], 1)
             x = self.decoder[2 * (4 - i) + 1](x)
-        disp = torch.sigmoid(self.decoder[10](x))
-        return disp[:, :, : image_shape[0], : image_shape[1]]
+            if i in scales:
+                disp = torch.sigmoid(self.decoder[10 + i](x))
+                h = -(-image_shape[0] // 2 ** i)
+                w = -(-image_shape[1] // 2 ** i)
+                outputs[i] = disp[:, :, :h, :w]
+        return [outputs[s] for s in sorted(outputs)]
 
 
 class DispResNet(nn.Module):
     """Encoder + decoder; returns [disp0] ([B, 1, H, W]) like the JAX
-    model."""
+    model, or with all_scales the disparities of scales 0-3, finest
+    first."""
 
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, num_layers: int = 18, all_scales: bool = False):
         super().__init__()
         self.encoder = ResnetEncoder(num_layers)
-        self.decoder = DepthDecoder()
+        self.decoder = DepthDecoder(self.encoder.num_ch_enc)
+        self.scales = (0, 1, 2, 3) if all_scales else (0,)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return [self.decoder(self.encoder(x), x.shape[2:])]
+        return self.decoder(self.encoder(x), x.shape[2:], self.scales)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX model's distributions: kaiming-normal

@@ -1,8 +1,9 @@
 """Model registry — config name -> constructor.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/models/registry.py
-(register_model :16, build_model :24), holding the models ported so far
-(DispResNet, PoseNet, PoseFc) and any a user registers.
+(register_model :16, build_model :24, _populate :35): every model of the
+JAX registry (BtsModel, DispNetS, DispResNet, StnDispNet, PoseNet, PoseFc,
+PoseDecoder) and any a user registers.
 """
 
 from __future__ import annotations
@@ -12,27 +13,33 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.bts import BtsModel
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.dispnet import DispNetS
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.resnet_dispnet import DispResNet
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.stn_dispnet import StnDispNet
+from unsupervised_pseuso_lidar_tpu_torch.models.pose.pose_decoder import PoseDecoder
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.pose_fc import PoseFc
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.posenet import PoseNet
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "BtsModel": BtsModel,
+    "DispNetS": DispNetS,
     "DispResNet": DispResNet,
+    "StnDispNet": StnDispNet,
     "PoseNet": PoseNet,
     "PoseFc": PoseFc,
+    "PoseDecoder": PoseDecoder,
 }
-# the JAX package's other models, by the ROADMAP.md slice that ports them
-NOT_PORTED = {"BtsModel": 9, "DispNetS": 10, "StnDispNet": 10, "PoseDecoder": 10}
 # models whose parameter shapes depend on the image size (PoseFc's first
-# Linear); flax infers such widths at init, torch needs them when building
-_TAKES_IMAGE_SHAPE = {"PoseFc"}
+# Linear, StnDispNet's localization Linear); flax infers such widths at
+# init, torch needs them when building
+_TAKES_IMAGE_SHAPE = {"PoseFc", "StnDispNet"}
 
 
 def register_model(name: str):
-    """Class decorator: register a model constructor under `name` (a
-    registered name is built even where NOT_PORTED lists it). A model built
-    with a generator must have reset_parameters(generator)."""
+    """Class decorator: register a model constructor under `name`. A model
+    built with a generator must have reset_parameters(generator)."""
     def wrap(ctor):
         MODEL_REGISTRY[name] = ctor
         return ctor
@@ -50,11 +57,7 @@ def build_model(
     """Instantiate a registered model on `device`, its weights drawn from
     `generator` when one is given (else torch's global RNG). `image_shape`
     (H, W) reaches the models whose layers depend on it and is ignored by
-    the others. A model of the JAX package that is not ported yet raises
-    NotImplementedError."""
-    if name in NOT_PORTED and name not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md slice {NOT_PORTED[name]})")
+    the others."""
     if name not in MODEL_REGISTRY:
         known = ", ".join(sorted(MODEL_REGISTRY))
         raise KeyError(f"Unknown model '{name}'. Registered models: {known}")

@@ -2,9 +2,10 @@
 
 Counterpart of unsupervised_pseuso_lidar_tpu/ops/resample.py
 (reflect_pad1 :24, grid_sample :112, resize_bilinear :352,
-upsample2x_nearest :396).
+resize_nearest :385, upsample2x_nearest :396).
 
-`grid_sample` here is the PLAIN version of kernel A
+`grid_sample` here (align_corners=True, the warp's convention) is the
+PLAIN version of kernel A
 (ops/cuda/warp_bilinear.cu): a 4-tap gather by integer indexing with the
 same arithmetic, in the same order, as the CUDA kernel, so the two agree
 to the last bit on the card. `grid_sample_grad_grid` is the plain version
@@ -34,11 +35,12 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([w_lo, x, w_hi], dim=3)
 
 
-def _bilinear_taps(img: torch.Tensor, grid: torch.Tensor):
+def _bilinear_taps(img: torch.Tensor, grid: torch.Tensor, align_corners: bool = True):
     """The 4-tap bilinear sample of `img` [B, C, H, W] at normalized `grid`
-    [B, Ho, Wo, 2] (align_corners=True): ((wx0, wx1, wy0, wy1), (v00, v10,
-    v01, v11)), weights [B, 1, Ho, Wo] and taps [B, C, Ho, Wo], where v10
-    is the tap one pixel right of v00 and v01 the one below it.
+    [B, Ho, Wo, 2]: ((wx0, wx1, wy0, wy1), (v00, v10, v01, v11)), weights
+    [B, 1, Ho, Wo] and taps [B, C, Ho, Wo], where v10 is the tap one pixel
+    right of v00 and v01 the one below it. align_corners=True maps -1 and
+    +1 to the centers of the edge pixels, False to their outer edges.
 
     A tap outside the image reads 0. Sample positions are clamped to
     [-2, size+1] before the floor: past that every tap of the pixel is
@@ -50,8 +52,14 @@ def _bilinear_taps(img: torch.Tensor, grid: torch.Tensor):
     coord_dtype = torch.promote_types(grid.dtype, torch.float32)
     gx = grid[..., 0].to(coord_dtype)
     gy = grid[..., 1].to(coord_dtype)
-    x = ((gx + 1.0) * 0.5 * (width - 1)).clamp(-2.0, width + 1.0)
-    y = ((gy + 1.0) * 0.5 * (height - 1)).clamp(-2.0, height + 1.0)
+    if align_corners:
+        x = (gx + 1.0) * 0.5 * (width - 1)
+        y = (gy + 1.0) * 0.5 * (height - 1)
+    else:
+        x = ((gx + 1.0) * width - 1.0) * 0.5
+        y = ((gy + 1.0) * height - 1.0) * 0.5
+    x = x.clamp(-2.0, width + 1.0)
+    y = y.clamp(-2.0, height + 1.0)
     x0f = torch.floor(x)
     y0f = torch.floor(y)
     wx1 = (x - x0f).to(img.dtype)[:, None]
@@ -74,18 +82,20 @@ def _bilinear_taps(img: torch.Tensor, grid: torch.Tensor):
     return (wx0, wx1, wy0, wy1), (tap(x0, y0), tap(x1, y0), tap(x0, y1), tap(x1, y1))
 
 
-def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sampling of `img` at normalized `grid` locations,
-    align_corners=True, zeros padding (the warp's semantics).
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = True) -> torch.Tensor:
+    """Bilinear sampling of `img` at normalized `grid` locations, zeros
+    padding (F.grid_sample's mode='bilinear' semantics).
 
     Args:
       img: [B, C, H, W] source.
-      grid: [B, Ho, Wo, 2] normalized (x, y); -1 -> pixel 0 and
-        +1 -> pixel size-1.
+      grid: [B, Ho, Wo, 2] normalized (x, y); with align_corners -1 ->
+        pixel 0 and +1 -> pixel size-1 (the warp's convention), without
+        -1 -> -0.5 and +1 -> size-0.5.
     Returns:
       [B, C, Ho, Wo]. Taps outside the image read 0 (see _bilinear_taps).
     """
-    (wx0, wx1, wy0, wy1), (v00, v10, v01, v11) = _bilinear_taps(img, grid)
+    (wx0, wx1, wy0, wy1), (v00, v10, v01, v11) = _bilinear_taps(img, grid, align_corners)
     return v00 * wx0 * wy0 + v10 * wx1 * wy0 + v01 * wx0 * wy1 + v11 * wx1 * wy1
 
 
@@ -127,6 +137,19 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return F.interpolate(
         img, size=(out_h, out_w), mode="bilinear", align_corners=False
     )
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW map: source index
+    floor(i · (in / out)) in fp32, clipped to the map (JAX's formula,
+    computed as written; the index tensors depend on the static sizes
+    only)."""
+    height, width = img.shape[-2:]
+    iy = torch.floor(torch.arange(out_h, dtype=torch.float32, device=img.device)
+                     * (height / out_h)).long().clamp(0, height - 1)
+    ix = torch.floor(torch.arange(out_w, dtype=torch.float32, device=img.device)
+                     * (width / out_w)).long().clamp(0, width - 1)
+    return img[:, :, iy][:, :, :, ix]
 
 
 def upsample2x_nearest(img: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@ projector, as a `torch.export` program.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/pseudolidar/export.py
 (batch_poly_spec :48, export_program :77, load_exported :128,
-make_depth_fn :138, make_depth_cloud_fn :179, run_exported :209). JAX
+make_depth_fn :137, make_depth_cloud_fn :179, run_exported :209). JAX
 writes a `jax.export` StableHLO artifact; the port writes a
 `torch.export.ExportedProgram` with `torch.export.save`: one `.pt2`
 archive holding the graph and the weights, which `torch.export.load` runs
@@ -59,20 +59,24 @@ class DepthProgram(nn.Module):
     through an eval-mode depth model (see make_depth_fn)."""
 
     def __init__(self, depth_model: nn.Module, min_depth: Optional[float] = None,
-                 max_depth: Optional[float] = None, precision: str = "fp32"):
+                 max_depth: Optional[float] = None, precision: str = "fp32",
+                 metric_output: bool = False):
         super().__init__()
         if precision not in ("fp32", "bf16"):
             raise ValueError("precision must be 'fp32' or 'bf16'")
         self.model = depth_model
         self.min_depth, self.max_depth, self.precision = min_depth, max_depth, precision
+        self.metric_output = metric_output
         self.eval()
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2).contiguous()
         with torch.autocast(x.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
-            disp = self.model(x)[0]
-        disp = disp[:, 0].float()
+            outputs = self.model(x)
+        if self.metric_output:
+            return outputs[-1][:, 0].float()
+        disp = outputs[0][:, 0].float()
         if self.min_depth is not None:
             return disp_to_depth_ranged(disp, self.min_depth, self.max_depth or 100.0)[1]
         return disp_to_depth(disp)
@@ -97,13 +101,16 @@ class DepthCloudProgram(nn.Module):
         return depth, points, valid
 
 
-def make_depth_fn(depth_model: nn.Module, *, min_depth: Optional[float] = None,
-                  max_depth: Optional[float] = None, precision: str = "fp32") -> DepthProgram:
+def make_depth_fn(depth_model: nn.Module, *, metric_output: bool = False,
+                  min_depth: Optional[float] = None, max_depth: Optional[float] = None,
+                  precision: str = "fp32") -> DepthProgram:
     """The depth model as a [B, H, W, 3] -> [B, H, W] depth module, its
     weights as state: finest-scale disparity -> depth through
     disp_to_depth, or the monodepth2 range mapping when min_depth is given
-    (max_depth defaults to 100 m). Puts the model in eval mode."""
-    return DepthProgram(depth_model, min_depth, max_depth, precision)
+    (max_depth defaults to 100 m), or with metric_output the model's last
+    output taken as depth in meters as it is (BtsModel's final depth).
+    Puts the model in eval mode."""
+    return DepthProgram(depth_model, min_depth, max_depth, precision, metric_output)
 
 
 def make_depth_cloud_fn(depth_fn: Callable[[torch.Tensor], torch.Tensor],

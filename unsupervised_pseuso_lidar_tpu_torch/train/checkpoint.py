@@ -1,10 +1,12 @@
 """Checkpoints, pretrained init and reference-schema `.pth` interop.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/train/checkpoint.py
-(CheckpointManager :42-78, normalize_depth_pretrained_state :620,
-load_pretrained_depth :676, load_pretrained_pose :688,
-export_reference_checkpoint :824, load_torch_checkpoint :882,
-load_serving_weights :891, without orbax).
+(CheckpointManager :42-78, import_torch_state :442 for the depth models
+other than DispResNet, normalize_depth_pretrained_state :620,
+load_pretrained_depth :676, load_pretrained_pose :688, export_torch_state
+:705, export_reference_checkpoint :824, export_bts_serving_checkpoint
+:864, load_torch_checkpoint :882, load_serving_weights :891, without
+orbax).
 
 A checkpoint is one `.pth` file per epoch,
 `<directory>/epoch_<nnnnn>.pth`, holding the reference trainer's schema
@@ -19,8 +21,14 @@ The JAX package keeps its checkpoints as orbax directories, which the port
 cannot read (it does not import JAX). A JAX-trained model reaches the port
 through the JAX package's `cli/export --format torch`, which writes a
 reference-schema `.pth`; point `model.depth.pretrained_path` and
-`model.pose.pretrained_path` at it. Only the ported models have loaders;
-the BTS, StnDispNet and DispNetS schemas come with those models.
+`model.pose.pretrained_path` at it.
+
+StnDispNet's STN branch follows the JAX package's rules both ways
+(models/depth/stn_dispnet.py): a loader keeps the model's own branch
+where the model does not use it or where the blob's is of another
+resolution (JAX's import ignores it then), and an export writes the
+identity branch at the reference's size where the model's live branch is
+of another size (a strict reference load needs the fixed width).
 """
 
 from __future__ import annotations
@@ -32,6 +40,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.resnet_dispnet import DispResNet
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.stn_dispnet import (
+    StnDispNet,
+    stn_identity_state,
+)
 
 _EPOCH_FILE = re.compile(r"epoch_(\d+)\.pth")
 
@@ -133,14 +147,24 @@ def normalize_depth_pretrained_state(state: Dict[str, Any]):
 
 
 def load_pretrained_depth(model: nn.Module, path: str) -> None:
-    """Initialize a DispResNet from a pretrained `.pth` / `.npz` (see
-    normalize_depth_pretrained_state). An encoder-only blob must cover
-    every encoder tensor and leaves the decoder at its init; any other
-    blob loads strictly."""
+    """Initialize a depth model from a pretrained `.pth` / `.npz`. A
+    DispResNet takes any blob of normalize_depth_pretrained_state: an
+    encoder-only blob must cover every encoder tensor and leaves the
+    decoder at its init. Another model takes its reference-schema state
+    dict: bare, a reference checkpoint's dpth_mdl_state_dict, or the BTS
+    serving blob's `model` (DataParallel prefix dropped). Strict."""
     _load_depth_blob(model, _load_blob(path), path)
 
 
+def _stn_branch(key: str) -> bool:
+    return key.startswith(("localization.", "fc_loc."))
+
+
 def _load_depth_blob(model: nn.Module, blob: Dict[str, Any], path: str) -> None:
+    if not isinstance(model, DispResNet):
+        state = blob.get("dpth_mdl_state_dict", blob.get("model", blob))
+        load_reference_state(model, _strip_module_prefix(dict(state)))
+        return
     state, encoder_only = normalize_depth_pretrained_state(blob)
     if not encoder_only:
         model.load_state_dict(state)
@@ -150,6 +174,41 @@ def _load_depth_blob(model: nn.Module, blob: Dict[str, Any], path: str) -> None:
     if missing or unexpected:
         raise KeyError(f"{path}: encoder tensors missing {missing}, "
                        f"unexpected {unexpected}")
+
+
+def load_reference_state(model: nn.Module, state: Dict[str, Any]) -> None:
+    """Load a reference-schema state dict into `model`, strictly. A
+    StnDispNet keeps its own STN branch where it does not use it or where
+    the state's fc_loc.0 is of another width (the JAX import's rules)."""
+    if isinstance(model, StnDispNet):
+        own = model.state_dict()
+        width = state.get("fc_loc.0.weight")
+        keep_own = not model.use_stn
+        if model.use_stn and width is not None and width.shape != own["fc_loc.0.weight"].shape:
+            print("warning: STN branch not imported "
+                  "(resolution-fixed fc_loc flatten mismatch)")
+            keep_own = True
+        if keep_own:
+            state = {k: v for k, v in state.items() if not _stn_branch(k)}
+            state.update({k: v for k, v in own.items() if _stn_branch(k)})
+    model.load_state_dict(state)
+
+
+def reference_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's reference-schema state dict on the CPU, as the JAX
+    package's export_torch_state writes it: a StnDispNet whose live STN
+    branch is not at the reference's fixed width gets the identity branch
+    instead (with a warning, as in JAX)."""
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if isinstance(model, StnDispNet) and model.use_stn:
+        identity = stn_identity_state()
+        width = state["fc_loc.0.weight"].shape[1]
+        if width != identity["fc_loc.0.weight"].shape[1]:
+            print("warning: STN branch not exported (resolution-fixed fc_loc "
+                  f"flatten mismatch: {width} != "
+                  f"{identity['fc_loc.0.weight'].shape[1]}); writing identity STN state")
+            state.update(identity)
+    return state
 
 
 def load_pretrained_pose(model: nn.Module, path: str) -> None:
@@ -191,14 +250,21 @@ def export_reference_checkpoint(
     n_params = len(list(depth_model.parameters())) + len(list(pose_model.parameters()))
     checkpoint = {
         "epoch": int(epoch),
-        "dpth_mdl_state_dict": {k: v.detach().cpu() for k, v in
-                                depth_model.state_dict().items()},
-        "pose_mdl_state_dict": {k: v.detach().cpu() for k, v in
-                                pose_model.state_dict().items()},
+        "dpth_mdl_state_dict": reference_state(depth_model),
+        "pose_mdl_state_dict": reference_state(pose_model),
         "optimizer_state_dict": fresh_adam_state_dict(n_params, lr),
         "loss": loss,
         "valid_acc": float(valid_acc),
     }
+    torch.save(checkpoint, path)
+    return checkpoint
+
+
+def export_bts_serving_checkpoint(model: nn.Module, path: str) -> Dict[str, Any]:
+    """Write the `{"model": <BTS state dict, keys prefixed "module.">}`
+    blob the reference's ROS serving node loads (it wraps the net in
+    nn.DataParallel, whose keys carry that prefix); returns the dict."""
+    checkpoint = {"model": {f"module.{k}": v for k, v in reference_state(model).items()}}
     torch.save(checkpoint, path)
     return checkpoint
 
@@ -210,8 +276,10 @@ def load_serving_weights(config, state, torch_checkpoint: Optional[str] = None,
     from, "init (untrained)" when nothing was restored.
 
       * torch_checkpoint: a `.pth` or `.npz` blob — a reference checkpoint,
-        a bare DispResNet state dict, or a torchvision resnet18 state dict
-        (encoder only; normalize_depth_pretrained_state). A blob with
+        a bare state dict of the depth model's reference schema, for a
+        DispResNet a torchvision resnet state dict (encoder only;
+        normalize_depth_pretrained_state), for a BtsModel also the ROS
+        node's serving blob (export_bts_serving_checkpoint). A blob with
         pose_mdl_state_dict restores the pose net too; pose weights of
         another schema than model.pose.name leave it at its init, with a
         warning.

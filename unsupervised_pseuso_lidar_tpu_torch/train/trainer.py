@@ -16,6 +16,7 @@ the device as NCHW tensors.
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import os
 import signal
@@ -182,6 +183,10 @@ def create_train_state(
                               image_shape=config.image_shape, **depth.kwargs)
     pose_model = build_model(pose.name, generator, device,
                              image_shape=config.image_shape, **pose.kwargs)
+    # the step calls pose_model(tgt, [ref0, ref1]); JAX's init makes that
+    # call and raises TypeError for a pose net of another signature
+    # (PoseDecoder takes encoder features)
+    inspect.signature(pose_model.forward).bind(None, [None, None])
     if depth.pretrained_path:
         # the reference's model of record starts from an ImageNet encoder
         load_pretrained_depth(depth_model, depth.pretrained_path)
