@@ -84,6 +84,22 @@ then drives the port's entry points with seeded random weights:
                 launches {S, S, S + 1, S} a step for S scales, finite losses,
                 peak memory, loss gradients card vs CPU; and PoseDecoder over
                 ResNet-50 encoder features, card vs CPU
+  parallel      data parallelism (parallel/, the step under a mesh). World
+                size 1 under NCCL, in this process: basic_config's Trainer
+                under make_mesh(1) against the plain Trainer from the same
+                seed for 3 steps (the parameter gradients at rel L2 <= 1e-4:
+                only the synced BatchNorm's formula differs; each step from
+                the plain trainer's state). Then 2 gloo
+                ranks spawned on the one card, each on its half of the
+                batch: basic_config (batch 4 -> 2 + 2) for 3 steps against
+                the one-process step on the whole batch (the loss, the
+                all-reduced gradient and the BatchNorm statistics after
+                step 1, the parameters after step 3), then
+                configs/synthetic.yaml's 'mean' (batch 12 -> 6 + 6) and
+                'ssim' for a step each; A, A', B and C launched on every
+                rank. Each rank's ms a step is two ranks sharing ONE card,
+                not a scale-out figure. cli.train --mesh 1 trains as
+                before; --mesh 2 on a one-card machine raises with the count
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -112,9 +128,12 @@ import statistics
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 import yaml
 from PIL import Image
@@ -159,6 +178,8 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
     photometric_map_bwd,
 )
+from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
+from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import (
     load_exported,
     make_depth_cloud_fn,
@@ -267,6 +288,18 @@ POSE_DECODER_ATOL = 1e-6
 ZOO_GRAD_ROWS = 2
 SERVE_RTOL = 1e-6
 EXPORT_TOL = 2e-5
+# parallel: the gradient of the step under a world-1 NCCL mesh vs the plain
+# step (the synced BatchNorm's formula, fp64 sums against F.batch_norm's
+# fp32 ones, is the one difference: 1.7e-6 to 4.1e-5 over 3 seeds on an
+# H100 80GB HBM3 at 700 W) and of 2 gloo ranks on the card vs the one-process step on
+# the whole batch at the card-vs-CPU budget (GRAD_REL_L2); the loss at
+# JAX's sharded-vs-single-device tolerance, BatchNorm statistics, and the
+# parameters after 3 steps at JAX's test_multi_step_mesh tolerance
+PARALLEL_RANKS = 2
+PARALLEL_LOSS_RTOL = 2e-4
+PARALLEL_STATS_RTOL = 1e-5
+PARALLEL_PARAMS_RTOL, PARALLEL_PARAMS_ATOL = 1e-3, 2e-4
+PARALLEL_TIMEOUT_S = 300
 # the real 2011_09_26 IMU -> velodyne transform
 PROFILE_STEPS, PROFILE_WARMUP = 3, 2
 # each kernel's family in the profiler's trace (utils/trace._op_family)
@@ -501,8 +534,13 @@ def main(device="cuda:0"):
         # 17. the rest of the model zoo: BtsModel serving at the ROS node's
         # shape, the multi-scale and transformer depth nets' training steps
         models_phase(device, tmp, drive_dir)
+    torch.cuda.empty_cache()
+    # 18. data parallelism: the step under a mesh, world 1 under NCCL and 2
+    # gloo ranks sharing the card
+    rank_launches = parallel_phase(device)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
+        record["launches_parallel_per_rank"] = [r[name] for r in rank_launches]
     for config_name, recs in (("basic_config", records_1280), ("tpu_v5e", records)):
         for name, record in recs.items():
             record["profiled_ms_per_step"] = profiled[config_name][name]["ms_per_step"]
@@ -1957,6 +1995,270 @@ def profile_phase(device, tmp, kitti, records_1280):
     for ok, what in checks:
         check(ok, what)
     return {name: out[name]["kernels"] for name in ("basic_config", "tpu_v5e")}
+
+
+def _named(trainer, what):
+    """{net.key: tensor on the CPU} of a Trainer's parameter gradients
+    ("grads"; a parameter without one is left out), parameters ("params")
+    or BatchNorm running statistics ("stats")."""
+    out = {}
+    for net, model in (("depth", trainer.state.depth_model), ("pose", trainer.state.pose_model)):
+        if what == "stats":
+            out.update({f"{net}.{k}": v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()
+                        if k.endswith(("running_mean", "running_var"))})
+            continue
+        for k, p in model.named_parameters():
+            t = p.grad if what == "grads" else p
+            if t is not None:
+                out[f"{net}.{k}"] = t.detach().cpu().clone()
+    return out
+
+
+def _grad_compare(got, ref):
+    """(rel L2 of every gradient concatenated, (worst key's rel L2, key))."""
+    check(sorted(got) == sorted(ref), "the gradients are of other parameters")
+    flat_rel = rel_l2(torch.cat([got[k].reshape(-1) for k in sorted(ref)]),
+                      torch.cat([ref[k].reshape(-1) for k in sorted(ref)]))
+    worst = max((rel_l2(got[k], ref[k]), k) for k in ref if float(ref[k].abs().max()) > 0)
+    return flat_rel, worst
+
+
+def parallel_cases(basic_config, mean_config):
+    """(name, config, batches) of the 2-rank checks: basic_config ('min',
+    1280x384, batch 4) for TRAIN_STEPS steps, configs/synthetic.yaml's
+    'mean' (640x192, batch 12) and its 'ssim' for one step each (the
+    configs' paths given: a spawned rank reads no patched global)."""
+    cases = []
+    for name, path, mode, steps in (("basic_config", basic_config, None, TRAIN_STEPS),
+                                    ("mean", mean_config, "mean", 1),
+                                    ("ssim", mean_config, "ssim", 1)):
+        config = load_config(path)
+        if mode is not None:
+            config.action.loss_mode = mode
+        batches = list(SyntheticTripletDataset(steps, config.action.batch_size,
+                                               *config.image_shape, seed=SEED + 31,
+                                               uint8_images=True).batches())
+        cases.append((name, config, batches))
+    return cases
+
+
+def parallel_trainer(config, device, mesh=None):
+    """A Trainer (under `mesh`) from the seed, PoseFc's head given a seeded
+    translation bias: its zero-initialized last layer makes the warp the
+    identity, which puts every warp sample ON a pixel, where the bilinear
+    gradient jumps, so that a 1-ulp difference of the depth flips it (the
+    reason tests/test_torch_train.py gives its pose head a bias)."""
+    trainer = Trainer(config, device=device, mesh=mesh)
+    pose = trainer.state.pose_model
+    if type(pose).__name__ == "PoseFc":
+        bias = torch.randn(pose.fc_loc[-1].bias.shape,
+                           generator=torch.Generator().manual_seed(SEED)) * 0.03
+        with torch.no_grad():
+            pose.fc_loc[-1].bias.copy_(bias)
+    return trainer
+
+
+def parallel_steps(config, batches, device, mesh=None):
+    """parallel_trainer's train step on each of `batches` -> the first
+    step's metrics, gradients and BatchNorm statistics, the parameters
+    after the last, each step's launches and its ms by CUDA events (None
+    off the card: a CPU rehearsal)."""
+    trainer = parallel_trainer(config, device, mesh)
+    on_card = device.type == "cuda"
+    out = {"launches": [], "ms_per_step": []}
+    for i, batch in enumerate(batches):
+        if on_card:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        kernels.reset_launch_counts()
+        metrics = trainer.train_step(batch)
+        if on_card:
+            end.record()
+            torch.cuda.synchronize()
+        out["launches"].append(dict(kernels.launch_counts))
+        out["ms_per_step"].append(start.elapsed_time(end) if on_card else None)
+        if i == 0:
+            out["metrics"] = {k: float(v) for k, v in metrics.items()}
+            out["grads"] = _named(trainer, "grads")
+            out["stats"] = _named(trainer, "stats")
+    out["params"] = _named(trainer, "params")
+    return out
+
+
+def parallel_rank(rank, world, port, out_path, device, configs):
+    """One of `world` gloo ranks on `device`, cuda:0 for all (spawned by
+    parallel_phase): parallel_steps of every parallel_cases(*configs)
+    case under the mesh, saved to out_path (or the rank's traceback)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        build.load_libraries()
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
+    try:
+        mesh = make_mesh(world, device=device)
+        result = {"ok": {name: parallel_steps(config, batches, device, mesh)
+                         for name, config, batches in parallel_cases(*configs)}}
+    except BaseException:  # reported by the parent with its traceback
+        result = {"error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out_path)
+
+
+def parallel_phase(device):
+    """Data parallelism on the card (see the module docstring). Prints the
+    phase's record, then checks it; returns each rank's launches over
+    basic_config's steps."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "parallel", "card": card()}, []
+
+    # world size 1 under NCCL, in this process
+    config = load_config(BASIC_CONFIG)
+    mode = config.action.loss_mode
+    batches = list(SyntheticTripletDataset(TRAIN_STEPS, config.action.batch_size,
+                                           *config.image_shape, seed=SEED + 37,
+                                           uint8_images=True).batches())
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=device)
+    try:
+        mesh = make_mesh(1, device=device)
+        plain = parallel_trainer(config, device)
+        meshed = parallel_trainer(config, device, mesh)
+        record = {"backend": dist.get_backend(), "steps": []}
+        launches = dict.fromkeys(kernels.KERNELS, 0)
+        for batch in batches:
+            # each step from the plain trainer's state: Adam's first update
+            # is ±lr wherever a gradient is not 0, so a 1e-7 difference of a
+            # gradient near 0 would move a parameter by 2·lr and the next
+            # steps would compare other points
+            for name in ("depth_model", "pose_model", "optimizer"):
+                getattr(meshed.state, name).load_state_dict(
+                    getattr(plain.state, name).state_dict())
+            plain_metrics = plain.train_step(batch)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            mesh_metrics = meshed.train_step(batch)
+            torch.cuda.synchronize()
+            launches = {k: launches[k] + kernels.launch_counts[k] for k in launches}
+            rel, worst = _grad_compare(_named(meshed, "grads"), _named(plain, "grads"))
+            record["steps"].append({"grad_rel_l2": rel, "worst_key": worst[1],
+                                    "worst_key_rel_l2": worst[0],
+                                    "loss": float(mesh_metrics["loss"]),
+                                    "loss_plain": float(plain_metrics["loss"])})
+        record["launches"] = launches
+        expected = {k: TRAIN_STEPS * v for k, v in expected_launches(mode).items()}
+        checks += [(launches == expected, f"world 1: launches {launches}, expected {expected}"),
+                   (max(s["grad_rel_l2"] for s in record["steps"]) <= GRAD_REL_L2,
+                    f"world 1 vs plain: gradient rel L2 {record['steps']} > {GRAD_REL_L2}")]
+        out["world1_nccl"] = record
+        del plain, meshed
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # PARALLEL_RANKS gloo ranks spawned on this card, against the
+    # one-process steps on the whole batches (taken while they run)
+    t0 = time.perf_counter()
+    port = distributed.free_port()
+    configs = (BASIC_CONFIG, MEAN_CONFIG)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(PARALLEL_RANKS)]
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, PARALLEL_RANKS, port, paths[r], str(device), configs))
+                 for r in range(PARALLEL_RANKS)]
+        for proc in procs:
+            proc.start()
+        try:
+            refs = {name: parallel_steps(config, batches, device)
+                    for name, config, batches in parallel_cases(*configs)}
+            for proc in procs:
+                proc.join(PARALLEL_TIMEOUT_S)
+            check(not any(p.is_alive() for p in procs),
+                  f"the gloo ranks still ran after {PARALLEL_TIMEOUT_S} s")
+            results = []
+            for rank, (proc, path) in enumerate(zip(procs, paths)):
+                check(os.path.exists(path), f"rank {rank} exited with {proc.exitcode}")
+                result = torch.load(path, weights_only=False)
+                check("error" not in result, f"rank {rank}: {result.get('error')}")
+                results.append(result["ok"])
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+    out["gloo_ranks_seconds"] = time.perf_counter() - t0
+    cases = {}
+    for name, config, batches in parallel_cases(*configs):
+        ref, ranks = refs[name], [r[name] for r in results]
+        rel, worst = _grad_compare(ranks[0]["grads"], ref["grads"])
+        stats_rel, stats_key = max((float(((ranks[0]["stats"][k] - v).abs()
+                                            / (v.abs() + 1.0)).max()), k)
+                                   for k, v in ref["stats"].items())
+        params_ok = all(torch.allclose(ranks[0]["params"][k], v, rtol=PARALLEL_PARAMS_RTOL,
+                                       atol=PARALLEL_PARAMS_ATOL)
+                        for k, v in ref["params"].items())
+        loss_rel = _rel(ranks[0]["metrics"]["loss"], ref["metrics"]["loss"])
+        per_step = expected_launches(config.action.loss_mode)
+        cases[name] = {
+            "batch": config.action.batch_size, "rows_per_rank":
+                config.action.batch_size // PARALLEL_RANKS,
+            "height": config.image_shape[0], "width": config.image_shape[1],
+            "loss_mode": config.action.loss_mode, "steps": len(batches),
+            "loss": ranks[0]["metrics"]["loss"], "loss_one_process": ref["metrics"]["loss"],
+            "loss_rel": loss_rel, "grad_rel_l2": rel, "worst_key": worst[1],
+            "worst_key_rel_l2": worst[0], "bn_stats_max_rel": stats_rel,
+            "bn_stats_worst_key": stats_key,
+            "params_after_last_step_close": params_ok,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "ms_per_step_per_rank_two_ranks_on_one_card": [r["ms_per_step"] for r in ranks],
+            "ms_per_step_one_process": ref["ms_per_step"],
+        }
+        checks += [
+            (all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
+             f"{name}: the ranks' metrics differ"),
+            (all(torch.equal(r["grads"][k], ranks[0]["grads"][k])
+                 for r in ranks for k in ranks[0]["grads"]),
+             f"{name}: the ranks' gradients differ"),
+            (loss_rel <= PARALLEL_LOSS_RTOL, f"{name}: loss rel {loss_rel}"),
+            (rel <= GRAD_REL_L2, f"{name}: gradient rel L2 {rel} (worst {worst})"),
+            (stats_rel <= PARALLEL_STATS_RTOL, f"{name}: BatchNorm statistics rel {stats_rel}"),
+            (params_ok, f"{name}: parameters after {len(batches)} steps differ"),
+            (all(launches == per_step for r in ranks for launches in r["launches"]),
+             f"{name}: launches a step {[r['launches'] for r in ranks]}, expected {per_step}"),
+        ]
+    out["gloo_ranks_on_one_card"] = cases
+
+    # the CLI: --mesh 1 trains in this process; --mesh 2 needs 2 cards
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(MEAN_CONFIG) as f:
+            raw = yaml.safe_load(f)
+        raw["action"]["checkpoint_dir"] = tmp
+        path = _write_yaml(os.path.join(tmp, "synthetic.yaml"), raw)
+        argv = ["--config", path, "--synthetic", "--epochs", "1", "--synthetic-batches", "1"]
+        trainer, _ = _quiet(train_cli.main, [*argv, "--mesh", "1"])
+        cli = {"mesh_1_steps": trainer.state.step, "devices": torch.cuda.device_count()}
+        checks.append((trainer.mesh is None and trainer.state.step == 1,
+                       f"cli.train --mesh 1: {cli}"))
+        del trainer
+        if torch.cuda.device_count() == 1:
+            try:
+                _quiet(train_cli.main, [*argv, "--mesh", "2"])
+                cli["mesh_2_error"] = None
+            except ValueError as e:
+                cli["mesh_2_error"] = str(e)
+            checks.append(("found 1" in (cli["mesh_2_error"] or ""),
+                           f"cli.train --mesh 2 on one card: {cli['mesh_2_error']}"))
+    out["cli"] = cli
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return [{k: sum(step[k] for step in r["basic_config"]["launches"]) for k in kernels.KERNELS}
+            for r in results]
 
 
 def _to_cpu(tree):

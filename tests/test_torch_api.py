@@ -233,8 +233,8 @@ NOT_IN_PORT = {
 
 
 @pytest.mark.parametrize("package", ["data", "eval", "geometry", "losses", "models", "ops",
-                                     "pseudolidar", "train", "utils", "models.depth",
-                                     "models.pose"])
+                                     "parallel", "pseudolidar", "train", "utils",
+                                     "models.depth", "models.pose"])
 def test_each_package_exports_what_jax_exports(package):
     ref = importlib.import_module(f"unsupervised_pseuso_lidar_tpu.{package}")
     ours = importlib.import_module(f"unsupervised_pseuso_lidar_tpu_torch.{package}")

@@ -102,17 +102,21 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path, capsys, name, pose_net, lo
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--synthetic", "--mesh", "2"], ValueError),
+    # data parallelism over more CUDA devices than the machine has (one
+    # here): the CLI names the count it found instead of sharing a card
+    (["--synthetic", "--mesh", "2", "--device", "cuda"], ValueError),
     # PoseDecoder takes encoder features, not frames: JAX's
     # create_train_state raises TypeError calling it as the pose net
     (["--synthetic", "--config", "PoseDecoder.yaml"], TypeError),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, argv, error):
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, error):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     raw = yaml.safe_load(open(os.path.join("configs", "test_config.yaml")))
     raw["model"]["pose"]["name"] = "PoseDecoder"
     (tmp_path / "PoseDecoder.yaml").write_text(yaml.safe_dump(raw))
     argv = [str(tmp_path / a) if a.endswith(".yaml") else a for a in argv]
-    with pytest.raises(error):
+    with pytest.raises(error, match="found 1" if "--mesh" in argv else None):
         train_cli.main(["--config", "configs/basic_config.yaml", "--device", "cpu", *argv])
     if error is TypeError:
         jax_cfg = jax_config.load_config(str(tmp_path / "PoseDecoder.yaml"))

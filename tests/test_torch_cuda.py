@@ -431,3 +431,97 @@ def test_zoo_training_step_launches_the_kernels_once_a_scale(cuda, model, kwargs
     assert np.isfinite(float(metrics["loss"]))
     assert kernels.launch_counts == {"warp_bilinear_fwd": scales, "warp_bilinear_bwd": scales,
                                      "ssim_fwd": scales + 1, "ssim_bwd": scales}
+
+
+def _seeded_weights():
+    """DispResNet-18 + PoseNet weights from a seed (state dicts on the
+    CPU), the pose head given a bias that moves the warp by a few pixels,
+    as tests/test_torch_train.py's jax_models does: at a fresh
+    initialization's near-identity warp every sample sits next to a
+    pixel crossing, where the gradient jumps under any 1-ulp change."""
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+
+    gen = torch.Generator().manual_seed(0)
+    pose = build_model("PoseNet", gen, device="cpu").state_dict()
+    scale = torch.tensor([0.005] * 3 + [0.03] * 3).repeat(2)
+    pose["pose_pred.bias"] = torch.randn(12, generator=gen) * scale / 0.06
+    return {"depth": build_model("DispResNet", gen, device="cpu").state_dict(), "pose": pose}
+
+
+def _flat_grads(result):
+    return torch.cat([g.reshape(-1) for _, g in sorted(result["grads"].items())
+                      if g is not None])
+
+
+@pytest.fixture
+def no_tf32(monkeypatch):
+    # fp32 convolutions, as on the spawned ranks (torch_parallel_worker)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _one_process_card_step(cuda, weights, mesh=None):
+    # imported by its file's name: on the card's machine `tests` is
+    # another installed package
+    import torch_parallel_worker as worker
+
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_train_step
+
+    state = worker.make_state(weights, cuda)
+    step = make_train_step(state, device=cuda, mesh=mesh, loss_mode="min",
+                           **worker.STEP_SETTINGS)
+    kernels.reset_launch_counts()
+    result = worker.step_result(state, step(worker.step_batch("min")))
+    result["launches"] = dict(kernels.launch_counts)
+    return result
+
+
+MIN_STEP_LAUNCHES = {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1, "ssim_fwd": 2,
+                     "ssim_bwd": 1}
+
+
+def test_world_one_nccl_step_matches_the_plain_step(cuda, no_tf32):
+    # the step under make_mesh(1) of a 1-rank NCCL group vs the plain step
+    # from the same weights (64x96, batch 4, 'min'): only the synced
+    # BatchNorm's formula (fp64 sums) differs from F.batch_norm's (fp32)
+    # -> the gradient at rel L2 <= 1e-4 (chip_smoke's budget; the
+    # difference reaches 4e-5 at 1280x384), the four kernels launched as
+    # in the plain step
+    import torch.distributed as dist
+
+    from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
+    from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
+
+    weights = _seeded_weights()
+    plain = _one_process_card_step(cuda, weights)
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        meshed = _one_process_card_step(cuda, weights, make_mesh(1, device=cuda))
+    finally:
+        dist.destroy_process_group()
+    rel = float(torch.linalg.vector_norm((_flat_grads(meshed) - _flat_grads(plain)).double())
+                / torch.linalg.vector_norm(_flat_grads(plain).double()))
+    assert rel <= 1e-4, rel
+    assert meshed["launches"] == plain["launches"] == MIN_STEP_LAUNCHES
+
+
+def test_two_gloo_ranks_sharing_the_card_match_the_one_process_step(cuda, no_tf32, tmp_path):
+    # 2 gloo ranks spawned on cuda:0, batch 4 split 2 + 2, one 'min' step
+    # vs the one-process step on the whole batch on the card: the loss at
+    # rel 2e-4, the all-reduced gradient at rel L2 1e-4, BatchNorm
+    # statistics at 1e-5; every rank launches the four kernels
+    import torch_parallel_worker as worker
+
+    weights = _seeded_weights()
+    ranks = worker.run_ranks(worker.card_step, 2, tmp_path, weights, device="cuda:0")
+    ref = _one_process_card_step(cuda, weights)
+    for rank in ranks:
+        assert rank["launches"] == MIN_STEP_LAUNCHES
+        np.testing.assert_allclose(rank["metrics"]["loss"], ref["metrics"]["loss"], rtol=2e-4)
+    rel = float(torch.linalg.vector_norm((_flat_grads(ranks[0]) - _flat_grads(ref)).double())
+                / torch.linalg.vector_norm(_flat_grads(ref).double()))
+    assert rel <= 1e-4, rel
+    assert torch.equal(_flat_grads(ranks[0]), _flat_grads(ranks[1]))
+    for key, value in ref["stats"].items():
+        np.testing.assert_allclose(ranks[0]["stats"][key].numpy(), value.numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)

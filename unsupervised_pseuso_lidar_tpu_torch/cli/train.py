@@ -7,7 +7,7 @@ resumes from the latest one.
 
   python -m unsupervised_pseuso_lidar_tpu_torch.cli.train \\
       --config configs/basic_config.yaml [--synthetic] [--epochs N] \\
-      [--batch-size B] [--synthetic-batches N] [--device cpu]
+      [--batch-size B] [--synthetic-batches N] [--device cpu] [--mesh N]
 
 Without `--synthetic` it trains on the KITTI drives of the config's split
 file (data/kitti.py): the split's samples are shuffled with
@@ -26,21 +26,35 @@ holds every event in host memory. `--op-breakdown` then profiles 3 calls
 of the train step on one batch (2 more warm it up) and prints the ms a
 step by op family (utils/trace.op_breakdown: device time on the card, the
 device's busy share beside it); the result is kept as
-`trainer.op_breakdown`. The port runs on one card (`--mesh` above 1
-raises).
+`trainer.op_breakdown`.
+
+`--mesh N` trains data-parallel over N ranks, the global batch split
+between them (parallel/; the step computes what one process computes on
+the global batch, as JAX's mesh does). 0 is every local device:
+torch.cuda.device_count() with `--device cuda`, 1 with `--device cpu`;
+0 or 1 trains in this process, without a process group. Under torchrun
+(`torchrun --nproc-per-node N -m unsupervised_pseuso_lidar_tpu_torch.cli.train
+--mesh N`) each process joins torchrun's group as its rank, and N must
+be its world size. Otherwise this process is rank 0 and spawns ranks
+1..N-1: NCCL on cuda:0..N-1 (fewer CUDA devices than N raise), or gloo
+with `--device cpu`. Rank 0 alone logs and writes checkpoints, and its
+trainer is returned.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
+import sys
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Unsupervised depth training")
     parser.add_argument("--config", default="configs/basic_config.yaml")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="data-parallel devices (0 or 1: the one card)")
+                        help="data-parallel ranks (0: every local device; "
+                        "0 or 1: this process alone)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true",
@@ -58,13 +72,81 @@ def main(argv=None):
                         "ms/step of one train step (utils/trace.py)")
     args = parser.parse_args(argv)
 
-    if args.mesh > 1:
-        raise ValueError("--mesh: the port trains on one card")
+    import torch
 
+    from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
+    from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    ranks = args.mesh or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    if ranks <= 1:
+        return _train(args, device)
+    if all(v in os.environ for v in distributed.ENV_VARS):  # torchrun, or spawned
+        return _train_as_rank(args, ranks, device)
+    if device.type == "cuda" and torch.cuda.device_count() < ranks:
+        raise ValueError(f"--mesh {ranks} needs {ranks} CUDA devices, found "
+                         f"{torch.cuda.device_count()}")
+    return _spawn_ranks(args, sys.argv[1:] if argv is None else list(argv), ranks, device)
+
+
+def _train_as_rank(args, ranks, device, *group):
+    """Join the process group (torchrun's environment, or `group`: the
+    address, size and rank), train as this rank, leave the group."""
+    import torch.distributed as dist
+
+    from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
+    from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(*group, device=device)
+    try:
+        mesh = make_mesh(ranks, device=device)
+        return _train(args, mesh.device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, ranks: int, port: int, argv) -> None:
+    """A spawned rank: torchrun's environment for it, then main."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(ranks), RANK=str(rank), LOCAL_RANK=str(rank))
+    main(argv)
+
+
+def _spawn_ranks(args, argv, ranks: int, device):
+    """Rank 0 in this process, ranks 1..N-1 spawned with `argv`; returns
+    rank 0's trainer once every rank has finished. A failure of rank 0
+    stops the others; a rank that fails makes rank 0's next collective
+    fail (gloo) or time out (NCCL)."""
+    import torch.multiprocessing as mp
+
+    from unsupervised_pseuso_lidar_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(rank, ranks, port, argv))
+             for rank in range(1, ranks)]
+    for proc in procs:
+        proc.start()
+    try:
+        trainer = _train_as_rank(args, ranks, device, f"127.0.0.1:{port}", ranks, 0)
+        for proc in procs:
+            proc.join()
+        failed = {rank: p.exitcode for rank, p in enumerate(procs, 1) if p.exitcode}
+        if failed:
+            raise RuntimeError(f"--mesh {ranks}: ranks failed with exit codes {failed}")
+        return trainer
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+
+def _train(args, device, mesh=None):
+    """Build the Trainer (under `mesh` when given) and fit; returns it."""
     from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
     from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
-    from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
     from unsupervised_pseuso_lidar_tpu_torch.utils.logging import MetricLogger
     from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import trace
 
@@ -73,9 +155,11 @@ def main(argv=None):
         config.action.num_epochs = args.epochs
     if args.batch_size is not None:
         config.action.batch_size = args.batch_size
-    device = resolve_device(args.device)
     profile_ctx = (trace(args.profile, device=device) if args.profile
                    else contextlib.nullcontext())
+    # rank 0 alone logs (and starts wandb)
+    log_fn = MetricLogger(config) if mesh is None or mesh.rank == 0 else None
+    accum = config.action.accum_steps
 
     if args.synthetic:
         from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
@@ -87,11 +171,12 @@ def main(argv=None):
             num_batches=args.synthetic_batches, batch_size=config.action.batch_size,
             height=height, width=width, uint8_images=True,
         )
-        trainer = Trainer(config, dataset=dataset, log_fn=MetricLogger(config),
-                          device=device)
+        trainer = Trainer(config, dataset=dataset, log_fn=log_fn, device=device,
+                          mesh=mesh)
         with profile_ctx:
             trainer.fit(make_train_iter=lambda epoch: prefetch_to_device(
-                dataset.batches(epoch), device=trainer.device))
+                dataset.batches(epoch), device=trainer.device, mesh=mesh,
+                accum_steps=accum))
         if args.op_breakdown:
             trainer.op_breakdown = _op_breakdown_step(
                 trainer, next(iter(dataset.batches(0))))
@@ -110,8 +195,7 @@ def main(argv=None):
         seed=config.action.random_seed, val_ratio=config.action.split[1],
         shuffle=aug.shuffle,
     )
-    trainer = Trainer(config, dataset=dataset, log_fn=MetricLogger(config),
-                      device=device)
+    trainer = Trainer(config, dataset=dataset, log_fn=log_fn, device=device, mesh=mesh)
     batch_size = config.action.batch_size
     workers = config.action.num_workers
     procs = config.action.worker_type == "process"
@@ -130,7 +214,7 @@ def main(argv=None):
             make_train_iter=lambda epoch: prefetch_to_device(
                 dataset.batches(epoch_indices(epoch), batch_size, workers,
                                 use_processes=procs, with_groundtruth=with_gt),
-                device=trainer.device,
+                device=trainer.device, mesh=mesh, accum_steps=accum,
             ),
             make_val_iter=lambda: dataset.batches(val_idx, batch_size, workers),
         )

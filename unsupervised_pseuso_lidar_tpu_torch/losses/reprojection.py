@@ -64,6 +64,7 @@ def reprojection_loss(
     mode: str = "mean",
     warp_impl: str = "gather",
     with_coverage: bool = False,
+    mesh=None,
 ):
     """Bidirectional multi-scale reprojection loss.
 
@@ -75,7 +76,8 @@ def reprojection_loss(
       intrinsics: [B, 3, 3] or [3, 3].
       mode: 'mean' or 'l1' (|warped - target|, jnp.abs' rule at a tie),
         'mse' ((warped - target)²) or 'ssim' (photometric_loss: the 0.85
-        SSIM + 0.15 L1 blend with its mean + 0.5 std clamp).
+        SSIM + 0.15 L1 blend with its mean + 0.5 std clamp, the GLOBAL
+        batch's under a data `mesh`).
     Returns the scalar loss, or (loss, in-frame fraction of every job's
     samples) with with_coverage. Each scale's depth is upsampled to full
     resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
@@ -123,7 +125,7 @@ def reprojection_loss(
     elif mode == "mse":
         err = (warped - target) ** 2
     else:
-        err = photometric_loss(warped, target, no_ssim=False)
+        err = photometric_loss(warped, target, no_ssim=False, mesh=mesh)
     per_job = err.reshape(jobs, -1).mean(dim=1)
     loss = torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
                                             device=per_job.device))

@@ -50,6 +50,7 @@ def total_loss(
     no_ssim: bool = False,
     min_bidirectional: bool = True,
     with_coverage: bool = False,
+    mesh=None,
 ):
     """(reprojection_loss, smooth_weight · smoothness_loss, extra): extra
     holds {"automask_keep": fraction} in 'min' mode (min_reprojection_loss)
@@ -66,6 +67,10 @@ def total_loss(
         (reprojection_loss).
       smooth_on: 'depth' (the smoothed maps are the — normalized, with
         depth_norm — target depths) or 'disp' (the raw disparities).
+      mesh: the data mesh the step runs under (parallel/mesh.py), or None;
+        'ssim' then clamps at the global batch's threshold. Every other
+        reduction here is a mean over equal shards, which the step's
+        all-reduce of the metrics and gradients makes global.
     """
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
@@ -80,7 +85,8 @@ def total_loss(
         )
     else:
         result = reprojection_loss(tgt, refs, depths, poses, intrinsics, mode=mode,
-                                   warp_impl=warp_impl, with_coverage=with_coverage)
+                                   warp_impl=warp_impl, with_coverage=with_coverage,
+                                   mesh=mesh)
         loss_reproj, *in_frame = result if with_coverage else (result,)
     if with_coverage:
         extra["warp_in_frame"] = in_frame[0]

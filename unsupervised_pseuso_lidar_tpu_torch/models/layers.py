@@ -39,20 +39,92 @@ class BatchNorm2d(nn.BatchNorm2d):
     at 24 values per channel). Here the running statistics are updated the
     flax way — (1 − momentum) · running + momentum · batch, momentum in
     torch's convention (flax's is 1 − it) — from the batch in fp32; eval
-    mode is torch's own."""
+    mode is torch's own.
+
+    Under a data mesh (`mesh`, set by the train step; parallel/mesh.py)
+    the training statistics are the GLOBAL batch's, as under JAX's mesh:
+    each rank sums x and x² over (N, H, W) with its row count, the sums
+    are all-reduced, and the batch is normalized with the global mean and
+    the biased variance E[x²] − E[x]² (clipped at 0). The gradient flows
+    through the all-reduce: the backward all-reduces Σg and Σg·x̂, so a
+    rank's input gradient is that of the global statistics
+    (_GlobalBatchNorm). The sums accumulate in fp64 and the backward takes
+    the centred form, as F.batch_norm's does: autograd through
+    E[x²] − E[x]² in fp32 would lose ~1e-4 of the gradient of the conv
+    before the norm to cancellation."""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.distributed:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            self._update_running(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
             decay = 1.0 - self.momentum
             self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
             self.running_var.copy_(decay * self.running_var + self.momentum * var)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        channels = x.shape[1]
+        with torch.no_grad():
+            xd = x.double()
+            rows = torch.full((1,), x.numel() // channels, dtype=torch.float64,
+                              device=x.device)
+            sums = self.mesh.all_reduce_(torch.cat(
+                [xd.sum(dim=(0, 2, 3)), (xd * xd).sum(dim=(0, 2, 3)), rows]))
+            del xd
+            count = sums[2 * channels]
+            mean = sums[:channels] / count
+            var = torch.clamp(sums[channels:2 * channels] / count - mean * mean, min=0.0)
+            self._update_running(mean.float(), var.float())
+            invstd = torch.rsqrt(var + self.eps).float()
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean.float(), invstd,
+                                      count, self.mesh)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """y = x̂ · weight + bias with x̂ = (x − mean) · invstd, the global
+    batch's statistics given; the backward is F.batch_norm's, its two
+    batch sums over the mesh:
+
+        dx = weight · invstd · (g − Σg / n − x̂ · Σ(g·x̂) / n)
+
+    (n the global row count, a 0-dim fp64 tensor: no host sync; Σ over
+    every rank's rows), and the local
+    dweight = Σ(g·x̂), dbias = Σg, which the step's gradient average sums
+    over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, count, mesh):
+        xhat = (x.float() - mean[:, None, None]) * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.count, ctx.mesh, ctx.dtype = count, mesh, x.dtype
+        return (xhat * weight[:, None, None] + bias[:, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xhat, weight, invstd = ctx.saved_tensors
+        g = grad.float()
+        dbias = g.sum(dim=(0, 2, 3), dtype=torch.float64)
+        dweight = (g * xhat).sum(dim=(0, 2, 3), dtype=torch.float64)
+        sums = ctx.mesh.all_reduce_(torch.cat([dbias, dweight]))
+        channels = xhat.shape[1]
+        mean_g = (sums[:channels] / ctx.count).float()
+        mean_gx = (sums[channels:] / ctx.count).float()
+        dx = (g - mean_g[:, None, None] - xhat * mean_gx[:, None, None]) * (
+            weight * invstd)[:, None, None]
+        return (dx.to(ctx.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype),
+                None, None, None, None)
 
 
 def conv(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,

@@ -4,8 +4,13 @@ Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
 :231-401, make_eval_step :480, Trainer :561, _warn_if_collapsed :683,
-log_warps :742, fit :783). The mesh and the multi-step scan are not
-ported yet.
+log_warps :742, fit :783, make_multi_step :447). Under a data mesh
+(parallel/mesh.py; `mesh=` of TrainStep, EvalStep, make_multi_step and
+Trainer) each rank runs the step on its rows of the global batch and the
+result is the JAX step's on the global batch: BatchNorm statistics, the
+'ssim' clip threshold and the supervised masked mean are all-reduced
+where they are taken, the parameter gradients are averaged once a step
+before the optimizer, and the metrics are global means on every rank.
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
@@ -28,12 +33,27 @@ import numpy as np
 import torch
 from torch import nn
 
-from unsupervised_pseuso_lidar_tpu_torch.data.augment import augment_batch, draw_params
-from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import compute_errors, eigen_crop_mask
+from unsupervised_pseuso_lidar_tpu_torch.data.augment import (
+    AugmentParams,
+    augment_batch,
+    draw_params,
+)
+from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import (
+    METRICS,
+    compute_errors,
+    eigen_crop_mask,
+)
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth, inverse_warp
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import (
+    Mesh,
+    ShardedBatch,
+    shard_batch,
+    shard_train_state,
+)
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_pretrained_depth,
@@ -213,13 +233,73 @@ def automask_ident_scale(step: int, warmup: int) -> float:
     return float(torch.pow(torch.tensor(10.0), exponent))
 
 
-def supervised_loss(disp: torch.Tensor, groundtruth: torch.Tensor) -> torch.Tensor:
+def supervised_loss(disp: torch.Tensor, groundtruth: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The sparse-LiDAR term: masked L1 in meters between the finest-scale
     depth of `disp` [B, 1, H, W] and `groundtruth` [B, H, W] (0 = no
-    LiDAR return), with jnp.abs' gradient rule at a tie."""
+    LiDAR return), with jnp.abs' gradient rule at a tie. Under a data
+    mesh the masked sum (differentiably) and the valid count are
+    all-reduced before the division: the global batch's mean, since the
+    ranks hold different numbers of LiDAR returns."""
     pred = disp_to_depth(disp[:, 0])
     valid = (groundtruth > 1e-3).float()
-    return torch.sum(abs_(pred - groundtruth) * valid) / torch.clamp(valid.sum(), min=1.0)
+    total = torch.sum(abs_(pred - groundtruth) * valid)
+    count = valid.sum()
+    if mesh is not None:
+        total = mesh.all_reduce_sum(total)
+        count = mesh.all_reduce_(count)
+    return total / torch.clamp(count, min=1.0)
+
+
+def bind_batch_norm(models, mesh: Optional[Mesh]) -> None:
+    """Point every BatchNorm2d of `models` at `mesh`: training statistics
+    over the global batch under a distributed mesh (models/layers.py)."""
+    for model in models:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mesh = mesh
+
+
+def all_reduce_gradients(mesh: Mesh, params) -> None:
+    """Average the gradients of `params` over the mesh: one all-reduce of
+    one flat buffer a dtype, then divided by the mesh size (JAX's psum
+    over "data", where the JAX step places it). A parameter without a
+    gradient is left without one: which parameters the loss reads is a
+    property of the step's graph, the same on every rank."""
+    if not mesh.distributed:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        flat = flat / mesh.size
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def global_means(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor],
+                 weight: Optional[torch.Tensor] = None, weighted=()
+                 ) -> Dict[str, torch.Tensor]:
+    """Every rank's `metrics` (0-dim tensors) -> their mean over the mesh,
+    one all-reduce for all, each in its own dtype. The keys in `weighted`
+    are weighted by their rank's `weight` instead (the depth metrics: a
+    mean over the images that have ground truth). The metrics themselves
+    without a distributed mesh."""
+    if mesh is None or not mesh.distributed:
+        return metrics
+    keys = list(metrics)
+    values = [metrics[k].double() * (weight.double() if k in weighted else 1.0)
+              for k in keys]
+    if weighted:
+        values.append(weight.double())
+    sums = mesh.all_reduce_(torch.stack(values))
+    total = torch.clamp(sums[-1], min=1.0) if weighted else None
+    return {k: (sums[i] / (total if k in weighted else mesh.size)).to(metrics[k].dtype)
+            for i, k in enumerate(keys)}
 
 
 class TrainStep:
@@ -245,6 +325,15 @@ class TrainStep:
     carried from one micro-batch to the next); then Adam and the schedule.
     The parameter gradients stay in .grad until the next step.
 
+    Under a data `mesh` (parallel/mesh.py) the step takes the global batch
+    (or this rank's rows of it, a ShardedBatch from shard_batch or
+    prefetch_to_device) and runs on this rank's rows: its BatchNorms take
+    the global batch's statistics, the 'ssim' clip threshold and the
+    supervised mean are global, the augmentations take this rank's rows of
+    the draws at the GLOBAL micro-batch size, the gradients are averaged
+    over the mesh once after the micro-batch loop, and the metrics are the
+    global means on every rank — the JAX step on the global batch.
+
     remat is accepted and ignored (a memory knob of the JAX step).
     """
 
@@ -267,6 +356,7 @@ class TrainStep:
         aug_seed: int = 0,
         precision: str = "fp32",
         with_coverage: bool = False,
+        mesh: Optional[Mesh] = None,
         device: str | torch.device = "cuda",
     ):
         _check_precision(precision)
@@ -274,6 +364,8 @@ class TrainStep:
             raise ValueError("accum_steps must be >= 1")
         self.device = resolve_device(device)
         self.state = state
+        self.mesh = mesh
+        bind_batch_norm((state.depth_model, state.pose_model), mesh)
         self.loss_mode = loss_mode
         self.semi_sup_pose = semi_sup_pose
         self.smooth_weight = smooth_weight
@@ -313,35 +405,46 @@ class TrainStep:
             smooth_on=self.smooth_on, depth_norm=self.depth_norm,
             ident_scale=self._ident_scale(), no_ssim=self.no_ssim,
             min_bidirectional=self.min_bidirectional,
-            with_coverage=self.with_coverage,
+            with_coverage=self.with_coverage, mesh=self.mesh,
         )
         loss = reproj + smooth
         if self.supervised_weight and "groundtruth" in batch:
-            sup = supervised_loss(disps_tgt[0], batch["groundtruth"])
+            sup = supervised_loss(disps_tgt[0], batch["groundtruth"], self.mesh)
             loss = loss + self.supervised_weight * sup
             extra["supervised_loss"] = sup
         return loss, reproj, smooth, extra
 
+    def _aug_params(self, micro_size: int) -> Optional[AugmentParams]:
+        """As in JAX, every micro-batch is augmented with the same draws:
+        those of (aug_seed, step) at the GLOBAL micro-batch's size, of
+        which this rank takes its rows."""
+        if not (self.color_jitter or self.hflip):
+            return None
+        size = 1 if self.mesh is None else self.mesh.size
+        params = draw_params(micro_size * size, self.aug_seed, self.state.step)
+        if size == 1:
+            return params
+        rows = slice(self.mesh.rank * micro_size, (self.mesh.rank + 1) * micro_size)
+        return AugmentParams(params.add[rows], params.scale[rows], params.flip[rows])
+
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         state = self.state
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch, self.accum_steps)
         batch = normalize_uint8_batch(batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
         ))
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
-        micro_size = batch["tgt"].shape[0] // self.accum_steps
-        # as in JAX, every micro-batch is augmented with the same draws:
-        # those of (aug_seed, step) at the micro-batch's size
-        params = (draw_params(micro_size, self.aug_seed, state.step)
-                  if self.color_jitter or self.hflip else None)
+        aug = self._aug_params(batch["tgt"].shape[0] // self.accum_steps)
         state.optimizer.zero_grad(set_to_none=True)
         # micro-batch i is rows [i·mb, (i+1)·mb), the JAX reshape's order
         chunks = {k: v.chunk(self.accum_steps) for k, v in batch.items()}
         sums: Dict[str, torch.Tensor] = {}
         for i in range(self.accum_steps):
             micro = {k: v[i] for k, v in chunks.items()}
-            if params is not None:
-                micro = augment_batch(micro, params, jitter=self.color_jitter,
+            if aug is not None:
+                micro = augment_batch(micro, aug, jitter=self.color_jitter,
                                       flip=self.hflip)
             loss, reproj, smooth, extra = self.loss_fn(micro)
             loss.backward()
@@ -350,21 +453,52 @@ class TrainStep:
             for k, v in values.items():
                 sums[k] = sums.get(k, 0.0) + v.detach()
         scale = 1.0 / self.accum_steps
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
         if self.accum_steps > 1:
-            for group in state.optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.mul_(scale)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(scale)
+        if self.mesh is not None:
+            all_reduce_gradients(self.mesh, params)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v * scale for k, v in sums.items()}
+        return global_means(self.mesh, {k: v * scale for k, v in sums.items()})
 
 
 def make_train_step(state: TrainState, device: str | torch.device = "cuda",
-                    **step_kwargs) -> TrainStep:
-    """Build the train step over `state` (see TrainStep for step_kwargs)."""
-    return TrainStep(state, device=device, **step_kwargs)
+                    mesh: Optional[Mesh] = None, **step_kwargs) -> TrainStep:
+    """Build the train step over `state` (see TrainStep for step_kwargs),
+    under a data mesh when `mesh` is given."""
+    return TrainStep(state, device=device, mesh=mesh, **step_kwargs)
+
+
+def make_multi_step(state: TrainState, num_steps: int, mesh: Optional[Mesh] = None,
+                    device: str | torch.device = "cuda", **step_kwargs):
+    """multi(batches) -> the LAST step's metrics, after `num_steps` full
+    optimizer steps in order: batches is one batch dict whose arrays have
+    a leading [num_steps] axis ([num_steps, B, ...]), step i taking
+    batches[k][i]. Under a mesh the batch axis (axis 1) is sharded. A
+    plain loop over TrainStep: no host sync between the steps; the JAX
+    counterpart scans the steps inside one program (capturing this loop
+    in a CUDA graph is not done)."""
+    step = make_train_step(state, device=device, mesh=mesh, **step_kwargs)
+
+    def multi(batches: Dict) -> Dict[str, torch.Tensor]:
+        if mesh is not None:
+            batches = shard_batch(mesh, batches, step.accum_steps, batch_axis=1)
+        sizes = {len(v) for v in batches.values()}
+        if sizes != {num_steps}:
+            raise ValueError(f"batches of leading size {sizes}, expected {num_steps}")
+        metrics = None
+        for i in range(num_steps):
+            batch = {k: v[i] for k, v in batches.items()}
+            if mesh is not None:
+                batch = ShardedBatch(batch, step.accum_steps)
+            metrics = step(batch)
+        return metrics
+
+    return multi
 
 
 # --------------------------------------------------------------------------
@@ -390,18 +524,25 @@ class EvalStep:
     log_rms, d1, d2, d3), median-scaled when median_scale is set.
     eval_protocol 'eigen' is the KITTI Eigen-split monocular protocol:
     the Garg crop, ground truth in (1e-3, 80) m and per-image median
-    scaling."""
+    scaling.
+
+    Under a data `mesh` each rank evaluates its rows of the batch, and the
+    metrics are the global batch's on every rank: the loss and pose
+    metrics averaged over the ranks (the 'ssim' clip threshold global),
+    the depth metrics over the images that have ground truth; depth_pred
+    holds this rank's rows."""
 
     def __init__(self, depth_model: nn.Module, pose_model: nn.Module,
                  loss_mode: str = "mean", depth_norm: bool = False,
                  precision: str = "fp32", median_scale: bool = False,
                  eval_protocol: str = "none", pose_metrics: bool = False,
-                 semi_sup_pose: bool = False,
+                 semi_sup_pose: bool = False, mesh: Optional[Mesh] = None,
                  device: str | torch.device = "cuda"):
         _check_precision(precision)
         if eval_protocol not in ("none", "eigen"):
             raise ValueError(f"Unknown eval_protocol: {eval_protocol!r}")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.depth_model = depth_model.eval()
         self.pose_model = pose_model.eval()
         self.loss_mode = loss_mode
@@ -442,9 +583,15 @@ class EvalStep:
         reproj, smooth, _ = total_loss(
             inputs["tgt"], inputs["refs"], inputs["disparities"],
             inputs["poses"], inputs["intrinsics"], mode=self.loss_mode,
-            depth_norm=self.depth_norm,
+            depth_norm=self.depth_norm, mesh=self.mesh,
         )
         return reproj + smooth
+
+    def _depth_mask(self, gt: torch.Tensor) -> Optional[torch.Tensor]:
+        if not self.eigen:
+            return None
+        crop = eigen_crop_mask(gt.shape[-2], gt.shape[-1], gt.device)
+        return crop & (gt > 1e-3) & (gt < 80.0)
 
     @torch.no_grad()
     def metrics(self, inputs: Dict, depth_pred: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -454,34 +601,39 @@ class EvalStep:
             errors = pose_errors(inputs["poses"], inputs["oxts"])
             out.update({f"pose_{k}": v for k, v in errors.items()})
         if "groundtruth" in inputs:
-            gt = inputs["groundtruth"]
-            mask = None
-            if self.eigen:
-                crop = eigen_crop_mask(gt.shape[-2], gt.shape[-1], gt.device)
-                mask = crop & (gt > 1e-3) & (gt < 80.0)
-            out.update(compute_errors(gt, depth_pred, mask=mask,
+            out.update(compute_errors(inputs["groundtruth"], depth_pred,
+                                      mask=self._depth_mask(inputs["groundtruth"]),
                                       median_scale=self.median_scale))
         return out
 
     def __call__(self, batch: Dict):
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch)
         inputs = self.loss_inputs(batch)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         metrics = {"loss": self.loss(inputs), **self.metrics(inputs, depth_pred)}
-        return metrics, depth_pred
+        if self.mesh is None or "groundtruth" not in inputs:
+            return global_means(self.mesh, metrics), depth_pred
+        # compute_errors averages over the images with a valid pixel
+        gt = inputs["groundtruth"]
+        mask = self._depth_mask(gt)
+        valid = (gt > 1e-3) & (gt < 80.0) if mask is None else mask
+        with_gt = valid.flatten(1).any(dim=1).sum()
+        return global_means(self.mesh, metrics, with_gt, METRICS), depth_pred
 
 
 def make_eval_step(depth_model: nn.Module, pose_model: nn.Module,
                    loss_mode: str = "mean", depth_norm: bool = False,
                    precision: str = "fp32", median_scale: bool = False,
                    eval_protocol: str = "none", pose_metrics: bool = False,
-                   semi_sup_pose: bool = False,
+                   semi_sup_pose: bool = False, mesh: Optional[Mesh] = None,
                    device: str | torch.device = "cuda") -> EvalStep:
     """Build the validation step (see EvalStep)."""
     return EvalStep(depth_model, pose_model, loss_mode=loss_mode,
                     depth_norm=depth_norm, precision=precision,
                     median_scale=median_scale, eval_protocol=eval_protocol,
                     pose_metrics=pose_metrics, semi_sup_pose=semi_sup_pose,
-                    device=device)
+                    mesh=mesh, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -493,12 +645,19 @@ class Trainer:
     """Config -> models, optimizer, train and eval steps, checkpoints,
     epoch loop.
 
-    The JAX Trainer without a mesh. Weights come from a torch.Generator
-    seeded with action.random_seed (then pretrained_path, when set).
-    Checkpoints go to <action.checkpoint_dir>/<model.name>/epoch_<n>.pth
+    The JAX Trainer. Weights come from a torch.Generator seeded with
+    action.random_seed (then pretrained_path, when set). Checkpoints go to
+    <action.checkpoint_dir>/<model.name>/epoch_<n>.pth
     (train/checkpoint.py); with action.from_scratch False the latest one
     is restored and training resumes at the epoch after it (checkpoints
-    are written when an epoch ends)."""
+    are written when an epoch ends).
+
+    Under a data `mesh` (one Trainer a rank; parallel/mesh.py) the train
+    and eval steps run under it, the state is replicated from rank 0
+    after it is built and after a restore (every rank restores the same
+    checkpoint), and only rank 0 logs (log_fn, wandb pictures and
+    histograms) and writes checkpoints; the other ranks wait for it at
+    the end of each epoch."""
 
     def __init__(
         self,
@@ -506,11 +665,14 @@ class Trainer:
         dataset=None,
         log_fn: Optional[Callable[[Dict[str, float], int], None]] = None,
         device: str | torch.device = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         act = config.action
         self.config = config
         self.device = resolve_device(device)
-        self.log_fn = log_fn
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        self.log_fn = log_fn if self.is_main else None
         self.epoch = 0
         self.batch_waits: List[float] = []
         self._last_batch = None
@@ -520,9 +682,11 @@ class Trainer:
         generator = torch.Generator().manual_seed(act.random_seed)
         self.state = create_train_state(config, generator, self.steps_per_epoch,
                                         self.device)
+        if mesh is not None:
+            shard_train_state(mesh, self.state)
         aug = config.datasets.augmentation
         self.train_step = make_train_step(
-            self.state, device=self.device, loss_mode=act.loss_mode,
+            self.state, device=self.device, mesh=mesh, loss_mode=act.loss_mode,
             semi_sup_pose=act.semi_sup_pose, smooth_weight=act.smooth_weight,
             smooth_on=act.smooth_on, depth_norm=act.depth_norm,
             automask_warmup=act.automask_warmup, no_ssim=act.no_ssim,
@@ -539,7 +703,7 @@ class Trainer:
             loss_mode=act.loss_mode, depth_norm=act.depth_norm,
             precision=act.precision, median_scale=act.eval_median_scale,
             eval_protocol=act.eval_protocol, pose_metrics=act.eval_pose,
-            semi_sup_pose=act.semi_sup_pose, device=self.device,
+            semi_sup_pose=act.semi_sup_pose, mesh=mesh, device=self.device,
         )
         self.checkpoints = CheckpointManager(
             os.path.join(act.checkpoint_dir, config.model.name)
@@ -548,6 +712,8 @@ class Trainer:
             restored = self.checkpoints.restore(self.state)
             if restored is not None:
                 self.epoch = restored + 1
+            if mesh is not None:
+                shard_train_state(mesh, self.state)
 
     def run_epoch(self, train_batches) -> Dict[str, float]:
         """One pass over an iterable of host batches -> the last step's
@@ -651,7 +817,12 @@ class Trainer:
         of the epoch's last batch (log_warps) and the weight histograms;
         then it saves a checkpoint. A SIGTERM or SIGINT
         during an epoch lets it finish, checkpoints it and stops (resume
-        with from_scratch: False). Returns the last epoch's metrics."""
+        with from_scratch: False). Returns the last epoch's metrics.
+
+        Under a mesh rank 0 alone saves; then the ranks all-reduce their
+        interrupt flags, which is also where the others wait for the save,
+        so a signal to any rank stops every rank after the same
+        checkpoint."""
         interrupted = []
         previous = {}
         try:
@@ -675,7 +846,12 @@ class Trainer:
                     self.log_fn.log_param_histograms(
                         {"depth": self.state.depth_model, "pose": self.state.pose_model},
                         self.state.step)
-                self.checkpoints.save(self.state, self.epoch)
+                if self.is_main:
+                    self.checkpoints.save(self.state, self.epoch)
+                if self.mesh is not None:
+                    flag = torch.tensor([float(len(interrupted))], device=self.mesh.device)
+                    if float(self.mesh.all_reduce_(flag)) > 0:
+                        interrupted.append(1)
                 if interrupted:
                     print(f"[trainer] interrupted: checkpointed epoch {self.epoch}",
                           flush=True)
