@@ -100,6 +100,19 @@ then drives the port's entry points with seeded random weights:
                 rank. Each rank's ms a step is two ranks sharing ONE card,
                 not a scale-out figure. cli.train --mesh 1 trains as
                 before; --mesh 2 on a one-card machine raises with the count
+  spatial       the "spatial" mesh axis (image rows sharded over ranks:
+                halo-exchanging convolutions, the loss on bands, kernels A
+                and A' on a band of grid rows). gloo ranks spawned on the one
+                card: basic_config at data 1 x spatial 2 (1280x384, batch 4,
+                'min', PoseFc, depth_norm; each rank 192 rows) for 3 steps,
+                then configs/synthetic.yaml's 'ssim' at data 2 x spatial 2
+                (640x192, batch 12; each rank 6 images of 96 rows) for two.
+                Each step starts from the one-process trainer's state before
+                that step; against its step on the whole batch: the loss,
+                the gradient, the BatchNorm statistics, and each rank's
+                launches of A, A', B and C; each rank's ms a step, peak
+                memory and the memory its autograd graph holds at the loss
+                beside the one process's (ranks time-sharing one card)
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -300,6 +313,10 @@ PARALLEL_LOSS_RTOL = 2e-4
 PARALLEL_STATS_RTOL = 1e-5
 PARALLEL_PARAMS_RTOL, PARALLEL_PARAMS_ATOL = 1e-3, 2e-4
 PARALLEL_TIMEOUT_S = 300
+# the spatial phase's sharded step vs the one-process step from the same
+# state: the loss (the gradient at GRAD_REL_L2, the BatchNorm statistics
+# at PARALLEL_STATS_RTOL)
+SPATIAL_LOSS_RTOL = 1e-6
 # the real 2011_09_26 IMU -> velodyne transform
 PROFILE_STEPS, PROFILE_WARMUP = 3, 2
 # each kernel's family in the profiler's trace (utils/trace._op_family)
@@ -538,9 +555,13 @@ def main(device="cuda:0"):
     # 18. data parallelism: the step under a mesh, world 1 under NCCL and 2
     # gloo ranks sharing the card
     rank_launches = parallel_phase(device)
+    torch.cuda.empty_cache()
+    # 19. the "spatial" mesh axis: image rows sharded over gloo ranks
+    spatial_launches = spatial_phase(device)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
         record["launches_parallel_per_rank"] = [r[name] for r in rank_launches]
+        record["launches_spatial_per_rank"] = [r[name] for r in spatial_launches]
     for config_name, recs in (("basic_config", records_1280), ("tpu_v5e", records)):
         for name, record in recs.items():
             record["profiled_ms_per_step"] = profiled[config_name][name]["ms_per_step"]
@@ -596,6 +617,7 @@ def kernel_checks(inputs, batch_size, device):
     torch.cuda.synchronize()
     check(warp_err <= WARP_TOL, f"kernel A vs plain: {warp_err} > {WARP_TOL}")
     check(lib_err <= LIBRARY_TOL, f"kernel A vs F.grid_sample: {lib_err}")
+    band_err = band_checks(src, coords, gpu_gen, device)
     warp_bound = bound(pixels * (8 + 12 + 12), pixels * WARP_OPS_PER_PIXEL)
     records["warp_bilinear_fwd"] = {
         "name": "warp_bilinear_fwd", "route": "cuda",
@@ -603,6 +625,7 @@ def kernel_checks(inputs, batch_size, device):
         "replaces": "unsupervised_pseuso_lidar_tpu/ops/pallas/warp.py:535",
         "shape": list(src.shape),
         "max_abs_err": warp_err,
+        "max_abs_err_band_rows": band_err["warp_bilinear_fwd"],
         "ms": device_time_ms(lambda: kernels.warp_bilinear_fwd(src, coords)),
         "plain_ms": device_time_ms(lambda: grid_sample(src, coords)),
         "bound_ms": warp_bound[0], "bound_by": warp_bound[1],
@@ -616,7 +639,7 @@ def kernel_checks(inputs, batch_size, device):
         "shape": list(src.shape), "random_out_of_frame": out_of_frame,
         "max_abs_err_vs_F_grid_sample": lib_err,
         **{k: records["warp_bilinear_fwd"][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err", "max_abs_err_band_rows", "ms", "plain_ms", "bound_ms", "library_ms",
             "ms_per_call_host_incl")}}
 
     # B vs its plain version on the main path's two calls: the identity
@@ -679,6 +702,7 @@ def kernel_checks(inputs, batch_size, device):
                     "(with_taps=True, _fwd :551 + _bwd :569)",
         "shape": list(src.shape),
         "max_abs_err": warp_bwd_err,
+        "max_abs_err_band_rows": band_err["warp_bilinear_bwd"],
         "ms": device_time_ms(lambda: kernels.warp_bilinear_bwd_grid(src, coords, g_warp)),
         "plain_ms": device_time_ms(lambda: grid_sample_grad_grid(src, coords, g_warp)),
         "bound_ms": warp_bwd_bound[0], "bound_by": warp_bwd_bound[1],
@@ -691,7 +715,7 @@ def kernel_checks(inputs, batch_size, device):
     details["warp_bilinear_bwd"] = {
         "shape": list(src.shape),
         **{k: records["warp_bilinear_bwd"][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err", "max_abs_err_band_rows", "ms", "plain_ms", "bound_ms", "library_ms",
             "ms_per_call_host_incl")}}
 
     # C vs its plain version on the warped stack (blend 0.85, the main
@@ -732,6 +756,33 @@ def kernel_checks(inputs, batch_size, device):
         **{k: records["ssim_bwd"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                                 "bound_ms", "ms_per_call_host_incl")}}
     return records, details
+
+
+def band_checks(src, coords, gen, device):
+    """Kernels A and A' on a band of grid rows, as a spatial mesh's rank
+    runs them: each half of `coords`' rows (Hg = H/2) over the whole
+    images `src`, against their plain versions and against the band's
+    rows of the whole grid's result, bit for bit (a failed check raises)
+    -> {kernel: the largest difference, 0.0}."""
+    height = coords.shape[1]
+    g = torch.randn(src.shape, generator=gen, device=device)
+    whole = kernels.warp_bilinear_fwd(src, coords)
+    whole_grad = kernels.warp_bilinear_bwd_grid(src, coords, g)
+    err = {"warp_bilinear_fwd": 0.0, "warp_bilinear_bwd": 0.0}
+    for band in (slice(0, height // 2), slice(height // 2, height)):
+        grid, g_band = coords[:, band].contiguous(), g[:, :, band].contiguous()
+        out = kernels.warp_bilinear_fwd(src, grid)
+        d_grid = kernels.warp_bilinear_bwd_grid(src, grid, g_band)
+        err["warp_bilinear_fwd"] = max(err["warp_bilinear_fwd"],
+                                       max_err(out, grid_sample(src, grid)),
+                                       max_err(out, whole[:, :, band]))
+        err["warp_bilinear_bwd"] = max(err["warp_bilinear_bwd"],
+                                       max_err(d_grid, grid_sample_grad_grid(src, grid, g_band)),
+                                       max_err(d_grid, whole_grad[:, band]))
+    torch.cuda.synchronize()
+    check(err == {"warp_bilinear_fwd": 0.0, "warp_bilinear_bwd": 0.0},
+          f"kernels A / A' on a band of grid rows vs plain: {err}")
+    return err
 
 
 def div3_phase(device, chunk=1 << 27):
@@ -2261,12 +2312,209 @@ def parallel_phase(device):
             for r in results]
 
 
+def spatial_cases():
+    """(name, config path, objective or None for the config's, ranks,
+    spatial size, steps) of the spatial phase."""
+    return (("basic_config", BASIC_CONFIG, None, 2, 2, TRAIN_STEPS),
+            ("ssim_2x2", MEAN_CONFIG, "ssim", 4, 2, 2))
+
+
+def spatial_setup(path, mode, steps):
+    """(config, the case's global batches) of a spatial case."""
+    config = load_config(path)
+    if mode is not None:
+        config.action.loss_mode = mode
+    batches = list(SyntheticTripletDataset(steps, config.action.batch_size,
+                                           *config.image_shape, seed=SEED + 41,
+                                           uint8_images=True).batches())
+    return config, batches
+
+
+def spatial_steps(trainer, batches, device, starts=None):
+    """trainer's train step on each of `batches` -> per step the metrics,
+    gradients, BatchNorm statistics, launches, ms by CUDA events, peak
+    memory allocated, and the memory the autograd graph holds when the
+    loss is computed — allocated then, less allocated before the step:
+    the saved activations, without cuDNN's transient workspaces (None off
+    the card: a CPU rehearsal). Each step starts from the state in
+    `starts`; without them the steps follow each other, and each step's
+    record holds the state it started from ("start", on the CPU)."""
+    on_card = device.type == "cuda"
+    out = []
+    held = []
+    loss_fn = trainer.train_step.loss_fn
+
+    def loss_fn_held(batch):
+        result = loss_fn(batch)
+        if on_card:
+            held.append(torch.cuda.memory_allocated(device))
+        return result
+
+    trainer.train_step.loss_fn = loss_fn_held
+    for i, batch in enumerate(batches):
+        parts = ("depth_model", "pose_model", "optimizer")
+        if starts is not None:
+            for name in parts:
+                getattr(trainer.state, name).load_state_dict(starts[i][name])
+        else:
+            start = {name: _to_cpu(getattr(trainer.state, name).state_dict())
+                     for name in parts}
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+            before = torch.cuda.memory_allocated(device)
+            held.clear()
+        kernels.reset_launch_counts()
+        metrics = trainer.train_step(batch)
+        if on_card:
+            events[1].record()
+            torch.cuda.synchronize()
+        out.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "grads": _named(trainer, "grads"), "stats": _named(trainer, "stats"),
+                    "launches": dict(kernels.launch_counts),
+                    "ms": events[0].elapsed_time(events[1]) if on_card else None,
+                    "peak_bytes": torch.cuda.max_memory_allocated(device) if on_card
+                    else None,
+                    "graph_bytes": max(held) - before if on_card else None})
+        if starts is None:
+            out[-1]["start"] = start
+    return out
+
+
+def spatial_rank(rank, world, spatial, port, out_path, device, case, starts_path):
+    """One of `world` gloo ranks on `device` (cuda:0 for all) under
+    make_mesh(world, spatial): spatial_steps of the case from the states
+    in starts_path, saved to out_path (or the rank's traceback)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        build.load_libraries()
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
+    try:
+        mesh = make_mesh(world, spatial=spatial, device=device)
+        config, batches = spatial_setup(*case)
+        trainer = parallel_trainer(config, device, mesh)
+        starts = torch.load(starts_path, weights_only=False)
+        result = {"ok": spatial_steps(trainer, batches, device, starts)}
+    except BaseException:  # reported by the parent with its traceback
+        result = {"error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, out_path)
+
+
+def spatial_phase(device):
+    """The "spatial" mesh axis on the card (see the module docstring).
+    Prints the phase's record, then checks it; returns each rank's
+    launches over basic_config's steps."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "spatial", "card": card()}, []
+    ctx = mp.get_context("spawn")
+    rank_launches = None
+    for name, path, mode, world, spatial, steps in spatial_cases():
+        case = (path, mode, steps)
+        config, batches = spatial_setup(*case)
+        # the one-process steps on the whole batches, alone on the card;
+        # the state before each is the ranks' start
+        trainer = parallel_trainer(config, device)
+        refs = spatial_steps(trainer, batches, device)
+        starts = [ref.pop("start") for ref in refs]
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        port = distributed.free_port()
+        with tempfile.TemporaryDirectory() as tmp:
+            starts_path = os.path.join(tmp, "starts.pt")
+            torch.save(starts, starts_path)
+            paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+            procs = [ctx.Process(target=spatial_rank,
+                                 args=(r, world, spatial, port, paths[r], str(device), case,
+                                       starts_path))
+                     for r in range(world)]
+            for proc in procs:
+                proc.start()
+            try:
+                for proc in procs:
+                    proc.join(PARALLEL_TIMEOUT_S)
+                check(not any(p.is_alive() for p in procs),
+                      f"{name}: the gloo ranks still ran after {PARALLEL_TIMEOUT_S} s")
+                ranks = []
+                for rank, (proc, rank_path) in enumerate(zip(procs, paths)):
+                    check(os.path.exists(rank_path),
+                          f"{name}: rank {rank} exited with {proc.exitcode}")
+                    result = torch.load(rank_path, weights_only=False)
+                    check("error" not in result, f"{name} rank {rank}: {result.get('error')}")
+                    ranks.append(result["ok"])
+            finally:
+                for proc in procs:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+        per_step = expected_launches(config.action.loss_mode)
+        record = {"ranks": world, "mesh": {"data": world // spatial, "spatial": spatial},
+                  "batch": config.action.batch_size, "height": config.image_shape[0],
+                  "width": config.image_shape[1], "rows_per_rank": config.image_shape[0] //
+                  spatial, "images_per_rank": config.action.batch_size * spatial // world,
+                  "loss_mode": config.action.loss_mode, "pose": config.model.pose.name,
+                  "depth_norm": config.action.depth_norm, "steps": [],
+                  "ranks_seconds": time.perf_counter() - t0}
+        for i, ref in enumerate(refs):
+            got = ranks[0][i]
+            rel, worst = _grad_compare(got["grads"], ref["grads"])
+            stats_rel = max(float(((got["stats"][k] - v).abs() / (v.abs() + 1.0)).max())
+                            for k, v in ref["stats"].items())
+            loss_rel = _rel(got["metrics"]["loss"], ref["metrics"]["loss"])
+            record["steps"].append({
+                "loss": got["metrics"]["loss"], "loss_one_process": ref["metrics"]["loss"],
+                "loss_rel": loss_rel, "grad_rel_l2": rel, "worst_key": worst[1],
+                "worst_key_rel_l2": worst[0], "bn_stats_max_rel": stats_rel,
+                "launches_per_rank": [r[i]["launches"] for r in ranks],
+                "ms_per_rank_ranks_on_one_card": [r[i]["ms"] for r in ranks],
+                "ms_one_process": ref["ms"],
+                "peak_mib_per_rank": [_mib(r[i]["peak_bytes"]) for r in ranks],
+                "peak_mib_one_process": _mib(ref["peak_bytes"]),
+                "graph_mib_per_rank": [_mib(r[i]["graph_bytes"]) for r in ranks],
+                "graph_mib_one_process": _mib(ref["graph_bytes"])})
+            checks += [
+                (all(r[i]["metrics"] == got["metrics"] for r in ranks),
+                 f"{name} step {i}: the ranks' metrics differ"),
+                (all(torch.equal(r[i]["grads"][k], got["grads"][k])
+                     for r in ranks for k in got["grads"]),
+                 f"{name} step {i}: the ranks' gradients differ"),
+                (loss_rel <= SPATIAL_LOSS_RTOL, f"{name} step {i}: loss rel {loss_rel}"),
+                (rel <= GRAD_REL_L2, f"{name} step {i}: gradient rel L2 {rel} ({worst})"),
+                (stats_rel <= PARALLEL_STATS_RTOL,
+                 f"{name} step {i}: BatchNorm statistics rel {stats_rel}"),
+                (all(r[i]["launches"] == per_step for r in ranks),
+                 f"{name} step {i}: launches {[r[i]['launches'] for r in ranks]}, "
+                 f"expected {per_step}"),
+            ]
+        out[name] = record
+        if name == "basic_config":
+            rank_launches = [{k: sum(step["launches"][k] for step in r)
+                              for k in kernels.KERNELS} for r in ranks]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return rank_launches
+
+
+def _mib(nbytes):
+    return None if nbytes is None else nbytes / 2**20
+
+
 def _to_cpu(tree):
+    """Nested dicts and lists of tensors (and other values: a state dict's
+    numbers) with every tensor copied to the CPU."""
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
-    return tree.cpu()
+    return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
 
 
 if __name__ == "__main__":

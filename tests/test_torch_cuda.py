@@ -114,6 +114,32 @@ def test_warp_bwd_kernel_matches_plain(cuda, shape):
     assert err <= BWD_RTOL * max(float(ref.abs().max()), 1e-30), err
 
 
+@pytest.mark.parametrize("shape", [(3, 192, 640), (2, 384, 1280)])
+@pytest.mark.parametrize("band", [0, 1])
+def test_warp_kernels_on_a_band_of_grid_rows_match_plain(cuda, shape, band):
+    # a spatial mesh's warp: the grid is a band of Hg = H/2 rows of the
+    # target (band 0 or 1 of 2) over the whole image; A and A′ equal their
+    # plain versions bit for bit there, and the band's rows of the whole
+    # grid's warp and grid gradient
+    jobs, height, width = shape
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    img = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    grid = _grid(jobs, height, width, gen, cuda)
+    g = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    rows = slice(band * height // 2, (band + 1) * height // 2)
+    band_grid, band_g = grid[:, rows].contiguous(), g[:, :, rows].contiguous()
+    before = dict(kernels.launch_counts)
+    out = kernels.warp_bilinear_fwd(img, band_grid)
+    d_grid = kernels.warp_bilinear_bwd_grid(img, band_grid, band_g)
+    assert kernels.launch_counts["warp_bilinear_fwd"] == before["warp_bilinear_fwd"] + 1
+    assert kernels.launch_counts["warp_bilinear_bwd"] == before["warp_bilinear_bwd"] + 1
+    assert out.shape == (jobs, 3, height // 2, width) and d_grid.shape == band_grid.shape
+    assert torch.equal(out, grid_sample(img, band_grid))
+    assert torch.equal(d_grid, grid_sample_grad_grid(img, band_grid, band_g))
+    assert torch.equal(out, kernels.warp_bilinear_fwd(img, grid)[:, :, rows])
+    assert torch.equal(d_grid, kernels.warp_bilinear_bwd_grid(img, grid, g)[:, rows])
+
+
 @pytest.mark.parametrize(
     "shape", [(2, 3, 375, 1242), (1, 3, 33, 65), (1, 2, 1, 37), (1, 1, 2, 5),
               (1, 2, 34, 2), (2, 1, 1, 1)]

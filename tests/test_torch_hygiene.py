@@ -43,6 +43,7 @@ def _imported_modules(path):
 def test_port_and_chip_smoke_import_no_jax():
     files = _port_files()
     assert len(files) > 20 and os.path.exists(files[0])
+    assert os.path.join(PORT, "parallel", "spatial.py") in files
     bad = {
         os.path.relpath(path, REPO): name
         for path in files

@@ -91,8 +91,8 @@ def test_shard_batch_takes_the_rows_jax_places_on_each_device(ranks):
 
 def test_mesh_and_initialize_without_a_group(monkeypatch):
     # no torchrun variables: initialize() does nothing; only the
-    # one-device mesh exists, with no group (no collective runs); the
-    # spatial axis is not ported
+    # one-device mesh exists, with no group (no collective runs); a
+    # spatial axis, like a data axis of 2, needs a process group
     for var in (*distributed.ENV_VARS, "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
     assert distributed.initialize(device="cpu") is False
@@ -102,7 +102,7 @@ def test_mesh_and_initialize_without_a_group(monkeypatch):
     assert distributed.global_mesh(device="cpu").shape == {"data": 1}
     with pytest.raises(ValueError, match="process group of 2"):
         make_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(ValueError, match="spatial=2.*process group of 2"):
         make_mesh(spatial=2, device="cpu")
 
 

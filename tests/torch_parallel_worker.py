@@ -7,9 +7,11 @@ groups of parallel test workers never share a port.
 
 `run_ranks(fn, world, tmp_path, *args)` runs fn(mesh, *args) on `world`
 spawned ranks and returns their results (rank order); `start_ranks`
-starts them and returns the function that waits for those results.
+starts them and returns the function that waits for those results. With
+`spatial=s` the ranks' mesh is make_mesh(world, spatial=s).
 """
 
+import importlib
 import os
 import signal
 import traceback
@@ -55,21 +57,24 @@ STEP_CASES = {
 GROUP_TIMEOUT_S = 240
 
 
-def run_ranks(fn, world, tmp_path, *args, device="cpu"):
+def run_ranks(fn, world, tmp_path, *args, device="cpu", spatial=1):
     """fn(mesh, *args) on `world` spawned gloo ranks (one thread each),
     every rank on `device` -> [rank 0's result, ...]; a rank's exception
-    is raised here with its traceback."""
-    return start_ranks(fn, world, tmp_path, *args, device=device)()
+    is raised here with its traceback. fn is a module-level function of
+    an importable module (this one, or tests/torch_spatial_worker.py)."""
+    return start_ranks(fn, world, tmp_path, *args, device=device, spatial=spatial)()
 
 
-def start_ranks(fn, world, tmp_path, *args, device="cpu"):
+def start_ranks(fn, world, tmp_path, *args, device="cpu", spatial=1):
     """Start run_ranks' ranks; returns the function that waits for them
     and returns their results."""
     ctx = mp.get_context("spawn")
-    store = os.path.join(str(tmp_path), f"store_{fn.__name__}")
-    outs = [os.path.join(str(tmp_path), f"{fn.__name__}_rank{r}.pt") for r in range(world)]
+    tag = f"{fn.__name__}_{world}x{spatial}"
+    store = os.path.join(str(tmp_path), f"store_{tag}")
+    outs = [os.path.join(str(tmp_path), f"{tag}_rank{r}.pt") for r in range(world)]
     procs = [ctx.Process(target=_entry,
-                         args=(fn.__name__, r, world, store, outs[r], args, device))
+                         args=(fn.__module__, fn.__name__, r, world, store, outs[r],
+                               args, device, spatial))
              for r in range(world)]
     for proc in procs:
         proc.start()
@@ -87,6 +92,7 @@ def start_ranks(fn, world, tmp_path, *args, device="cpu"):
         for rank, (proc, out) in enumerate(zip(procs, outs)):
             assert os.path.exists(out), f"rank {rank} exited with {proc.exitcode} and no result"
             result = torch.load(out, weights_only=False)
+            os.remove(out)  # a rank's gradients are tens of MB
             if "error" in result:
                 raise AssertionError(f"rank {rank}:\n{result['error']}")
             results.append(result["ok"])
@@ -95,13 +101,14 @@ def start_ranks(fn, world, tmp_path, *args, device="cpu"):
     return wait
 
 
-def _entry(name, rank, world, store, out, args, device):
+def _entry(module, name, rank, world, store, out, args, device, spatial):
     torch.set_num_threads(1)
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world)
     try:
-        result = {"ok": globals()[name](make_mesh(world, device=device), *args)}
+        mesh = make_mesh(world, spatial=spatial, device=device)
+        result = {"ok": getattr(importlib.import_module(module), name)(mesh, *args)}
     except BaseException:  # reported to the test with its traceback
         result = {"error": traceback.format_exc()}
     finally:
@@ -293,3 +300,4 @@ def interrupted_fit(mesh, config):
     return {"epochs": epochs, "step": trainer.state.step,
             "checkpoints": sorted(os.listdir(trainer.checkpoints.directory))
             if os.path.isdir(trainer.checkpoints.directory) else []}
+

@@ -1,0 +1,282 @@
+"""Ranks of tests/test_torch_spatial.py: gloo process groups on the CPU
+under a ("data", "spatial") mesh, spawned by
+tests/torch_parallel_worker.run_ranks(..., spatial=2).
+
+Kept out of the test module (and out of pytest's collection, by its name)
+so that a spawned rank imports torch and the port only, not JAX.
+"""
+
+import hashlib
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tests import torch_parallel_worker as worker
+from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
+from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_loss
+from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
+from unsupervised_pseuso_lidar_tpu_torch.losses.total import normalize_depth, total_loss
+from unsupervised_pseuso_lidar_tpu_torch.models import layers
+from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
+from unsupervised_pseuso_lidar_tpu_torch.train import config as config_module
+from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+    Trainer,
+    TrainState,
+    bind_spatial,
+    make_eval_step,
+    make_lr_schedule,
+    make_multi_step,
+    make_optimizer,
+    make_train_step,
+)
+
+HEIGHT, WIDTH, BATCH = worker.HEIGHT, worker.WIDTH, worker.BATCH
+# name -> (batch seed, pose net, step settings over worker.STEP_SETTINGS);
+# 'supervised' zeroes the ground truth of images 2-3 in the top half, so
+# the data rows and the bands hold different numbers of LiDAR returns.
+# 'augment' takes batch seed 1: at seed 3 every mesh, data-only as well,
+# differs from the one-process step by the same 2.1e-4 gradient rel L2 (a
+# pixel crossing that the mesh path's fp64 BatchNorm sums and
+# F.batch_norm's fp32 ones put on either side), where seed 1 gives 4.4e-5
+STEP_CASES = {
+    "min_posefc_depth_norm": (1, "PoseFc", dict(loss_mode="min", depth_norm=True)),
+    "min": (1, "PoseNet", dict(loss_mode="min")),
+    "mean": (1, "PoseNet", dict(loss_mode="mean")),
+    "ssim": (1, "PoseNet", dict(loss_mode="ssim")),
+    "supervised": (1, "PoseNet", dict(loss_mode="min", supervised_weight=0.1)),
+    "accum": (2, "PoseNet", dict(loss_mode="min", accum_steps=2)),
+    "augment": (1, "PoseNet", dict(loss_mode="min", color_jitter=True, hflip=True,
+                                   aug_seed=5)),
+}
+MULTI_STEPS = 3
+
+
+def step_batch(name):
+    """The global batch of STEP_CASES[name] (uint8 images, groundtruth)."""
+    seed = STEP_CASES[name][0]
+    batch = next(SyntheticTripletDataset(1, BATCH, HEIGHT, WIDTH, seed=seed,
+                                         uint8_images=True).batches())
+    if name == "supervised":
+        batch["groundtruth"] = batch["groundtruth"].copy()
+        batch["groundtruth"][2:, : HEIGHT // 2] = 0.0
+    return batch
+
+
+def make_state(weights, pose_name):
+    """DispResNet-18 + `pose_name` with `weights` ({"depth", "PoseNet",
+    "PoseFc": state dicts}), configs/tpu_v5e.yaml's Adam and a StepLR."""
+    depth = build_model("DispResNet", device="cpu")
+    depth.load_state_dict(weights["depth"])
+    pose = build_model(pose_name, device="cpu", image_shape=(HEIGHT, WIDTH))
+    pose.load_state_dict(weights[pose_name])
+    cfg = config_module.load_config(os.path.join(worker.REPO, "configs", "tpu_v5e.yaml"))
+    optimizer = make_optimizer(cfg, depth, pose)
+    return TrainState(depth, pose, optimizer, make_lr_schedule(optimizer, 30, 0.1, 1))
+
+
+def one_step(weights, name, mesh=None):
+    """STEP_CASES[name]'s step on its global batch, under `mesh` when
+    given -> worker.step_result."""
+    _, pose_name, kwargs = STEP_CASES[name]
+    state = make_state(weights, pose_name)
+    step = make_train_step(state, device="cpu", mesh=mesh,
+                           **{**worker.STEP_SETTINGS, **kwargs})
+    return worker.step_result(state, step(step_batch(name)))
+
+
+def multi_steps(weights, mesh=None):
+    """make_multi_step over MULTI_STEPS 'min' batches (seeds 1, 2, 3) ->
+    (the parameters after them, the last metrics)."""
+    batches = [next(SyntheticTripletDataset(1, BATCH, HEIGHT, WIDTH, seed=seed,
+                                            uint8_images=True).batches())
+               for seed in range(1, MULTI_STEPS + 1)]
+    state = make_state(weights, "PoseNet")
+    multi = make_multi_step(state, MULTI_STEPS, mesh=mesh, device="cpu", loss_mode="min",
+                            **worker.STEP_SETTINGS)
+    metrics = multi({k: np.stack([b[k] for b in batches]) for k in batches[0]})
+    return worker.params_of(state), {k: float(v) for k, v in metrics.items()}
+
+
+def eval_step(weights, mesh=None):
+    """EvalStep ('ssim' loss, Eigen protocol, pose metrics) on
+    worker.eval_batch() -> (metrics, depth_pred)."""
+    state = make_state(weights, "PoseNet")
+    step = make_eval_step(state.depth_model, state.pose_model, loss_mode="ssim",
+                          eval_protocol="eigen", pose_metrics=True, mesh=mesh, device="cpu")
+    metrics, depth_pred = step(worker.eval_batch())
+    return {k: float(v) for k, v in metrics.items()}, depth_pred
+
+
+def digest(tensors):
+    """sha256 of {name: tensor or None}'s bytes in name order: what a rank
+    other than 0 returns in place of its gradients and parameters, which
+    must equal rank 0's bit for bit (the results of 6 ranks would fill
+    gigabytes)."""
+    h = hashlib.sha256()
+    for key in sorted(tensors):
+        t = tensors[key]
+        h.update(key.encode() + (b"none" if t is None else t.numpy().tobytes()))
+    return h.hexdigest()
+
+
+def steps(mesh, weights, config):
+    """Every STEP_CASES step, the multi-step, the eval step and a
+    Trainer.fit under the mesh; on ranks other than 0 the gradients and
+    the multi-step's parameters as their digest."""
+    out = {name: one_step(weights, name, mesh) for name in STEP_CASES}
+    out["multi"] = multi_steps(weights, mesh)
+    out["eval"] = eval_step(weights, mesh)
+    out["fit"] = fit(mesh, config)
+    if mesh.rank != 0:
+        for name in STEP_CASES:
+            out[name]["grads"] = digest(out[name]["grads"])
+        out["multi"] = (digest(out["multi"][0]), out["multi"][1])
+    return out
+
+
+def fit(mesh, config):
+    """Trainer.fit under the mesh for one epoch of 2 synthetic batches
+    with validation on 1 -> (step, last metrics, checkpoints written by
+    this rank, log_warps' error)."""
+    data = SyntheticTripletDataset(2, config.action.batch_size, *config.image_shape,
+                                   seed=0, uint8_images=True)
+    trainer = Trainer(config, data, device="cpu", mesh=mesh)
+    metrics = trainer.fit(lambda epoch: data.batches(epoch),
+                          lambda: SyntheticTripletDataset(
+                              1, config.action.batch_size, *config.image_shape, seed=9,
+                              uint8_images=True).batches())
+    try:
+        trainer.log_warps(trainer._last_batch)
+        error = None
+    except NotImplementedError as e:
+        error = str(e)
+    directory = trainer.checkpoints.directory
+    return {"step": trainer.state.step, "metrics": metrics, "log_warps": error,
+            "checkpoints": sorted(os.listdir(directory)) if os.path.isdir(directory) else []}
+
+
+def layout(mesh):
+    """This rank's place on the mesh and its data row's group, and the
+    errors of what the mesh cannot take."""
+    out = {"shape": mesh.shape, "rank": mesh.rank, "data_rank": mesh.data_rank,
+           "spatial_rank": mesh.spatial_rank,
+           "row_group": dist.get_process_group_ranks(mesh.spatial_group)}
+    errors = {}
+    try:
+        make_mesh(mesh.size, spatial=3, device="cpu")
+    except ValueError as e:
+        errors["spatial_3"] = str(e)
+    # 32 rows over spatial 2: an even split, but not DispResNet's 64
+    batch = next(SyntheticTripletDataset(1, BATCH, 32, WIDTH, seed=1,
+                                         uint8_images=True).batches())
+    state = make_state(layout_weights(), "PoseNet")
+    try:
+        make_train_step(state, device="cpu", mesh=mesh, loss_mode="min")(batch)
+    except ValueError as e:
+        errors["height_32"] = str(e)
+    try:
+        shard_batch(mesh, {"tgt": np.zeros((BATCH, 33, WIDTH, 3), np.uint8)})
+    except ValueError as e:
+        errors["height_33"] = str(e)
+    for name, kwargs in (("DispNetS", {}), ("DispResNet", {"all_scales": True})):
+        try:
+            bind_spatial([build_model(name, device="cpu", **kwargs)], mesh)
+        except NotImplementedError as e:
+            errors[name + str(kwargs)] = str(e)
+    out["errors"] = errors
+    return out
+
+
+def layout_weights():
+    gen = torch.Generator().manual_seed(0)
+    return {"depth": build_model("DispResNet", gen, "cpu").state_dict(),
+            "PoseNet": build_model("PoseNet", gen, "cpu").state_dict()}
+
+
+# --------------------------------------------------------------------------
+# unit parities: each function on this rank's band of a global input
+# --------------------------------------------------------------------------
+
+
+def _leaf(mesh, x, dim=2):
+    index = [slice(None)] * x.ndim
+    index[dim] = band(mesh, x.shape[dim])
+    return x[tuple(index)].clone().requires_grad_()
+
+
+def _rows(mesh, x, dim=2):
+    index = [slice(None)] * x.ndim
+    index[dim] = band(mesh, x.shape[dim])
+    return x[tuple(index)]
+
+
+def layer(kind):
+    """A seeded row-sharded layer of DispResNet: ("conv", k, s, p) or
+    ("maxpool",) or ("conv3x3",), on 4 channels."""
+    torch.manual_seed(11)
+    if kind[0] == "conv":
+        return layers.Conv2d(4, 5, kind[1], kind[2], kind[3], bias=False)
+    if kind[0] == "maxpool":
+        return layers.MaxPool2d(3, 2, 1)
+    return layers.Conv3x3(4, 5)
+
+
+def run_layer(kind, x, g, mesh=None):
+    """-> (output, input gradient, weight gradient or None) of sum(layer(x)
+    · g) on x (this rank's band under `mesh`)."""
+    module = layer(kind)
+    for m in module.modules():
+        if hasattr(m, "mesh"):
+            m.mesh = mesh
+    leaf = x.clone().requires_grad_()
+    out = module(leaf)
+    (out * g).sum().backward()
+    weight = next((p.grad for p in module.parameters() if p.dim() == 4), None)
+    return out.detach(), leaf.grad, weight
+
+
+def units(mesh, inputs):
+    """Every unit of test_torch_spatial.UNITS on this rank's band."""
+    out = {}
+    for name, kind, x, g in inputs["layers"]:
+        out[name] = run_layer(kind, _rows(mesh, x), _rows(mesh, g), mesh)
+    pred, target, g = inputs["ssim"]
+    p, t = _leaf(mesh, pred), _leaf(mesh, target)
+    m = photometric_loss(p, t, clip_loss=0.0, mesh=mesh)
+    (m * _rows(mesh, g)).sum().backward()
+    out["ssim"] = (m.detach(), p.grad, t.grad)
+    out["ssim_clip"] = photometric_loss(_rows(mesh, pred), _rows(mesh, target), mesh=mesh)
+    disp = inputs["disp"]
+    d = _leaf(mesh, disp)
+    value = smooth_loss([d], mesh=mesh)
+    value.backward()
+    out["smooth"] = (value.detach(), d.grad)
+    d = _leaf(mesh, disp)
+    normalized = normalize_depth(d, mesh)
+    (normalized * _rows(mesh, inputs["g_disp"])).sum().backward()
+    out["normalize_depth"] = (normalized.detach(), d.grad)
+    tgt, refs, poses, intrinsics = inputs["frames"]
+    disps = [_leaf(mesh, disp), _leaf(mesh, inputs["disp_ref0"])]
+    pose_leaf = poses.clone().requires_grad_()
+    reproj, smooth, extra = total_loss(tgt, refs, [[disps[0]], [disps[1]]], pose_leaf,
+                                       intrinsics, mode="min", smooth_on="disp",
+                                       smooth_weight=0.001, depth_norm=True, mesh=mesh)
+    (reproj + smooth).backward()
+    out["min_loss"] = ((reproj + smooth).detach(), disps[0].grad, disps[1].grad,
+                       pose_leaf.grad, extra["automask_keep"])
+    return out
+
+
+def row_of_two(mesh, inputs, weights, config):
+    """The spatial-2 mesh (world 2): the units and the steps."""
+    return {"units": units(mesh, inputs), "steps": steps(mesh, weights, config)}
+
+
+def two_by_two(mesh, weights, config):
+    """The data 2 x spatial 2 mesh (world 4): the layout and the steps."""
+    return {"layout": layout(mesh), "steps": steps(mesh, weights, config)}
+

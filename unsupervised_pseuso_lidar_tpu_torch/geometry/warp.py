@@ -43,10 +43,18 @@ def warp_coords(
     transform: torch.Tensor,
     intrinsics: torch.Tensor,
     eps: float = 1e-5,
+    row_start: int = 0,
+    height: int | None = None,
 ) -> torch.Tensor:
     """Target-frame depth [B, H, W] + rigid transform [B, 4, 4] +
     intrinsics [B, 3, 3] (or [3, 3]) -> [B, H, W, 2] normalized sample
     coordinates.
+
+    `depth` may be a band of the target image's rows (a mesh's "spatial"
+    axis): rows [row_start, row_start + R) of an image `height` rows tall
+    (default: depth's own rows). The pixel rows are then row_start +
+    arange(R), and y is normalized by the image's height − 1, so the band
+    gets exactly its rows of the whole image's coordinates.
 
     The folded form of project(transform(backproject(...))): with
     P = K T[:3], cam = D (P[:, :3] K^-1) u_h + P[:, 3], so each job needs
@@ -62,14 +70,17 @@ def warp_coords(
     gradient of the pixels it moves across one."""
     if intrinsics.ndim == 2:
         intrinsics = intrinsics[None]
-    _, height, width = depth.shape
+    _, rows, width = depth.shape
+    if height is None:
+        height = rows
     dtype = depth.dtype
     k = intrinsics.double()
     proj = k @ transform[:, :3, :].double()  # [B,3,4]
     m = (proj[:, :, :3] @ torch.linalg.inv(k)).to(dtype)  # K T[:3,:3] K^-1
     t = proj[:, :, 3].to(dtype)  # K T[:3,3]
     u = torch.arange(width, dtype=dtype, device=depth.device)[None, None, :]
-    v = torch.arange(height, dtype=dtype, device=depth.device)[None, :, None]
+    v = torch.arange(row_start, row_start + rows, dtype=dtype,
+                     device=depth.device)[None, :, None]
 
     def cam_row(i: int) -> torch.Tensor:
         affine = (
@@ -102,15 +113,18 @@ def sample_with_impl(
     return warp_bilinear(img.contiguous(), coords.contiguous())
 
 
-def in_frame_fraction(coords: torch.Tensor) -> torch.Tensor:
-    """Fraction of the sample points of normalized `coords` [B, H, W, 2]
-    that land in the image, with ops/resample.band_coverage's in-image test
-    of JAX (the row y in [-1, H], and here also the column x in [-1, W], in
-    pixels): 0.0 exactly when every sample reads the zero padding — the
-    zeros-warp collapse that Trainer._warn_if_collapsed reports. A 0-dim
-    fp32 tensor, detached (no host sync)."""
+def in_frame_fraction(coords: torch.Tensor, height: int | None = None) -> torch.Tensor:
+    """Fraction of the sample points of normalized `coords` [B, Hg, W, 2]
+    that land in the source image, `height` rows tall (default Hg; a band
+    of a row-sharded image's coordinates samples the whole image), with
+    ops/resample.band_coverage's in-image test of JAX (the row y in [-1,
+    H], and here also the column x in [-1, W], in pixels): 0.0 exactly
+    when every sample reads the zero padding — the zeros-warp collapse
+    that Trainer._warn_if_collapsed reports. A 0-dim fp32 tensor, detached
+    (no host sync)."""
     with torch.no_grad():
-        _, height, width, _ = coords.shape
+        _, rows, width, _ = coords.shape
+        height = rows if height is None else height
         x = (coords[..., 0] + 1.0) * 0.5 * (width - 1)
         y = (coords[..., 1] + 1.0) * 0.5 * (height - 1)
         inside = (y >= -1.0) & (y <= height) & (x >= -1.0) & (x <= width)

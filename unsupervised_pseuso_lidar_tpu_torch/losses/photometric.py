@@ -9,6 +9,11 @@ from __future__ import annotations
 import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import ssim_distance_fused
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    first_band,
+    halo,
+    row_sharded,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
 
 
@@ -37,9 +42,27 @@ def photometric_loss(
     decides which pixels pass a gradient, so it must not depend on the
     device's summation order. Under a data `mesh` (parallel/mesh.py) the
     threshold is the GLOBAL batch's, as under JAX's mesh: the ranks' fp64
-    sums of the map and of its square and their counts are all-reduced."""
+    sums of the map and of its square and their counts are all-reduced.
+
+    Under a mesh with a "spatial" axis pred and target are this rank's
+    band of rows, and the SSIM runs on a slab: the band plus one halo row
+    from each neighbouring band (parallel/spatial.halo; none at the
+    image's top and bottom, where the kernel's own reflection is the
+    image's). The slab's outer rows are dropped. Their cotangent is then
+    0, so kernel C's dx on the slab is exact as it is, and the halo's
+    backward returns the halo rows' dx to the bands that own them."""
     if no_ssim:
         photometric = abs_(target - pred)
+    elif row_sharded(mesh):
+        rows, channels = pred.shape[2], pred.shape[1]
+        slab = halo(torch.cat([pred, target], dim=1), mesh, 1, 1)
+        slab_pred = slab[:, :channels].contiguous()
+        slab_target = slab[:, channels:].contiguous()
+        if not target.requires_grad:
+            slab_target = slab_target.detach()  # a data frame: no dy to compute
+        top = 0 if first_band(mesh) else 1
+        photometric = ssim_distance_fused(slab_pred, slab_target,
+                                          ssim_weight)[:, :, top:top + rows]
     else:
         photometric = ssim_distance_fused(pred, target, ssim_weight)
     if clip_loss:

@@ -16,6 +16,14 @@ computes their photometric errors as one kernel-B pass, plus one more for
 the identity error of the unwarped (ref, tgt) pairs; the other modes stack
 every scale's jobs into one warp, and 'ssim' their errors into one
 kernel-B pass.
+
+Under a mesh with a "spatial" axis (parallel/spatial.py) tgt and refs are
+the WHOLE frames of this rank's images and the depths this rank's band of
+rows: the warp samples the whole source frames at the band's coordinates
+(kernel A on a band of grid rows), the targets are the band's rows, the
+SSIM windows cross the band's edges through a halo, and every mean is
+the band's, which is its share of the image's mean: the bands are equal,
+and the step averages over the ranks.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_loss
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_, div
 
 REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
@@ -77,7 +86,9 @@ def reprojection_loss(
       mode: 'mean' or 'l1' (|warped - target|, jnp.abs' rule at a tie),
         'mse' ((warped - target)²) or 'ssim' (photometric_loss: the 0.85
         SSIM + 0.15 L1 blend with its mean + 0.5 std clamp, the GLOBAL
-        batch's under a data `mesh`).
+        batch's under a `mesh`).
+      mesh: the step's mesh or None; with a "spatial" axis the depths are
+        this rank's band of rows (module docstring).
     Returns the scalar loss, or (loss, in-frame fraction of every job's
     samples) with with_coverage. Each scale's depth is upsampled to full
     resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
@@ -88,6 +99,7 @@ def reprojection_loss(
     if mode not in REPROJECTION_MODES:
         raise ValueError(f"Unsupported reprojection mode: {mode}")
     batch, _, height, width = tgt.shape
+    rows = band(mesh, height)
     num_scales = len(depths[0])
     # the per-job transforms in fp64 (device-independent coordinates, see
     # warp_coords)
@@ -98,26 +110,27 @@ def reprojection_loss(
     srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
     fwd_w = 1.0 / (2.0 * num_scales) / 2.0
     for scale_depth in depths[0]:
-        depth_full = _full_res_depth(scale_depth, height, width)
+        depth_full = _full_res_depth(scale_depth, rows.stop - rows.start, width)
         for ref, transform in ((refs[0], t0), (refs[1], t1)):
             srcs.append(ref)
-            tgts.append(tgt)
+            tgts.append(tgt[:, :, rows])
             transforms.append(transform)
             depth_maps.append(depth_full)
             weights.append(fwd_w)
     bwd_w = 1.0 / (2.0 * num_scales)
     for scale_depth in depths[1]:
         srcs.append(tgt)
-        tgts.append(refs[0])
+        tgts.append(refs[0][:, :, rows])
         transforms.append(t0_inv)
-        depth_maps.append(_full_res_depth(scale_depth, height, width))
+        depth_maps.append(_full_res_depth(scale_depth, rows.stop - rows.start, width))
         weights.append(bwd_w)
 
     jobs = len(srcs)
     if intrinsics.ndim == 2:
         intrinsics = intrinsics[None].expand(batch, 3, 3)
     coords = warp_coords(torch.cat(depth_maps, dim=0), torch.cat(transforms, dim=0),
-                         intrinsics.repeat(jobs, 1, 1))
+                         intrinsics.repeat(jobs, 1, 1), row_start=rows.start,
+                         height=height)
     warped = sample_with_impl(torch.cat(srcs, dim=0), coords, impl=warp_impl)
     target = torch.cat(tgts, dim=0)
     if mode in ("mean", "l1"):
@@ -130,7 +143,7 @@ def reprojection_loss(
     loss = torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
                                             device=per_job.device))
     if with_coverage:
-        return loss, in_frame_fraction(coords)
+        return loss, in_frame_fraction(coords, height)
     return loss
 
 
@@ -145,6 +158,7 @@ def min_reprojection_loss(
     ident_scale: float = 1.0,
     depths_ref0: Sequence[torch.Tensor] | None = None,
     with_coverage: bool = False,
+    mesh=None,
 ):
     """monodepth2-style per-pixel minimum over the two references, with
     the joint-min automask: per pixel min(min_r reproj_r, min_r ident_r ·
@@ -166,9 +180,11 @@ def min_reprojection_loss(
     then the scales, as JAX's with_coverage reports it; detached), and
     with with_coverage the in-frame fraction of the warp samples (the mean
     over scales of each scale's stacked jobs, as JAX averages its
-    coverage).
+    coverage). Under a mesh with a "spatial" axis the depths are this
+    rank's band of rows (module docstring).
     """
     batch, _, height, width = tgt.shape
+    rows = band(mesh, height)
     bidirectional = depths_ref0 is not None
     # the per-job transforms in fp64, like the rest of warp_coords' 3x3
     # geometry (device-independent coordinates, see warp_coords)
@@ -177,11 +193,11 @@ def min_reprojection_loss(
     if intrinsics.ndim == 2:
         intrinsics = intrinsics[None].expand(batch, 3, 3)
     srcs = [refs[0], refs[1]]
-    tgts = [tgt, tgt]
+    tgts = [tgt[:, :, rows], tgt[:, :, rows]]
     transforms = [t0, t1]
     if bidirectional:
         srcs.append(tgt)
-        tgts.append(refs[0])
+        tgts.append(refs[0][:, :, rows])
         transforms.append(invert_pose(t0))
     jobs = len(srcs)
     k_tiled = intrinsics.repeat(jobs, 1, 1)
@@ -192,7 +208,8 @@ def min_reprojection_loss(
     # the identity error is scale-invariant: one pass over the leading 2B
     # rows of (src, target) = (refs, tgt) serves both directions
     ident_pair = _channel_mean(photometric_loss(
-        src[: 2 * batch], target[: 2 * batch], no_ssim=no_ssim, clip_loss=0.0,
+        src[: 2 * batch, :, rows], target[: 2 * batch], no_ssim=no_ssim, clip_loss=0.0,
+        mesh=mesh,
     ))
     # +1e-5 after the scale, in fp32: ties go to the warp, and an
     # exact-zero identity pixel stays masked at any ident_scale
@@ -205,16 +222,18 @@ def min_reprojection_loss(
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
     keeps, in_frame = [], []
     for i, scale_depth in enumerate(depths):
-        depth_full = _full_res_depth(scale_depth, height, width)
+        band_rows = rows.stop - rows.start
+        depth_full = _full_res_depth(scale_depth, band_rows, width)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
-            depth_maps.append(_full_res_depth(depths_ref0[i], height, width))
-        coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled)
+            depth_maps.append(_full_res_depth(depths_ref0[i], band_rows, width))
+        coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled,
+                             row_start=rows.start, height=height)
         if with_coverage:
-            in_frame.append(in_frame_fraction(coords))
+            in_frame.append(in_frame_fraction(coords, height))
         warped = sample_with_impl(src, coords, impl=warp_impl)
         err = _channel_mean(photometric_loss(
-            warped, target, no_ssim=no_ssim, clip_loss=0.0
+            warped, target, no_ssim=no_ssim, clip_loss=0.0, mesh=mesh,
         ))  # [jobs*B, H, W]
         err_f = torch.minimum(err[:batch], err[batch : 2 * batch])
         keep = (err_f <= ident).float().mean()

@@ -17,9 +17,10 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
     reprojection_loss,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band, row_sharded
 
 
-def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
+def normalize_depth(depth: torch.Tensor, mesh=None) -> torch.Tensor:
     """Per-image inverse-depth mean normalization: depth · mean_i(1/depth).
     A uniform inverse-depth scaling leaves the result unchanged, which
     removes the shrinking-depth runaway from the warp.
@@ -27,10 +28,16 @@ def normalize_depth(depth: torch.Tensor) -> torch.Tensor:
     The mean accumulates in fp64 and is rounded once to depth's dtype, so
     it does not depend on the device's summation order (the warp
     coordinates, and the gradient's jumps at pixel crossings, follow
-    it)."""
+    it). Under a mesh with a "spatial" axis `depth` is this rank's band
+    of rows [B, (C,) R, W] and the image's sum is the fp64 sum of the
+    bands' sums over the data row, differentiable (Mesh.spatial_sum)."""
     inv = 1.0 / torch.clamp(depth, min=1e-7)
-    m = inv.mean(dim=tuple(range(1, depth.ndim)), keepdim=True,
-                 dtype=torch.float64)
+    dims = tuple(range(1, depth.ndim))
+    if row_sharded(mesh):
+        total = mesh.spatial_sum(inv.sum(dim=dims, keepdim=True, dtype=torch.float64))
+        m = total / (inv[0].numel() * mesh.spatial)
+    else:
+        m = inv.mean(dim=dims, keepdim=True, dtype=torch.float64)
     return depth * m.to(depth.dtype)
 
 
@@ -67,21 +74,33 @@ def total_loss(
         (reprojection_loss).
       smooth_on: 'depth' (the smoothed maps are the — normalized, with
         depth_norm — target depths) or 'disp' (the raw disparities).
-      mesh: the data mesh the step runs under (parallel/mesh.py), or None;
+      mesh: the mesh the step runs under (parallel/mesh.py), or None;
         'ssim' then clamps at the global batch's threshold. Every other
         reduction here is a mean over equal shards, which the step's
-        all-reduce of the metrics and gradients makes global.
+        all-reduce of the metrics and gradients makes global. With a
+        "spatial" axis tgt and refs are the whole frames and the
+        disparities this rank's band of rows: the reductions that cross
+        the band's edges — SSIM windows, vertical smoothness differences,
+        depth_norm's per-image mean — exchange rows or sums with the
+        other bands (losses/reprojection.py, smoothness.py, above).
     """
+    if row_sharded(mesh):
+        rows = band(mesh, tgt.shape[2])
+        if any(d.shape[2] != rows.stop - rows.start for frame in disparities for d in frame):
+            raise NotImplementedError(
+                "under a spatial mesh the loss takes full-resolution disparities "
+                "only: a coarser scale's upsample reads across the bands "
+                "(all_scales is not ported there; ROADMAP.md)")
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
-        depths = [[normalize_depth(d) for d in frame] for frame in depths]
+        depths = [[normalize_depth(d, mesh) for d in frame] for frame in depths]
     extra = {}
     if mode == "min":
         loss_reproj, extra["automask_keep"], *in_frame = min_reprojection_loss(
             tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
             ident_scale=ident_scale, no_ssim=no_ssim,
             depths_ref0=depths[1] if min_bidirectional else None,
-            with_coverage=with_coverage,
+            with_coverage=with_coverage, mesh=mesh,
         )
     else:
         result = reprojection_loss(tgt, refs, depths, poses, intrinsics, mode=mode,
@@ -91,9 +110,9 @@ def total_loss(
     if with_coverage:
         extra["warp_in_frame"] = in_frame[0]
     if smooth_on == "depth":
-        loss_smooth = smooth_loss(depths[0], decay=smooth_decay)
+        loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh)
     elif smooth_on == "disp":
-        loss_smooth = smooth_loss(disparities[0], decay=smooth_decay)
+        loss_smooth = smooth_loss(disparities[0], decay=smooth_decay, mesh=mesh)
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
     return loss_reproj, smooth_weight * loss_smooth, extra

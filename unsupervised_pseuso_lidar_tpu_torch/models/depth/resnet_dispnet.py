@@ -7,6 +7,13 @@ and 152 of bottleneck blocks (4x channel expansion). Module and
 parameter names follow the torch state-dict schema the JAX package exports
 (train/checkpoint.py _dispresnet_mapping), so weights.state_dict_from_jax
 output loads with strict=True.
+
+Its convs with more than one row of kernel and its max-pool are
+layers.Conv2d / layers.MaxPool2d and its decoder's convs layers.Conv3x3:
+under a mesh with a "spatial" axis (trainer.bind_spatial) the model runs
+on a band of the image's rows and exchanges halos with the bands above
+and below. The 1x1 convs and the nearest upsample read no row outside
+their band.
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
     BatchNorm2d,
+    Conv2d,
     Conv3x3,
     ConvBlock,
+    MaxPool2d,
     torch_default_init_,
 )
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import upsample2x_nearest
@@ -55,9 +64,9 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, channels, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_channels, channels, 3, stride, 1, bias=False)
         self.bn1 = _bn(channels)
-        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, 1, 1, bias=False)
         self.bn2 = _bn(channels)
         self.downsample = None
         if stride != 1 or in_channels != channels:
@@ -85,7 +94,7 @@ class Bottleneck(nn.Module):
         out_ch = self.expansion * channels
         self.conv1 = nn.Conv2d(in_channels, channels, 1, bias=False)
         self.bn1 = _bn(channels)
-        self.conv2 = nn.Conv2d(channels, channels, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, stride, 1, bias=False)
         self.bn2 = _bn(channels)
         self.conv3 = nn.Conv2d(channels, out_ch, 1, bias=False)
         self.bn3 = _bn(out_ch)
@@ -109,10 +118,10 @@ class _ResNetTrunk(nn.Module):
 
     def __init__(self, num_layers: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.relu = nn.ReLU()
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         bottleneck = num_layers in BOTTLENECK_DEPTHS
         block_cls = Bottleneck if bottleneck else BasicBlock
         in_ch = 64

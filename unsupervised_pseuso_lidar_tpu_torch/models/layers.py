@@ -13,6 +13,15 @@ have no counterpart here.
 The blocks are nn.Sequential in the reference's layout, so their
 state-dict keys are the reference's (conv1.0 / conv1.2 / conv1.3 for a
 DispNetS encoder block, upconv_1.0 / upconv_1.1 for a StnDispNet one).
+
+Row sharding (a mesh with a "spatial" axis, parallel/spatial.py): Conv2d,
+MaxPool2d and Conv3x3 are nn.Conv2d, nn.MaxPool2d and the reflect-padded
+conv that, once `mesh` is set on them (trainer.bind_spatial), take the
+rows they read across their band's edges from the neighbouring bands
+(halo exchange) and pad only at the image's top and bottom: zeros for a
+conv, −inf for the max-pool, the reflection for Conv3x3. Without a mesh
+they are their parents. The module names, and so the state dicts, are
+unchanged.
 """
 
 from __future__ import annotations
@@ -24,6 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import reflect_pad1
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    first_band,
+    halo,
+    last_band,
+)
 
 
 # flax GroupNorm's default epsilon (nn.GroupNorm's is 1e-5)
@@ -127,6 +141,50 @@ class _GlobalBatchNorm(torch.autograd.Function):
                 None, None, None, None)
 
 
+def _banded(x: torch.Tensor, mesh, kernel: int, stride: int, padding: int,
+            border: float) -> torch.Tensor:
+    """x, this rank's band, extended by the rows a (kernel, stride,
+    padding) window reads across the band's edges: `padding` rows above
+    and kernel − stride − padding below, from the neighbouring bands, or
+    `border` rows at the image's top and bottom (the layer's own
+    padding). The window then runs with no row padding: with an even
+    band at an even first row, its stride-2 outputs are exactly the
+    image's output rows of this band."""
+    if x.shape[2] % stride:
+        raise ValueError(f"a band of {x.shape[2]} rows under a stride-{stride} window")
+    above, below = padding, max(kernel - stride - padding, 0)
+    x = halo(x, mesh, above, below)
+    pad = (0, 0, above if first_band(mesh) else 0, below if last_band(mesh) else 0)
+    return F.pad(x, pad, value=border) if any(pad) else x
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d; under a row-sharding `mesh` its rows come with halos
+    (_banded, zero rows at the image's border)."""
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return super().forward(x)
+        x = _banded(x, self.mesh, self.kernel_size[0], self.stride[0], self.padding[0], 0.0)
+        return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d; under a row-sharding `mesh` its rows come with halos
+    (_banded, −inf rows at the image's border)."""
+
+    mesh = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return super().forward(x)
+        x = _banded(x, self.mesh, self.kernel_size, self.stride, self.padding, -math.inf)
+        return F.max_pool2d(x, self.kernel_size, self.stride, (0, self.padding))
+
+
 def conv(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
          bias: bool = True) -> nn.Conv2d:
     """nn.Conv2d with torch's symmetric (k-1)//2 padding (JAX's TorchConv)."""
@@ -174,14 +232,29 @@ class UpconvGN(nn.Sequential):
 
 
 class Conv3x3(nn.Module):
-    """Reflection-pad-1 + 3x3 conv (parameters under ``.conv``)."""
+    """Reflection-pad-1 + 3x3 conv (parameters under ``.conv``). Under a
+    row-sharding `mesh` the rows above and below the band are the
+    neighbouring bands' and the reflection is taken at the image's top
+    and bottom only: image row 1 (−2) may lie in the band below (above)
+    when a band holds one row, so it is read after the exchange."""
+
+    mesh = None
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(reflect_pad1(x))
+        if self.mesh is None:
+            return self.conv(reflect_pad1(x))
+        x = halo(x, self.mesh, 1, 1)
+        if first_band(self.mesh):
+            x = torch.cat([x[:, :, 1:2], x], dim=2)
+        if last_band(self.mesh):
+            x = torch.cat([x, x[:, :, -2:-1]], dim=2)
+        x = F.pad(x, (1, 1, 0, 0), mode="reflect") if x.shape[3] > 1 else x.expand(
+            -1, -1, -1, 3)
+        return self.conv(x)
 
 
 class ConvBlock(nn.Module):

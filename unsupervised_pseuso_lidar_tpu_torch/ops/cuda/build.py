@@ -116,10 +116,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                           ctypes.c_float)
     if name == "warp_bilinear":
-        lib.warp_bilinear_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+        lib.warp_bilinear_fwd.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i32, i32,
+                                          ptr]
         lib.warp_bilinear_fwd.restype = i32
-        lib.warp_bilinear_bwd_grid.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
-                                               i32, ptr]
+        lib.warp_bilinear_bwd_grid.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                               i32, i32, ptr]
         lib.warp_bilinear_bwd_grid.restype = i32
     elif name == "ssim":
         lib.ssim_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32,

@@ -68,31 +68,34 @@ def _library(name: str):
 
 
 def _check_warp(name: str, img: torch.Tensor, grid: torch.Tensor, *more) -> None:
-    jobs, channels, height, width = img.shape
-    if channels != 3 or grid.shape != (jobs, height, width, 2):
+    jobs, channels = img.shape[:2]
+    if (img.ndim != 4 or channels != 3 or grid.ndim != 4 or grid.shape[0] != jobs
+            or grid.shape[3] != 2):
         raise ValueError(
             f"{name}: img {tuple(img.shape)} must be [J, 3, H, W] "
-            f"and grid {tuple(grid.shape)} [J, H, W, 2]"
+            f"and grid {tuple(grid.shape)} [J, Hg, Wg, 2]"
         )
-    if any(t.shape != img.shape for t in more):
-        raise ValueError(f"{name}: the cotangent must have img's shape")
+    if any(t.shape != (jobs, 3, *grid.shape[1:3]) for t in more):
+        raise ValueError(f"{name}: the cotangent must be [J, 3, Hg, Wg], the output's shape")
     for t in (img, grid, *more):
         _check(name, t, img.device)
 
 
 def warp_bilinear_fwd(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Kernel A: bilinear sample of img [J, 3, H, W] at normalized grid
-    [J, H, W, 2] (align_corners=True, zeros padding) -> [J, 3, H, W]."""
+    [J, Hg, Wg, 2] (align_corners=True, zeros padding) -> [J, 3, Hg, Wg].
+    The grid may be a band of rows of a row-sharded image (Hg < H)."""
     _refuse_autograd("warp_bilinear_fwd", img, grid)
     if not img.is_cuda:
         return grid_sample(img, grid)
     _check_warp("warp_bilinear_fwd", img, grid)
     jobs, _, height, width = img.shape
-    out = torch.empty_like(img)
+    out_h, out_w = grid.shape[1:3]
+    out = img.new_empty((jobs, 3, out_h, out_w))
     stream = torch.cuda.current_stream(img.device).cuda_stream
     code = _library("warp_bilinear").warp_bilinear_fwd(
         img.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        jobs, height, width, img.device.index, stream,
+        jobs, height, width, out_h, out_w, img.device.index, stream,
     )
     _raise_on_error("warp_bilinear_fwd", code)
     launch_counts["warp_bilinear_fwd"] += 1
@@ -103,17 +106,19 @@ def warp_bilinear_bwd_grid(
     img: torch.Tensor, grid: torch.Tensor, g: torch.Tensor
 ) -> torch.Tensor:
     """Kernel A′: the gradient of sum(g · warp(img, grid)) w.r.t. grid
-    [J, H, W, 2], img held fixed; g like img."""
+    [J, Hg, Wg, 2], img [J, 3, H, W] held fixed; g like the warp's output
+    [J, 3, Hg, Wg]."""
     _refuse_autograd("warp_bilinear_bwd_grid", img, grid, g)
     if not img.is_cuda:
         return grid_sample_grad_grid(img, grid, g)
     _check_warp("warp_bilinear_bwd_grid", img, grid, g)
     jobs, _, height, width = img.shape
+    out_h, out_w = grid.shape[1:3]
     d_grid = torch.empty_like(grid)
     stream = torch.cuda.current_stream(img.device).cuda_stream
     code = _library("warp_bilinear").warp_bilinear_bwd_grid(
         img.data_ptr(), grid.data_ptr(), g.data_ptr(), d_grid.data_ptr(),
-        jobs, height, width, img.device.index, stream,
+        jobs, height, width, out_h, out_w, img.device.index, stream,
     )
     _raise_on_error("warp_bilinear_bwd_grid", code)
     launch_counts["warp_bilinear_bwd"] += 1

@@ -24,6 +24,12 @@
 // There is no img gradient: the warp samples data frames (the caller
 // enforces that, ops/cuda/kernels.py WarpBilinear).
 //
+// The grid, and so the output, may have other rows and columns than the
+// image (out_h x out_w): under a mesh's "spatial" axis a rank's grid is
+// its band of the target's rows while the source is the whole image. The
+// sampling arithmetic reads the image's height and width only; out_h and
+// out_w span the output index space.
+//
 // Bound: bytes. Per pixel the forward must read 8 B of grid and write
 // 12 B of output; the 12 B of taps come mostly from L1/L2 because
 // neighbouring threads sample neighbouring pixels. Nothing here is
@@ -87,19 +93,21 @@ __device__ __forceinline__ Taps sample_taps(const float* __restrict__ src, float
 __global__ void warp_bilinear_fwd_kernel(const float* __restrict__ img,
                                          const float* __restrict__ grid,
                                          float* __restrict__ out,
-                                         int64_t jobs, int height, int width) {
+                                         int64_t jobs, int height, int width,
+                                         int out_h, int out_w) {
   const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t out_plane = static_cast<int64_t>(out_h) * out_w;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= jobs * plane) return;
-  const int64_t job = idx / plane;
-  const int64_t pix = idx - job * plane;
+  if (idx >= jobs * out_plane) return;
+  const int64_t job = idx / out_plane;
+  const int64_t pix = idx - job * out_plane;
 
   const Taps t = sample_taps(img + job * kChannels * plane, grid[2 * idx],
                              grid[2 * idx + 1], height, width);
-  float* dst = out + job * kChannels * plane + pix;
+  float* dst = out + job * kChannels * out_plane + pix;
 #pragma unroll
   for (int c = 0; c < kChannels; ++c) {
-    dst[c * plane] = t.v00[c] * t.wx0 * t.wy0 + t.v10[c] * t.wx1 * t.wy0 +
+    dst[c * out_plane] = t.v00[c] * t.wx0 * t.wy0 + t.v10[c] * t.wx1 * t.wy0 +
                      t.v01[c] * t.wx0 * t.wy1 + t.v11[c] * t.wx1 * t.wy1;
   }
 }
@@ -108,16 +116,18 @@ __global__ void warp_bilinear_bwd_grid_kernel(const float* __restrict__ img,
                                               const float* __restrict__ grid,
                                               const float* __restrict__ g,
                                               float* __restrict__ d_grid,
-                                              int64_t jobs, int height, int width) {
+                                              int64_t jobs, int height, int width,
+                                              int out_h, int out_w) {
   const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t out_plane = static_cast<int64_t>(out_h) * out_w;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= jobs * plane) return;
-  const int64_t job = idx / plane;
-  const int64_t pix = idx - job * plane;
+  if (idx >= jobs * out_plane) return;
+  const int64_t job = idx / out_plane;
+  const int64_t pix = idx - job * out_plane;
 
   const Taps t = sample_taps(img + job * kChannels * plane, grid[2 * idx],
                              grid[2 * idx + 1], height, width);
-  const float* gp = g + job * kChannels * plane + pix;
+  const float* gp = g + job * kChannels * out_plane + pix;
   float sum_x = 0.0f;
   float sum_y = 0.0f;
 #pragma unroll
@@ -125,7 +135,7 @@ __global__ void warp_bilinear_bwd_grid_kernel(const float* __restrict__ img,
     // d(out)/dx and d(out)/dy of channel c, contracted with its cotangent
     const float d_x = t.wy0 * (t.v10[c] - t.v00[c]) + t.wy1 * (t.v11[c] - t.v01[c]);
     const float d_y = t.wx0 * (t.v01[c] - t.v00[c]) + t.wx1 * (t.v11[c] - t.v10[c]);
-    const float gc = gp[c * plane];
+    const float gc = gp[c * out_plane];
     sum_x = c == 0 ? gc * d_x : sum_x + gc * d_x;
     sum_y = c == 0 ? gc * d_y : sum_y + gc * d_y;
   }
@@ -136,37 +146,38 @@ __global__ void warp_bilinear_bwd_grid_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img: [jobs, 3, height, width] fp32 contiguous; grid: [jobs, height,
-// width, 2] fp32 contiguous; out: like img, all on CUDA device `device`.
-// Launches on `stream` and returns the cudaError_t of the launch (0 =
-// success). The library links its own CUDA runtime, so it selects the
-// device itself.
+// img: [jobs, 3, height, width] fp32 contiguous; grid: [jobs, out_h,
+// out_w, 2] fp32 contiguous; out: [jobs, 3, out_h, out_w], all on CUDA
+// device `device`. Launches on `stream` and returns the cudaError_t of the
+// launch (0 = success). The library links its own CUDA runtime, so it
+// selects the device itself.
 extern "C" int warp_bilinear_fwd(const float* img, const float* grid, float* out,
-                                 int64_t jobs, int height, int width, int device,
-                                 void* stream) {
-  const int64_t total = jobs * static_cast<int64_t>(height) * width;
+                                 int64_t jobs, int height, int width, int out_h,
+                                 int out_w, int device, void* stream) {
+  const int64_t total = jobs * static_cast<int64_t>(out_h) * out_w;
   if (total == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   warp_bilinear_fwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(img, grid, out, jobs,
-                                                                   height, width);
+                              static_cast<cudaStream_t>(stream)>>>(
+      img, grid, out, jobs, height, width, out_h, out_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The gradient of sum(g * warp(img, grid)) w.r.t. grid: img and grid as for
-// warp_bilinear_fwd, g like img, d_grid like grid. Same launch contract.
+// warp_bilinear_fwd, g like out, d_grid like grid. Same launch contract.
 extern "C" int warp_bilinear_bwd_grid(const float* img, const float* grid,
                                       const float* g, float* d_grid, int64_t jobs,
-                                      int height, int width, int device, void* stream) {
-  const int64_t total = jobs * static_cast<int64_t>(height) * width;
+                                      int height, int width, int out_h, int out_w,
+                                      int device, void* stream) {
+  const int64_t total = jobs * static_cast<int64_t>(out_h) * out_w;
   if (total == 0) return 0;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   warp_bilinear_bwd_grid_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-      img, grid, g, d_grid, jobs, height, width);
+      img, grid, g, d_grid, jobs, height, width, out_h, out_w);
   return static_cast<int>(cudaGetLastError());
 }

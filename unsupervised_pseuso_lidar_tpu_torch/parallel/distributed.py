@@ -71,5 +71,6 @@ def free_port() -> int:
 
 
 def global_mesh(spatial: int = 1, device: str | torch.device = "cuda") -> Mesh:
-    """The mesh over every rank of the process group (parallel/mesh.make_mesh)."""
+    """The mesh over every rank of the process group, `spatial` ranks to a
+    data row (parallel/mesh.make_mesh)."""
     return make_mesh(spatial=spatial, device=device)

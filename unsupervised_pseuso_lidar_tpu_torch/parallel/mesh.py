@@ -1,19 +1,21 @@
-"""The data mesh and the rules that place a batch and a train state on it.
+"""The ("data", "spatial") mesh and the rules that place a batch and a
+train state on it.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/parallel/mesh.py (make_mesh
 :26, batch_sharding :54, replicated_sharding :66, shard_batch :70,
-shard_train_state :94). Under JAX's ("data",) mesh GSPMD runs the
-single-device program over the GLOBAL batch; here every rank of a
-torch.distributed process group runs the step on its own rows, and the
-step makes every reduction over the batch global with a collective: the
+shard_train_state :94). Under JAX's mesh GSPMD runs the single-device
+program over the GLOBAL batch; here every rank of a torch.distributed
+process group runs the step on its own block of the batch — its images
+(the "data" axis) and, with a "spatial" axis, its band of image rows —
+and the step makes every reduction global with a collective: the
 BatchNorm statistics, the 'ssim' clip threshold, the supervised term's
 masked mean, the metrics, and the parameter gradients once a step
-(train/trainer.py). Only `all_reduce` and `broadcast` are used: gloo runs
-them on CUDA tensors too (not `all_gather`), so the same code runs under
-NCCL, under gloo on the CPU and under gloo on one shared card.
-
-The "spatial" axis (image height sharded, convolutions with halo
-exchange) is not ported: make_mesh(spatial > 1) raises.
+(train/trainer.py). Under a spatial axis the convolutions exchange halo
+rows with the neighbouring row bands, and the loss takes its windows and
+its per-image sums across the bands (parallel/spatial.py). Only
+`all_reduce` and `broadcast` are used: gloo runs them on CUDA tensors too
+(not `all_gather`), so the same code runs under NCCL, under gloo on the
+CPU and under gloo on one shared card.
 """
 
 from __future__ import annotations
@@ -29,20 +31,54 @@ from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
 
 class Mesh:
-    """A ("data",) mesh: the process group (None for the one-device mesh
-    without one), this process's rank in it, its size and the device this
-    rank computes on. With a group, every collective of the step goes
-    through it — at size 1 too, where it changes no value."""
+    """A ("data",) or ("data", "spatial") mesh: the process group (None for
+    the one-device mesh without one), this process's rank in it, its size,
+    the device this rank computes on, and the size of the "spatial" axis.
+    With a group, every collective of the step goes through it — at size 1
+    too, where it changes no value.
 
-    def __init__(self, group, rank: int, size: int, device: torch.device):
+    JAX's layout (make_mesh's devices.reshape(n // spatial, spatial)): rank
+    r sits at data index r // spatial and spatial index r % spatial, so a
+    data row — the ranks that hold one block of images, each a band of
+    their rows — is `spatial` consecutive ranks. `spatial_group` is this
+    rank's data row (None without a spatial axis)."""
+
+    def __init__(self, group, rank: int, size: int, device: torch.device,
+                 spatial: int = 1, spatial_group=None):
+        if size % spatial:
+            raise ValueError(f"{size} devices not divisible by spatial={spatial}")
         self.group = group
         self.rank = rank
         self.size = size
         self.device = device
+        self.spatial = spatial
+        self.spatial_group = spatial_group
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.size}
+        if self.spatial == 1:
+            return {"data": self.size}
+        return {"data": self.size // self.spatial, "spatial": self.spatial}
+
+    @property
+    def data_size(self) -> int:
+        return self.size // self.spatial
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_rank(self) -> int:
+        return self.rank % self.spatial
+
+    def band(self, height: int) -> slice:
+        """This rank's band of the rows of an image `height` rows tall."""
+        if height % self.spatial:
+            raise ValueError(f"an image of {height} rows does not split into "
+                             f"{self.spatial} bands (the port does not pad uneven shards)")
+        part = height // self.spatial
+        return slice(self.spatial_rank * part, (self.spatial_rank + 1) * part)
 
     @property
     def distributed(self) -> bool:
@@ -63,6 +99,13 @@ class Mesh:
         if self.group is None:
             return tensor
         return _AllReduceSum.apply(tensor, self.group)
+
+    def spatial_sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """all_reduce_sum over this rank's data row only (the bands of one
+        block of images); `tensor` itself without a spatial axis."""
+        if self.spatial_group is None:
+            return tensor
+        return _AllReduceSum.apply(tensor, self.spatial_group)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -89,51 +132,64 @@ def make_mesh(
     spatial: int = 1,
     device: str | torch.device = "cuda",
 ) -> Mesh:
-    """The ("data",) mesh over the default process group, this process
-    computing on `device` (a bare "cuda" is the current CUDA device).
+    """The ("data",) mesh, or with spatial > 1 the ("data", "spatial") mesh
+    of n_devices // spatial data rows, over the default process group,
+    this process computing on `device` (a bare "cuda" is the current CUDA
+    device).
 
-    n_devices must be the group's size (None takes it). Without a process
-    group only the one-device mesh exists (n_devices None or 1; no
-    collective runs then): start N ranks with torchrun or
-    `cli.train --mesh N`."""
-    if spatial != 1:
-        raise NotImplementedError(
-            "the 'spatial' mesh axis is not ported: it needs convolutions that "
-            "exchange halos between ranks (ROADMAP.md §1, item 5)")
+    n_devices must be the group's size (None takes it), a multiple of
+    `spatial`. Without a process group only the one-device mesh exists
+    (n_devices None or 1, spatial 1; no collective runs then): start N
+    ranks with torchrun or `cli.train --mesh N`. With a spatial axis
+    every rank creates the subgroup of every data row, in the same order
+    (dist.new_group's rule), and keeps its own."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if not dist.is_initialized():
-        if n_devices not in (None, 1):
+        if n_devices not in (None, 1) or spatial != 1:
+            n = n_devices if n_devices is not None else spatial
             raise ValueError(
-                f"make_mesh({n_devices}) needs a process group of {n_devices} ranks "
-                "(torchrun, or cli.train --mesh N)")
+                f"make_mesh({n_devices}, spatial={spatial}) needs a process group of "
+                f"{n} ranks (torchrun, or cli.train --mesh N)")
         return Mesh(None, 0, 1, device)
     size = dist.get_world_size()
     if n_devices not in (None, size):
         raise ValueError(f"make_mesh({n_devices}) in a process group of {size} ranks")
-    return Mesh(dist.group.WORLD, dist.get_rank(), size, device)
+    if size % spatial:
+        raise ValueError(f"{size} devices not divisible by spatial={spatial}")
+    rank = dist.get_rank()
+    spatial_group = None
+    if spatial > 1:
+        for row in range(size // spatial):
+            group = dist.new_group(list(range(row * spatial, (row + 1) * spatial)))
+            if row == rank // spatial:
+                spatial_group = group
+    return Mesh(dist.group.WORLD, rank, size, device, spatial, spatial_group)
 
 
 @dataclass(frozen=True)
 class Sharding:
     """Where an array lives on the mesh: its `axis` split over "data"
-    into contiguous row blocks, one a rank (interleaved by micro-batch
-    with accum_steps > 1, see shard_batch), or replicated (axis None)."""
+    into contiguous row blocks, one a data row of the mesh (interleaved by
+    micro-batch with accum_steps > 1, see shard_batch), and its
+    `spatial_axis` (image rows) split over "spatial" into contiguous
+    bands; or replicated (both None)."""
 
     mesh: Mesh
     axis: Optional[int]
     accum_steps: int = 1
+    spatial_axis: Optional[int] = None
 
     def rows(self, size: int) -> slice | np.ndarray:
         """This rank's indices along `axis` of an array `size` long."""
-        n, k = self.mesh.size, self.accum_steps
+        n, k = self.mesh.data_size, self.accum_steps
         if size % (n * k):
             raise ValueError(f"a batch of {size} rows does not split into {k} "
                              f"micro-batch(es) over {n} devices")
         micro = size // k
         part = micro // n
-        start = self.mesh.rank * part
+        start = self.mesh.data_rank * part
         if k == 1:
             return slice(start, start + part)
         return np.concatenate([np.arange(i * micro + start, i * micro + start + part)
@@ -142,19 +198,26 @@ class Sharding:
     def shard(self, x):
         """This rank's part of the global array `x` (numpy or tensor): a
         view for contiguous rows."""
-        if self.axis is None or self.mesh.size == 1:
-            return x
-        index = [slice(None)] * self.axis + [self.rows(x.shape[self.axis])]
-        if isinstance(index[-1], np.ndarray) and torch.is_tensor(x):
-            index[-1] = torch.from_numpy(index[-1]).to(x.device)
+        index = [slice(None)] * x.ndim
+        if self.axis is not None and self.mesh.data_size > 1:
+            index[self.axis] = self.rows(x.shape[self.axis])
+            if isinstance(index[self.axis], np.ndarray) and torch.is_tensor(x):
+                index[self.axis] = torch.from_numpy(index[self.axis]).to(x.device)
+        if self.spatial_axis is not None and self.mesh.spatial > 1:
+            index[self.spatial_axis] = self.mesh.band(x.shape[self.spatial_axis])
         return x[tuple(index)]
 
 
 def batch_sharding(mesh: Mesh, ndim: int, batch_axis: int = 0) -> Sharding:
-    """The batch dimension over "data" (the mesh has no "spatial" axis)."""
+    """The batch dimension over "data" and, when the mesh has a "spatial"
+    axis, the image rows over it: channels-last images have their rows
+    third from last — [B, H, W, C] and the stacked [B, 2, H, W, C] ref
+    pair alike — so an array of at least 4 dimensions after batch_axis
+    has axis ndim − 3 split (JAX's rule, with batch_axis 0)."""
     if not 0 <= batch_axis < ndim:
         raise ValueError(f"batch_axis {batch_axis} of a rank-{ndim} array")
-    return Sharding(mesh, batch_axis)
+    spatial_axis = ndim - 3 if mesh.spatial > 1 and ndim - batch_axis >= 4 else None
+    return Sharding(mesh, batch_axis, spatial_axis=spatial_axis)
 
 
 def replicated_sharding(mesh: Mesh) -> Sharding:
@@ -185,17 +248,26 @@ def shard_batch(mesh: Mesh, batch: Any, accum_steps: int = 1, batch_axis: int = 
     mb = B/k — since the step splits its rows into k micro-batches and
     micro-batch i's BatchNorm statistics and supervised mean are taken
     over micro-batch i's global rows, as in the JAX step's reshape. B must
-    be a multiple of k·N. `groundtruth` [B, H, W] takes the same rows.
-    A ShardedBatch is returned as it is."""
+    be a multiple of k·N. Here N is the mesh's data size: the ranks of one
+    data row hold the same images. With a "spatial" axis each of them
+    takes its band of the image rows (batch_sharding), and `groundtruth`
+    [B, H, W] its band along H (JAX :77-86). A ShardedBatch is returned as
+    it is."""
     if isinstance(batch, ShardedBatch):
         if (batch.accum_steps, batch.batch_axis) != (accum_steps, batch_axis):
             raise ValueError("the batch was sharded for other micro-batches or axis")
         return batch
-    sharding = Sharding(mesh, batch_axis, accum_steps)
+
+    def shard(key, x):
+        spatial_axis = batch_sharding(mesh, x.ndim, batch_axis).spatial_axis
+        if key == "groundtruth" and x.ndim == batch_axis + 3 and mesh.spatial > 1:
+            spatial_axis = batch_axis + 1  # [B, H, W]: the rows follow B
+        return Sharding(mesh, batch_axis, accum_steps, spatial_axis).shard(x)
+
     if isinstance(batch, dict):
-        return ShardedBatch({k: sharding.shard(v) for k, v in batch.items()},
+        return ShardedBatch({k: shard(k, v) for k, v in batch.items()},
                             accum_steps, batch_axis)
-    return sharding.shard(batch)
+    return shard(None, batch)
 
 
 def _state_tensors(state) -> list:
@@ -213,7 +285,8 @@ def _state_tensors(state) -> list:
 
 
 def shard_train_state(mesh: Mesh, state: Any) -> Any:
-    """Replicate the train state over the mesh: broadcast rank 0's
+    """Replicate the train state over the whole mesh (every data row and
+    every band of it): broadcast rank 0's
     parameters, buffers, optimizer slots and step count to every rank (in
     place; returns the state). Every rank must hold the same structure,
     as ranks that built the state from one config and restored the same

@@ -4,13 +4,18 @@ Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
 :231-401, make_eval_step :480, Trainer :561, _warn_if_collapsed :683,
-log_warps :742, fit :783, make_multi_step :447). Under a data mesh
+log_warps :742, fit :783, make_multi_step :447). Under a mesh
 (parallel/mesh.py; `mesh=` of TrainStep, EvalStep, make_multi_step and
-Trainer) each rank runs the step on its rows of the global batch and the
+Trainer) each rank runs the step on its block of the global batch and the
 result is the JAX step's on the global batch: BatchNorm statistics, the
 'ssim' clip threshold and the supervised masked mean are all-reduced
 where they are taken, the parameter gradients are averaged once a step
 before the optimizer, and the metrics are global means on every rank.
+With a "spatial" axis a rank's block is a band of its images' rows:
+DispResNet runs on the band with halo-exchanging convolutions
+(bind_spatial), the pose net on the whole frames, which the step
+gathers from the bands of its data row, and the loss on the band
+(losses/total.py).
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
@@ -46,13 +51,27 @@ from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import (
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth, inverse_warp
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
-from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.resnet_dispnet import DispResNet
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
+    BatchNorm2d,
+    Conv2d,
+    Conv3x3,
+    MaxPool2d,
+)
+from unsupervised_pseuso_lidar_tpu_torch.models.pose.pose_fc import PoseFc
+from unsupervised_pseuso_lidar_tpu_torch.models.pose.posenet import PoseNet
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import (
     Mesh,
     ShardedBatch,
     shard_batch,
     shard_train_state,
+)
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    band,
+    check_height,
+    gather_rows,
+    row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -93,6 +112,22 @@ def batch_to_device(
     return out
 
 
+def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """Under a mesh with a "spatial" axis: a device batch whose tgt and
+    ref_imgs hold this rank's band of rows -> the same batch with the
+    whole frames, gathered from the bands of the data row (the warp's
+    sources and the pose net's input; parallel/spatial.gather_rows, in
+    the batch's dtype). Raises ValueError for a height DispResNet cannot
+    shard. The batch itself otherwise."""
+    if not row_sharded(mesh):
+        return batch
+    out = dict(batch, tgt=gather_rows(batch["tgt"], mesh, 2),
+               ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3))
+    check_height(mesh, *out["tgt"].shape[2:])
+    return out
+
+
 def normalize_uint8_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """uint8 NCHW image batch -> ImageNet-normalized float32 (float input
     passes through unchanged)."""
@@ -114,20 +149,22 @@ def forward_batch(
     batch: Dict[str, torch.Tensor],
     train: bool = False,
     semi_sup_pose: bool = False,
+    rows: slice = slice(None),
 ) -> Tuple[List[torch.Tensor], List[torch.Tensor], torch.Tensor]:
     """Depth (tgt and ref0 stacked into one 2B pass, so train-mode
     BatchNorm statistics come from the joint batch, as in JAX) and pose
     forward on a normalized NCHW batch, the models in train or eval mode
     -> (disps_tgt, disps_ref0, poses). With semi_sup_pose the poses are
     the batch's OXTS odometry [B, 2, 6] and the pose net does not run (so
-    it gets no gradient)."""
+    it gets no gradient). The depth net sees the image `rows` (a rank's
+    band under a spatial mesh), the pose net the whole frames."""
     depth_model.train(train)
     pose_model.train(train)
     tgt = batch["tgt"]
     ref0 = batch["ref_imgs"][:, 0]
     ref1 = batch["ref_imgs"][:, 1]
     bsz = tgt.shape[0]
-    disps = depth_model(torch.cat([tgt, ref0], dim=0))
+    disps = depth_model(torch.cat([tgt, ref0], dim=0)[:, :, rows])
     disps_tgt = [d[:bsz] for d in disps]
     disps_ref0 = [d[bsz:] for d in disps]
     if semi_sup_pose:
@@ -260,10 +297,37 @@ def bind_batch_norm(models, mesh: Optional[Mesh]) -> None:
                 m.mesh = mesh
 
 
+def bind_spatial(models, mesh: Optional[Mesh]) -> None:
+    """Point the row-sharded layers of `models` (layers.Conv2d, MaxPool2d,
+    Conv3x3) at `mesh` when it has a "spatial" axis — they then exchange
+    halos with the neighbouring bands — and unbind them otherwise.
+
+    Under a spatial mesh the depth net must be DispResNet with one output
+    scale and the pose net PoseNet or PoseFc, which runs on the whole
+    frames (its 7 stride-2 convs leave fewer rows than ranks); any other
+    model, and all_scales, raises NotImplementedError (ROADMAP.md)."""
+    sharded = row_sharded(mesh)
+    for model in models:
+        if sharded and not (isinstance(model, (PoseNet, PoseFc))
+                            or (isinstance(model, DispResNet) and model.scales == (0,))):
+            what = type(model).__name__ + (" with all_scales"
+                                           if isinstance(model, DispResNet) else "")
+            raise NotImplementedError(
+                f"{what} under a spatial mesh is not ported (ROADMAP.md, "
+                "'Open under a spatial mesh'): only DispResNet at one scale "
+                "with PoseNet or PoseFc")
+        for m in model.modules():
+            if isinstance(m, (Conv2d, MaxPool2d, Conv3x3)):
+                m.mesh = mesh if sharded else None
+
+
 def all_reduce_gradients(mesh: Mesh, params) -> None:
     """Average the gradients of `params` over the mesh: one all-reduce of
     one flat buffer a dtype, then divided by the mesh size (JAX's psum
-    over "data", where the JAX step places it). A parameter without a
+    over "data", where the JAX step places it). Every rank's loss is the
+    mean over its block of the batch, and the blocks are equal (the
+    terms whose counts differ between ranks scale themselves to that
+    rule), so the average is the gradient of the global loss. A parameter without a
     gradient is left without one: which parameters the loss reads is a
     property of the step's graph, the same on every rank."""
     if not mesh.distributed:
@@ -333,6 +397,11 @@ class TrainStep:
     the draws at the GLOBAL micro-batch size, the gradients are averaged
     over the mesh once after the micro-batch loop, and the metrics are the
     global means on every rank — the JAX step on the global batch.
+    Under a mesh with a "spatial" axis the ranks of a data row hold bands
+    of the same images: the step gathers the whole frames from the bands
+    (whole_frames), augments them with the draws of the data row's images,
+    runs DispResNet on its band (bind_spatial) and the pose net on the
+    whole frames, and the loss on its band (losses/total.py).
 
     remat is accepted and ignored (a memory knob of the JAX step).
     """
@@ -366,6 +435,7 @@ class TrainStep:
         self.state = state
         self.mesh = mesh
         bind_batch_norm((state.depth_model, state.pose_model), mesh)
+        bind_spatial((state.depth_model, state.pose_model), mesh)
         self.loss_mode = loss_mode
         self.semi_sup_pose = semi_sup_pose
         self.smooth_weight = smooth_weight
@@ -395,6 +465,7 @@ class TrainStep:
             disps_tgt, disps_ref0, poses = forward_batch(
                 state.depth_model, state.pose_model, batch, train=True,
                 semi_sup_pose=self.semi_sup_pose,
+                rows=band(self.mesh, batch["tgt"].shape[2]),
             )
         disps_tgt = [d.float() for d in disps_tgt]
         disps_ref0 = [d.float() for d in disps_ref0]
@@ -417,23 +488,25 @@ class TrainStep:
     def _aug_params(self, micro_size: int) -> Optional[AugmentParams]:
         """As in JAX, every micro-batch is augmented with the same draws:
         those of (aug_seed, step) at the GLOBAL micro-batch's size, of
-        which this rank takes its rows."""
+        which this rank takes its images' rows — by its DATA index, so the
+        bands of one image take the same draws."""
         if not (self.color_jitter or self.hflip):
             return None
-        size = 1 if self.mesh is None else self.mesh.size
+        size = 1 if self.mesh is None else self.mesh.data_size
         params = draw_params(micro_size * size, self.aug_seed, self.state.step)
         if size == 1:
             return params
-        rows = slice(self.mesh.rank * micro_size, (self.mesh.rank + 1) * micro_size)
+        index = self.mesh.data_rank
+        rows = slice(index * micro_size, (index + 1) * micro_size)
         return AugmentParams(params.add[rows], params.scale[rows], params.flip[rows])
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         state = self.state
         if self.mesh is not None:
             batch = shard_batch(self.mesh, batch, self.accum_steps)
-        batch = normalize_uint8_batch(batch_to_device(
+        batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
-        ))
+        )))
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
         aug = self._aug_params(batch["tgt"].shape[0] // self.accum_steps)
@@ -530,7 +603,11 @@ class EvalStep:
     metrics are the global batch's on every rank: the loss and pose
     metrics averaged over the ranks (the 'ssim' clip threshold global),
     the depth metrics over the images that have ground truth; depth_pred
-    holds this rank's rows."""
+    holds this rank's images. Under a "spatial" axis the loss is taken on
+    the band, as in the train step, and depth_pred and the ground truth
+    are gathered to whole images for the depth metrics (median scaling
+    and the Eigen crop are per whole image): every rank of a data row
+    then holds its images' whole depth_pred."""
 
     def __init__(self, depth_model: nn.Module, pose_model: nn.Module,
                  loss_mode: str = "mean", depth_norm: bool = False,
@@ -543,6 +620,7 @@ class EvalStep:
             raise ValueError(f"Unknown eval_protocol: {eval_protocol!r}")
         self.device = resolve_device(device)
         self.mesh = mesh
+        bind_spatial((depth_model, pose_model), mesh)
         self.depth_model = depth_model.eval()
         self.pose_model = pose_model.eval()
         self.loss_mode = loss_mode
@@ -558,14 +636,15 @@ class EvalStep:
         """The fp32 tensors the loss consumes: normalized images, the two
         disparity lists, poses and intrinsics; and the batch's groundtruth
         and oxts when it has them."""
-        batch = normalize_uint8_batch(
-            batch_to_device(batch, self.device, keep_groundtruth=True)
-        )
+        batch = normalize_uint8_batch(whole_frames(
+            self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True)
+        ))
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
                 self.depth_model, self.pose_model, batch, train=False,
                 semi_sup_pose=self.semi_sup_pose,
+                rows=band(self.mesh, batch["tgt"].shape[2]),
             )
         inputs = {
             "tgt": batch["tgt"],
@@ -611,6 +690,10 @@ class EvalStep:
             batch = shard_batch(self.mesh, batch)
         inputs = self.loss_inputs(batch)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
+        if row_sharded(self.mesh):
+            depth_pred = gather_rows(depth_pred, self.mesh, 1)
+            if "groundtruth" in inputs:
+                inputs["groundtruth"] = gather_rows(inputs["groundtruth"], self.mesh, 1)
         metrics = {"loss": self.loss(inputs), **self.metrics(inputs, depth_pred)}
         if self.mesh is None or "groundtruth" not in inputs:
             return global_means(self.mesh, metrics), depth_pred
@@ -774,10 +857,17 @@ class Trainer:
         frame (pose 0, kernel A on the card) and depth as PNGs under
         out_dir (utils/visualization.save_warp_visualization); returns
         {file name: path}. The models run in eval mode, as in JAX; the
-        batch is normalized first, so a uint8 batch renders as a float one."""
+        batch is normalized first, so a uint8 batch renders as a float one.
+        Under a mesh with a "spatial" axis it raises NotImplementedError
+        (ROADMAP.md): the depth net there runs on bands of rows."""
         from unsupervised_pseuso_lidar_tpu_torch.utils.visualization import (
             save_warp_visualization,
         )
+
+        if row_sharded(self.mesh):
+            raise NotImplementedError(
+                "log_warps under a spatial mesh is not ported (ROADMAP.md, "
+                "'Open under a spatial mesh')")
 
         act = self.config.action
         batch = normalize_uint8_batch(batch_to_device(batch, self.device))
