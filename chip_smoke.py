@@ -100,19 +100,29 @@ then drives the port's entry points with seeded random weights:
                 rank. Each rank's ms a step is two ranks sharing ONE card,
                 not a scale-out figure. cli.train --mesh 1 trains as
                 before; --mesh 2 on a one-card machine raises with the count
-  spatial       the "spatial" mesh axis (image rows sharded over ranks:
-                halo-exchanging convolutions, the loss on bands, kernels A
-                and A' on a band of grid rows). gloo ranks spawned on the one
-                card: basic_config at data 1 x spatial 2 (1280x384, batch 4,
-                'min', PoseFc, depth_norm; each rank 192 rows) for 3 steps,
-                then configs/synthetic.yaml's 'ssim' at data 2 x spatial 2
-                (640x192, batch 12; each rank 6 images of 96 rows) for two.
-                Each step starts from the one-process trainer's state before
-                that step; against its step on the whole batch: the loss,
-                the gradient, the BatchNorm statistics, and each rank's
-                launches of A, A', B and C; each rank's ms a step, peak
-                memory and the memory its autograd graph holds at the loss
-                beside the one process's (ranks time-sharing one card)
+  spatial       the "spatial" mesh axis (image rows sharded over ranks in
+                bands of the 32-row grain: halo-exchanging convolutions, the
+                loss on bands, kernels A and A' on a band of grid rows). gloo
+                ranks spawned on the one card, three groups: at data 1 x
+                spatial 2 basic_config (1280x384, batch 4, 'min', PoseFc,
+                depth_norm; each rank 192 rows) for 3 steps, the same with
+                action.remat (against the ranks' remat-off steps too), and
+                with DispResNet-18 all_scales for 2 (launches {4, 4, 5, 4}),
+                then Trainer.fit of basic_config for an epoch of 2 batches
+                with a wandb stub on rank 0 (rank 0's log_warps pictures
+                against a Trainer without the mesh); configs/synthetic.yaml's
+                'ssim' at data 2 x spatial 2 (640x192, batch 12; each rank 6
+                images of 96 rows) for two; configs/tpu_v5e.yaml at data 1 x
+                spatial 4 (640x192, batch 12; bands of 64, 64, 32, 32 rows)
+                for 2 steps in fp32 (the config's precision overridden),
+                then one at its own bf16 (the loss beside the one-process
+                bf16 step's). Each step starts from the one-process
+                trainer's state before that step; against its step on the
+                whole batch: the loss, the gradient, the BatchNorm
+                statistics, and each rank's launches of A, A', B and C; each
+                rank's ms a step, peak memory and the memory its autograd
+                graph holds at the loss beside the one process's (ranks
+                time-sharing one card)
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -142,6 +152,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -192,7 +203,7 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map_bwd,
 )
 from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
-from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
+from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh, row_bands
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import (
     load_exported,
     make_depth_cloud_fn,
@@ -317,6 +328,12 @@ PARALLEL_TIMEOUT_S = 300
 # state: the loss (the gradient at GRAD_REL_L2, the BatchNorm statistics
 # at PARALLEL_STATS_RTOL)
 SPATIAL_LOSS_RTOL = 1e-6
+# the bf16 step under the mesh vs the one-process bf16 step (bf16
+# convolutions on bands round otherwise than on the whole image)
+SPATIAL_BF16_LOSS_RTOL = 1e-2
+# fit's pictures under the mesh (eval-mode banded forward, then the
+# gathered depth) vs a Trainer without the mesh: rel L2
+SPATIAL_PICTURE_RTOL = 1e-5
 # the real 2011_09_26 IMU -> velodyne transform
 PROFILE_STEPS, PROFILE_WARMUP = 3, 2
 # each kernel's family in the profiler's trace (utils/trace._op_family)
@@ -759,17 +776,21 @@ def kernel_checks(inputs, batch_size, device):
 
 
 def band_checks(src, coords, gen, device):
-    """Kernels A and A' on a band of grid rows, as a spatial mesh's rank
-    runs them: each half of `coords`' rows (Hg = H/2) over the whole
-    images `src`, against their plain versions and against the band's
-    rows of the whole grid's result, bit for bit (a failed check raises)
-    -> {kernel: the largest difference, 0.0}."""
+    """Kernels A and A' on bands of grid rows, as a spatial mesh's ranks
+    run them: each half of `coords`' rows (Hg = H/2), the uneven bands of
+    the 32-row grain over 4 ranks (row_bands: 64/64/32/32 rows at 192)
+    and an odd band (the last 33 rows), each over the whole images `src`,
+    against their plain versions and against the band's rows of the whole
+    grid's result, bit for bit (a failed check raises) -> {kernel: the
+    largest difference, 0.0}."""
     height = coords.shape[1]
     g = torch.randn(src.shape, generator=gen, device=device)
     whole = kernels.warp_bilinear_fwd(src, coords)
     whole_grad = kernels.warp_bilinear_bwd_grid(src, coords, g)
     err = {"warp_bilinear_fwd": 0.0, "warp_bilinear_bwd": 0.0}
-    for band in (slice(0, height // 2), slice(height // 2, height)):
+    bands = [(0, height // 2), (height // 2, height), *row_bands(height, 4),
+             (height - 33, height)]
+    for band in (slice(*rows) for rows in bands):
         grid, g_band = coords[:, band].contiguous(), g[:, :, band].contiguous()
         out = kernels.warp_bilinear_fwd(src, grid)
         d_grid = kernels.warp_bilinear_bwd_grid(src, grid, g_band)
@@ -781,7 +802,7 @@ def band_checks(src, coords, gen, device):
                                        max_err(d_grid, whole_grad[:, band]))
     torch.cuda.synchronize()
     check(err == {"warp_bilinear_fwd": 0.0, "warp_bilinear_bwd": 0.0},
-          f"kernels A / A' on a band of grid rows vs plain: {err}")
+          f"kernels A / A' on bands of grid rows vs plain: {err}")
     return err
 
 
@@ -812,7 +833,7 @@ def div3_phase(device, chunk=1 << 27):
     check(mismatches == 0, f"div3 disagrees with x / 3.0 on {mismatches} patterns")
 
 
-def expected_launches(loss_mode, scales=1):
+def expected_launches(loss_mode, scales=1, remat=False):
     """Launches of one training step: {A, A', B, C} by objective, for a
     depth net of `scales` output scales. 'min'
     (losses/reprojection.min_reprojection_loss) warps and scores each
@@ -820,13 +841,18 @@ def expected_launches(loss_mode, scales=1):
     backward one A' and one C; plus one B for the identity error, which
     is scale-free and needs no gradient -> {S, S, S + 1, S}. 'mean' and
     'ssim' (reprojection_loss) stack every scale's jobs into one warp and
-    ('ssim') one SSIM pass -> {1, 1, 0, 0} and {1, 1, 1, 1} at any S."""
-    return {"min": {"warp_bilinear_fwd": scales, "warp_bilinear_bwd": scales,
-                    "ssim_fwd": scales + 1, "ssim_bwd": scales},
-            "mean": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
-                     "ssim_fwd": 0, "ssim_bwd": 0},
-            "ssim": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
-                     "ssim_fwd": 1, "ssim_bwd": 1}}[loss_mode]
+    ('ssim') one SSIM pass -> {1, 1, 0, 0} and {1, 1, 1, 1} at any S. With
+    remat the backward recomputes the loss's forward first: A and B twice."""
+    launches = {"min": {"warp_bilinear_fwd": scales, "warp_bilinear_bwd": scales,
+                        "ssim_fwd": scales + 1, "ssim_bwd": scales},
+                "mean": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
+                         "ssim_fwd": 0, "ssim_bwd": 0},
+                "ssim": {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 1,
+                         "ssim_fwd": 1, "ssim_bwd": 1}}[loss_mode]
+    if remat:
+        launches = {k: v * (2 if k in ("warp_bilinear_fwd", "ssim_fwd") else 1)
+                    for k, v in launches.items()}
+    return launches
 
 
 def timed_epoch(trainer, batches):
@@ -2312,18 +2338,30 @@ def parallel_phase(device):
             for r in results]
 
 
-def spatial_cases():
-    """(name, config path, objective or None for the config's, ranks,
-    spatial size, steps) of the spatial phase."""
-    return (("basic_config", BASIC_CONFIG, None, 2, 2, TRAIN_STEPS),
-            ("ssim_2x2", MEAN_CONFIG, "ssim", 4, 2, 2))
+def spatial_groups():
+    """The spatial phase's groups of gloo ranks: (ranks, spatial size,
+    cases, the config Trainer.fit runs with a wandb stub or None). A case
+    is (name, config path, overrides, steps): overrides set the config's
+    action keys, and "all_scales" DispResNet's (the configs' paths given:
+    a spawned rank reads no patched global)."""
+    return ((2, 2, (("basic_config", BASIC_CONFIG, {}, TRAIN_STEPS),
+                    ("basic_config_remat", BASIC_CONFIG, {"remat": True}, TRAIN_STEPS),
+                    ("all_scales_2", BASIC_CONFIG, {"all_scales": True}, 2)), BASIC_CONFIG),
+            (4, 2, (("ssim_2x2", MEAN_CONFIG, {"loss_mode": "ssim"}, 2),), None),
+            # the precision override: fp32 (TF32 off) for the checks, then
+            # one step at the config's own bf16
+            (4, 4, (("tpu_v5e_4", CONFIG, {"precision": "fp32"}, 2),
+                    ("tpu_v5e_4_bf16", CONFIG, {}, 1)), None))
 
 
-def spatial_setup(path, mode, steps):
+def spatial_setup(path, overrides, steps):
     """(config, the case's global batches) of a spatial case."""
     config = load_config(path)
-    if mode is not None:
-        config.action.loss_mode = mode
+    for key, value in overrides.items():
+        if key == "all_scales":
+            config.model.depth.kwargs = {**config.model.depth.kwargs, "all_scales": value}
+        else:
+            setattr(config.action, key, value)
     batches = list(SyntheticTripletDataset(steps, config.action.batch_size,
                                            *config.image_shape, seed=SEED + 41,
                                            uint8_images=True).batches())
@@ -2336,9 +2374,10 @@ def spatial_steps(trainer, batches, device, starts=None):
     memory allocated, and the memory the autograd graph holds when the
     loss is computed — allocated then, less allocated before the step:
     the saved activations, without cuDNN's transient workspaces (None off
-    the card: a CPU rehearsal). Each step starts from the state in
-    `starts`; without them the steps follow each other, and each step's
-    record holds the state it started from ("start", on the CPU)."""
+    the card: a CPU rehearsal; with remat the loss's forward keeps only
+    its inputs). Each step starts from the state in `starts`; without
+    them the steps follow each other, and each step's record holds the
+    state it started from ("start", on the CPU)."""
     on_card = device.type == "cuda"
     out = []
     held = []
@@ -2377,16 +2416,86 @@ def spatial_steps(trainer, batches, device, starts=None):
                     "ms": events[0].elapsed_time(events[1]) if on_card else None,
                     "peak_bytes": torch.cuda.max_memory_allocated(device) if on_card
                     else None,
-                    "graph_bytes": max(held) - before if on_card else None})
+                    "graph_bytes": held[0] - before if on_card else None})
         if starts is None:
             out[-1]["start"] = start
     return out
 
 
-def spatial_rank(rank, world, spatial, port, out_path, device, case, starts_path):
+class _StubWandb(types.ModuleType):
+    """The wandb calls utils/logging.MetricLogger makes, recorded (no
+    wandb on the card's machine, and no network)."""
+
+    def __init__(self):
+        super().__init__("wandb")
+        self.logged = []
+
+    def init(self, project=None, config=None):
+        pass
+
+    def Image(self, x):
+        return ("image", x)
+
+    def Histogram(self, x):
+        return ("histogram", np.asarray(x).size)
+
+    def log(self, payload, step=None):
+        self.logged.append((payload, step))
+
+
+def spatial_fit(mesh, device, directory, path):
+    """Trainer.fit of the config at `path` under the mesh for one epoch of 2
+    synthetic batches, rank 0 logging to a wandb stub (log_warps under the
+    mesh: every rank of the data row runs the banded forward, rank 0
+    renders) -> the step, the pictures this rank handed to the PNG writer
+    (target, ref0 warped, depth), the image names the stub received, the
+    seconds; on rank 0 also the pictures a Trainer without the mesh
+    renders from rank 0's state and last batch."""
+    from unsupervised_pseuso_lidar_tpu_torch.utils import visualization
+    from unsupervised_pseuso_lidar_tpu_torch.utils.logging import MetricLogger
+
+    stub = _StubWandb()
+    sys.modules["wandb"] = stub
+    config = load_config(path)
+    config.action.mlops = True
+    config.action.num_epochs = 1
+    config.action.log_freq = 100
+    config.action.checkpoint_dir = os.path.join(directory, "checkpoints")
+    pictures_dir = os.path.join(directory, f"rank{mesh.rank}")
+    os.makedirs(pictures_dir, exist_ok=True)
+    os.chdir(pictures_dir)  # log_warps writes ./images
+    rendered = []
+    save = visualization.save_warp_visualization
+
+    def record(out_dir, step, tgt, warped, depth, *args, **kwargs):
+        rendered.append((tgt, warped, depth))
+        return save(out_dir, step, tgt, warped, depth, *args, **kwargs)
+
+    visualization.save_warp_visualization = record
+    data = SyntheticTripletDataset(2, config.action.batch_size, *config.image_shape,
+                                   seed=SEED + 43, uint8_images=True)
+    trainer = Trainer(config, data, log_fn=MetricLogger(config) if mesh.rank == 0 else None,
+                      device=device, mesh=mesh)
+    t0 = time.perf_counter()
+    trainer.fit(lambda epoch: data.batches(epoch))
+    seconds = time.perf_counter() - t0
+    one_process = None
+    if mesh.rank == 0:
+        plain = Trainer(config, device=device)
+        for part in ("depth_model", "pose_model"):
+            getattr(plain.state, part).load_state_dict(getattr(trainer.state, part).state_dict())
+        one_process = plain.warp_pictures(trainer._last_batch)
+    images = [sorted(p) for p, _ in stub.logged if any(k.endswith(".png") for k in p)]
+    return {"step": trainer.state.step, "pictures": rendered, "one_process": one_process,
+            "logged_images": images, "seconds": seconds}
+
+
+def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_path,
+                 fit_dir, fit_config):
     """One of `world` gloo ranks on `device` (cuda:0 for all) under
-    make_mesh(world, spatial): spatial_steps of the case from the states
-    in starts_path, saved to out_path (or the rank's traceback)."""
+    make_mesh(world, spatial): spatial_steps of each case from the states
+    in starts_path, then with fit_config spatial_fit under fit_dir, saved
+    to out_path (or the rank's traceback)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
@@ -2395,15 +2504,62 @@ def spatial_rank(rank, world, spatial, port, out_path, device, case, starts_path
     distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
     try:
         mesh = make_mesh(world, spatial=spatial, device=device)
-        config, batches = spatial_setup(*case)
-        trainer = parallel_trainer(config, device, mesh)
         starts = torch.load(starts_path, weights_only=False)
-        result = {"ok": spatial_steps(trainer, batches, device, starts)}
+        out = {}
+        for name, path, overrides, steps in cases:
+            config, batches = spatial_setup(path, overrides, steps)
+            trainer = parallel_trainer(config, device, mesh)
+            out[name] = spatial_steps(trainer, batches, device, starts[name])
+            del trainer
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if fit_config is not None:
+            out["fit"] = spatial_fit(mesh, device, fit_dir, fit_config)
+        result = {"ok": out}
     except BaseException:  # reported by the parent with its traceback
         result = {"error": traceback.format_exc()}
     finally:
         dist.destroy_process_group()
     torch.save(result, out_path)
+
+
+def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
+    """Run spatial_rank on `world` spawned gloo ranks, all on `device` (the
+    one card) -> their results, rank order (a rank's failure or a hang
+    raises)."""
+    ctx = mp.get_context("spawn")
+    port = distributed.free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        starts_path = os.path.join(tmp, "starts.pt")
+        torch.save(starts, starts_path)
+        paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+        fit_dir = os.path.join(tmp, "fit")
+        procs = [ctx.Process(target=spatial_rank,
+                             args=(r, world, spatial, port, paths[r], str(device), cases,
+                                   starts_path, fit_dir, fit_config))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(PARALLEL_TIMEOUT_S)
+            check(not any(p.is_alive() for p in procs),
+                  f"spatial {world}x{spatial}: the gloo ranks still ran after "
+                  f"{PARALLEL_TIMEOUT_S} s")
+            ranks = []
+            for rank, (proc, rank_path) in enumerate(zip(procs, paths)):
+                check(os.path.exists(rank_path),
+                      f"spatial {world}x{spatial}: rank {rank} exited with {proc.exitcode}")
+                result = torch.load(rank_path, weights_only=False)
+                check("error" not in result,
+                      f"spatial {world}x{spatial} rank {rank}: {result.get('error')}")
+                ranks.append(result["ok"])
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+    return ranks
 
 
 def spatial_phase(device):
@@ -2412,95 +2568,139 @@ def spatial_phase(device):
     launches over basic_config's steps."""
     t_phase = time.perf_counter()
     out, checks = {"phase": "spatial", "card": card()}, []
-    ctx = mp.get_context("spawn")
     rank_launches = None
-    for name, path, mode, world, spatial, steps in spatial_cases():
-        case = (path, mode, steps)
-        config, batches = spatial_setup(*case)
-        # the one-process steps on the whole batches, alone on the card;
-        # the state before each is the ranks' start
-        trainer = parallel_trainer(config, device)
-        refs = spatial_steps(trainer, batches, device)
-        starts = [ref.pop("start") for ref in refs]
-        del trainer
-        torch.cuda.empty_cache()
+    one_process = {}
+    for world, spatial, cases, fit_config in spatial_groups():
+        # the one-process steps on the whole batches, alone on the card (with
+        # remat off: the reference of a remat case too); the state before
+        # each is the ranks' start
+        refs, starts = {}, {}
+        for name, path, overrides, steps in cases:
+            plain = {k: v for k, v in overrides.items() if k != "remat"}
+            key = (path, json.dumps(plain, sort_keys=True), steps)
+            if key not in one_process:
+                config, batches = spatial_setup(path, plain, steps)
+                trainer = parallel_trainer(config, device)
+                one_process[key] = spatial_steps(trainer, batches, device)
+                del trainer
+                torch.cuda.empty_cache()
+            refs[name] = one_process[key]
+            starts[name] = [ref["start"] for ref in refs[name]]
         t0 = time.perf_counter()
-        port = distributed.free_port()
-        with tempfile.TemporaryDirectory() as tmp:
-            starts_path = os.path.join(tmp, "starts.pt")
-            torch.save(starts, starts_path)
-            paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
-            procs = [ctx.Process(target=spatial_rank,
-                                 args=(r, world, spatial, port, paths[r], str(device), case,
-                                       starts_path))
-                     for r in range(world)]
-            for proc in procs:
-                proc.start()
-            try:
-                for proc in procs:
-                    proc.join(PARALLEL_TIMEOUT_S)
-                check(not any(p.is_alive() for p in procs),
-                      f"{name}: the gloo ranks still ran after {PARALLEL_TIMEOUT_S} s")
-                ranks = []
-                for rank, (proc, rank_path) in enumerate(zip(procs, paths)):
-                    check(os.path.exists(rank_path),
-                          f"{name}: rank {rank} exited with {proc.exitcode}")
-                    result = torch.load(rank_path, weights_only=False)
-                    check("error" not in result, f"{name} rank {rank}: {result.get('error')}")
-                    ranks.append(result["ok"])
-            finally:
-                for proc in procs:
-                    if proc.is_alive():
-                        proc.kill()
-                    proc.join()
-        per_step = expected_launches(config.action.loss_mode)
-        record = {"ranks": world, "mesh": {"data": world // spatial, "spatial": spatial},
-                  "batch": config.action.batch_size, "height": config.image_shape[0],
-                  "width": config.image_shape[1], "rows_per_rank": config.image_shape[0] //
-                  spatial, "images_per_rank": config.action.batch_size * spatial // world,
-                  "loss_mode": config.action.loss_mode, "pose": config.model.pose.name,
-                  "depth_norm": config.action.depth_norm, "steps": [],
-                  "ranks_seconds": time.perf_counter() - t0}
-        for i, ref in enumerate(refs):
-            got = ranks[0][i]
-            rel, worst = _grad_compare(got["grads"], ref["grads"])
-            stats_rel = max(float(((got["stats"][k] - v).abs() / (v.abs() + 1.0)).max())
-                            for k, v in ref["stats"].items())
-            loss_rel = _rel(got["metrics"]["loss"], ref["metrics"]["loss"])
-            record["steps"].append({
-                "loss": got["metrics"]["loss"], "loss_one_process": ref["metrics"]["loss"],
-                "loss_rel": loss_rel, "grad_rel_l2": rel, "worst_key": worst[1],
-                "worst_key_rel_l2": worst[0], "bn_stats_max_rel": stats_rel,
-                "launches_per_rank": [r[i]["launches"] for r in ranks],
-                "ms_per_rank_ranks_on_one_card": [r[i]["ms"] for r in ranks],
-                "ms_one_process": ref["ms"],
-                "peak_mib_per_rank": [_mib(r[i]["peak_bytes"]) for r in ranks],
-                "peak_mib_one_process": _mib(ref["peak_bytes"]),
-                "graph_mib_per_rank": [_mib(r[i]["graph_bytes"]) for r in ranks],
-                "graph_mib_one_process": _mib(ref["graph_bytes"])})
-            checks += [
-                (all(r[i]["metrics"] == got["metrics"] for r in ranks),
-                 f"{name} step {i}: the ranks' metrics differ"),
-                (all(torch.equal(r[i]["grads"][k], got["grads"][k])
-                     for r in ranks for k in got["grads"]),
-                 f"{name} step {i}: the ranks' gradients differ"),
-                (loss_rel <= SPATIAL_LOSS_RTOL, f"{name} step {i}: loss rel {loss_rel}"),
-                (rel <= GRAD_REL_L2, f"{name} step {i}: gradient rel L2 {rel} ({worst})"),
-                (stats_rel <= PARALLEL_STATS_RTOL,
-                 f"{name} step {i}: BatchNorm statistics rel {stats_rel}"),
-                (all(r[i]["launches"] == per_step for r in ranks),
-                 f"{name} step {i}: launches {[r[i]['launches'] for r in ranks]}, "
-                 f"expected {per_step}"),
-            ]
-        out[name] = record
-        if name == "basic_config":
-            rank_launches = [{k: sum(step["launches"][k] for step in r)
-                              for k in kernels.KERNELS} for r in ranks]
+        ranks = _spawn_spatial_group(world, spatial, cases, starts, fit_config, device)
+        ranks_seconds = time.perf_counter() - t0
+        for name, path, overrides, steps in cases:
+            config = spatial_setup(path, overrides, 1)[0]
+            bf16 = config.action.precision == "bf16"
+            scales = 4 if overrides.get("all_scales") else 1
+            per_step = expected_launches(config.action.loss_mode, scales, config.action.remat)
+            height = config.image_shape[0]
+            record = {"ranks": world, "mesh": {"data": world // spatial, "spatial": spatial},
+                      "overrides": overrides, "batch": config.action.batch_size,
+                      "height": height, "width": config.image_shape[1],
+                      "rows_per_rank": [b - a for a, b in row_bands(height, spatial)],
+                      "images_per_rank": config.action.batch_size * spatial // world,
+                      "loss_mode": config.action.loss_mode, "pose": config.model.pose.name,
+                      "depth": config.model.depth.name, "scales": scales,
+                      "precision": config.action.precision, "remat": config.action.remat,
+                      "depth_norm": config.action.depth_norm, "steps": [],
+                      "group_ranks_seconds": ranks_seconds}
+            for i, ref in enumerate(refs[name]):
+                got = ranks[0][name][i]
+                rel, worst = _grad_compare(got["grads"], ref["grads"])
+                stats_rel = max(float(((got["stats"][k] - v).abs() / (v.abs() + 1.0)).max())
+                                for k, v in ref["stats"].items())
+                loss_rel = _rel(got["metrics"]["loss"], ref["metrics"]["loss"])
+                step = {
+                    "loss": got["metrics"]["loss"], "loss_one_process": ref["metrics"]["loss"],
+                    "loss_rel": loss_rel, "grad_rel_l2": rel, "worst_key": worst[1],
+                    "worst_key_rel_l2": worst[0], "bn_stats_max_rel": stats_rel,
+                    "launches_per_rank": [r[name][i]["launches"] for r in ranks],
+                    "ms_per_rank_ranks_on_one_card": [r[name][i]["ms"] for r in ranks],
+                    "ms_one_process": ref["ms"],
+                    "peak_mib_per_rank": [_mib(r[name][i]["peak_bytes"]) for r in ranks],
+                    "peak_mib_one_process": _mib(ref["peak_bytes"]),
+                    "graph_mib_per_rank": [_mib(r[name][i]["graph_bytes"]) for r in ranks],
+                    "graph_mib_one_process": _mib(ref["graph_bytes"])}
+                checks += [
+                    (all(r[name][i]["metrics"] == got["metrics"] for r in ranks),
+                     f"{name} step {i}: the ranks' metrics differ"),
+                    (all(torch.equal(r[name][i]["grads"][k], got["grads"][k])
+                         for r in ranks for k in got["grads"]),
+                     f"{name} step {i}: the ranks' gradients differ"),
+                    (all(r[name][i]["launches"] == per_step for r in ranks),
+                     f"{name} step {i}: launches {step['launches_per_rank']}, "
+                     f"expected {per_step}"),
+                ]
+                if bf16:
+                    # bf16 convolutions: the loss is reported beside the
+                    # one-process bf16 step's, within SPATIAL_BF16_LOSS_RTOL
+                    checks.append((loss_rel <= SPATIAL_BF16_LOSS_RTOL,
+                                   f"{name} step {i}: bf16 loss rel {loss_rel}"))
+                else:
+                    checks += [
+                        (loss_rel <= SPATIAL_LOSS_RTOL, f"{name} step {i}: loss rel {loss_rel}"),
+                        (rel <= GRAD_REL_L2, f"{name} step {i}: gradient rel L2 {rel} ({worst})"),
+                        (stats_rel <= PARALLEL_STATS_RTOL,
+                         f"{name} step {i}: BatchNorm statistics rel {stats_rel}"),
+                    ]
+                if config.action.remat:
+                    # against the ranks' own remat-off steps from the same
+                    # states: only memory and time may change
+                    off = ranks[0][name.removesuffix("_remat")][i]
+                    off_rel = _grad_compare(got["grads"], off["grads"])[0]
+                    off_loss = _rel(got["metrics"]["loss"], off["metrics"]["loss"])
+                    step.update(loss_rel_remat_off=off_loss, grad_rel_l2_remat_off=off_rel,
+                                peak_mib_per_rank_remat_off=[
+                                    _mib(r[name.removesuffix("_remat")][i]["peak_bytes"])
+                                    for r in ranks])
+                    checks += [(off_loss <= SPATIAL_LOSS_RTOL,
+                                f"{name} step {i}: loss rel {off_loss} to remat off"),
+                               (off_rel <= GRAD_REL_L2,
+                                f"{name} step {i}: gradient rel L2 {off_rel} to remat off")]
+                record["steps"].append(step)
+            out[name] = record
+            if name == "basic_config":
+                rank_launches = [{k: sum(step["launches"][k] for step in r[name])
+                                  for k in kernels.KERNELS} for r in ranks]
+        if fit_config is not None:
+            out["fit"], fit_checks = spatial_fit_record(ranks)
+            checks += fit_checks
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     for ok, what in checks:
         check(ok, what)
     return rank_launches
+
+
+def spatial_fit_record(ranks):
+    """The record and checks of spatial_fit's ranks: every rank at step 2;
+    rank 0 alone rendered and logged one picture set, whose target equals
+    the one-process Trainer's and whose warped ref0 and depth are within
+    SPATIAL_PICTURE_RTOL rel L2 of its."""
+    fits = [r["fit"] for r in ranks]
+    got = fits[0]["pictures"][0] if fits[0]["pictures"] else None
+    ref = fits[0]["one_process"]
+    names = ["depth_", "tgt_", "warp_"]
+    record = {"steps": [f["step"] for f in fits], "seconds": [f["seconds"] for f in fits],
+              "logged_images": [f["logged_images"] for f in fits],
+              "pictures_per_rank": [len(f["pictures"]) for f in fits]}
+    checks = [(all(f["step"] == 2 for f in fits), f"fit: steps {record['steps']}"),
+              (record["pictures_per_rank"] == [1] + [0] * (len(fits) - 1)
+               and len(fits[0]["logged_images"]) == 1
+               and [n[:len(p)] for n, p in zip(fits[0]["logged_images"][0], names)] == names
+               and not any(f["logged_images"] for f in fits[1:]),
+               f"fit: pictures {record['pictures_per_rank']}, logged {record['logged_images']}")]
+    if got is not None and ref is not None:
+        record["tgt_equal"] = bool(np.array_equal(got[0], ref[0]))
+        record["warped_rel_l2"] = rel_l2(torch.from_numpy(got[1]), torch.from_numpy(ref[1]))
+        record["depth_rel_l2"] = rel_l2(torch.from_numpy(got[2]), torch.from_numpy(ref[2]))
+        checks += [(record["tgt_equal"], "fit: rank 0's target picture differs"),
+                   (record["warped_rel_l2"] <= SPATIAL_PICTURE_RTOL,
+                    f"fit: warped picture rel L2 {record['warped_rel_l2']}"),
+                   (record["depth_rel_l2"] <= SPATIAL_PICTURE_RTOL,
+                    f"fit: depth picture rel L2 {record['depth_rel_l2']}")]
+    return record, checks
 
 
 def _mib(nbytes):

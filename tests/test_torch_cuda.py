@@ -140,6 +140,59 @@ def test_warp_kernels_on_a_band_of_grid_rows_match_plain(cuda, shape, band):
     assert torch.equal(d_grid, kernels.warp_bilinear_bwd_grid(img, grid, g)[:, rows])
 
 
+@pytest.mark.parametrize("shape,rows", [((3, 96, 640), (64, 96)), ((3, 80, 640), (64, 80)),
+                                        ((2, 75, 100), (64, 75)), ((2, 97, 33), (32, 65))])
+def test_warp_kernels_on_an_uneven_band_of_grid_rows_match_plain(cuda, shape, rows):
+    # the bands of the 32-row grain (parallel/mesh.row_bands): the grid is
+    # rows [start, stop) of the target — 32 of 96, 16 of 80, an odd 11 of
+    # 75, 33 of 97 — over the whole image; A and A′ equal their plain
+    # versions bit for bit there, and the band's rows of the whole grid's
+    # warp and grid gradient
+    jobs, height, width = shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    img = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    grid = _grid(jobs, height, width, gen, cuda)
+    g = torch.randn(jobs, 3, height, width, generator=gen, device=cuda)
+    band = slice(*rows)
+    band_grid, band_g = grid[:, band].contiguous(), g[:, :, band].contiguous()
+    out = kernels.warp_bilinear_fwd(img, band_grid)
+    d_grid = kernels.warp_bilinear_bwd_grid(img, band_grid, band_g)
+    assert out.shape == (jobs, 3, rows[1] - rows[0], width)
+    assert torch.equal(out, grid_sample(img, band_grid))
+    assert torch.equal(d_grid, grid_sample_grad_grid(img, band_grid, band_g))
+    assert torch.equal(out, kernels.warp_bilinear_fwd(img, grid)[:, :, band])
+    assert torch.equal(d_grid, kernels.warp_bilinear_bwd_grid(img, grid, g)[:, band])
+
+
+def test_full_res_depth_on_a_band_slab_matches_the_whole_map_on_the_card(cuda, tmp_path):
+    # losses/reprojection._full_res_depth on 2 gloo ranks sharing the card,
+    # each on its band of a scale-s depth (192 rows over 2: 128 / 64, the
+    # 32-row grain) with a coarse halo row each side: the bands' rows vs the
+    # whole map's upsample on the card, at scales 1-3, within one rounding
+    # of each value; the gradient of sum(out · g) at rel L2 1e-5
+    import torch_parallel_worker as worker
+
+    from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import _full_res_depth
+
+    gen = torch.Generator().manual_seed(9)
+    height, width = 192, 640
+    inputs = {s: (torch.rand(2, 1, height >> s, width >> s, generator=gen) * 5 + 1,
+                  torch.randn(2, height, width, generator=gen)) for s in (1, 2, 3)}
+    ranks = worker.run_ranks(worker.band_upsample, 2, tmp_path, inputs, (height, width),
+                             device="cuda:0", spatial=2)
+    for scale, (coarse, g) in inputs.items():
+        leaf = coarse.to(cuda).requires_grad_()
+        whole = _full_res_depth(leaf, height, width)
+        (whole * g.to(cuda)).sum().backward()
+        got = torch.cat([r[scale][0] for r in ranks], dim=1).to(cuda)
+        assert got.shape == whole.shape
+        assert bool(((got - whole.detach()).abs() <= 2.0 ** -22 * whole.detach().abs()).all())
+        grad = torch.cat([r[scale][1] for r in ranks], dim=2).to(cuda).double()
+        rel = float(torch.linalg.vector_norm(grad - leaf.grad.double())
+                    / torch.linalg.vector_norm(leaf.grad.double()))
+        assert rel <= 1e-5, (scale, rel)
+
+
 @pytest.mark.parametrize(
     "shape", [(2, 3, 375, 1242), (1, 3, 33, 65), (1, 2, 1, 37), (1, 1, 2, 5),
               (1, 2, 34, 2), (2, 1, 1, 1)]

@@ -264,6 +264,25 @@ def card_step(mesh, weights):
     return result
 
 
+def band_upsample(mesh, inputs, shape):
+    """losses/reprojection._full_res_depth of this rank's band of each
+    coarse map of `inputs` (scale -> (map [B, 1, h, w], cotangent [B, H,
+    W]) of an image of `shape`) on the mesh's device -> scale -> (the
+    band's full-resolution rows, the gradient of sum(out · g) w.r.t. the
+    band of the map), on the CPU."""
+    from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import _full_res_depth
+    from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
+
+    height, width = shape
+    out = {}
+    for scale, (coarse, g) in inputs.items():
+        leaf = coarse[:, :, band(mesh, height, scale)].to(mesh.device).requires_grad_()
+        full = _full_res_depth(leaf, height, width, mesh)
+        (full * g[:, band(mesh, height)].to(mesh.device)).sum().backward()
+        out[scale] = (full.detach().cpu(), leaf.grad.cpu())
+    return out
+
+
 def multi_vs_sequential(weights, mesh=None):
     """(the parameters and last metrics after two TrainStep calls, the same
     after make_multi_step(num_steps=2) over the stacked batches)."""

@@ -8,6 +8,8 @@ so that a spawned rank imports torch and the port only, not JAX.
 
 import hashlib
 import os
+import sys
+import types
 
 import numpy as np
 import torch
@@ -23,6 +25,8 @@ from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
 from unsupervised_pseuso_lidar_tpu_torch.train import config as config_module
+from unsupervised_pseuso_lidar_tpu_torch.utils import visualization
+from unsupervised_pseuso_lidar_tpu_torch.utils.logging import MetricLogger
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     Trainer,
     TrainState,
@@ -53,11 +57,23 @@ STEP_CASES = {
                                    aug_seed=5)),
 }
 MULTI_STEPS = 3
+# the 'augment' case at batch seed 3, where every mesh sits 2.1e-4 from
+# the one-process step: each side is held to JAX's gradient instead
+# (test_torch_spatial.test_augment_at_batch_seed_3_against_the_jax_gradient)
+JAX_GRADIENT_CASES = {
+    "augment_seed_3": (3, "PoseNet", dict(loss_mode="min", color_jitter=True, hflip=True,
+                                          aug_seed=5)),
+}
+
+
+def _case(name):
+    return STEP_CASES[name] if name in STEP_CASES else JAX_GRADIENT_CASES[name]
 
 
 def step_batch(name):
-    """The global batch of STEP_CASES[name] (uint8 images, groundtruth)."""
-    seed = STEP_CASES[name][0]
+    """The global batch of a STEP_CASES or JAX_GRADIENT_CASES case (uint8
+    images, groundtruth)."""
+    seed = _case(name)[0]
     batch = next(SyntheticTripletDataset(1, BATCH, HEIGHT, WIDTH, seed=seed,
                                          uint8_images=True).batches())
     if name == "supervised":
@@ -79,9 +95,9 @@ def make_state(weights, pose_name):
 
 
 def one_step(weights, name, mesh=None):
-    """STEP_CASES[name]'s step on its global batch, under `mesh` when
+    """The step of case `name` on its global batch, under `mesh` when
     given -> worker.step_result."""
-    _, pose_name, kwargs = STEP_CASES[name]
+    _, pose_name, kwargs = _case(name)
     state = make_state(weights, pose_name)
     step = make_train_step(state, device="cpu", mesh=mesh,
                            **{**worker.STEP_SETTINGS, **kwargs})
@@ -127,35 +143,79 @@ def steps(mesh, weights, config):
     """Every STEP_CASES step, the multi-step, the eval step and a
     Trainer.fit under the mesh; on ranks other than 0 the gradients and
     the multi-step's parameters as their digest."""
-    out = {name: one_step(weights, name, mesh) for name in STEP_CASES}
+    out = {name: one_step(weights, name, mesh) for name in (*STEP_CASES,
+                                                             *JAX_GRADIENT_CASES)}
     out["multi"] = multi_steps(weights, mesh)
     out["eval"] = eval_step(weights, mesh)
     out["fit"] = fit(mesh, config)
     if mesh.rank != 0:
-        for name in STEP_CASES:
+        for name in (*STEP_CASES, *JAX_GRADIENT_CASES):
             out[name]["grads"] = digest(out[name]["grads"])
         out["multi"] = (digest(out["multi"][0]), out["multi"][1])
     return out
 
 
+class StubWandb(types.ModuleType):
+    """The wandb calls MetricLogger makes, recorded (tests/test_torch_visuals.py's
+    stub)."""
+
+    def __init__(self):
+        super().__init__("wandb")
+        self.logged = []
+
+    def init(self, project=None, config=None):
+        pass
+
+    def Image(self, x):
+        return ("image", x)
+
+    def Histogram(self, x):
+        return ("histogram", np.asarray(x).size)
+
+    def log(self, payload, step=None):
+        self.logged.append((payload, step))
+
+
 def fit(mesh, config):
     """Trainer.fit under the mesh for one epoch of 2 synthetic batches
-    with validation on 1 -> (step, last metrics, checkpoints written by
-    this rank, log_warps' error)."""
+    with validation on 1, rank 0 logging to a wandb stub -> (step, last
+    metrics, checkpoints written by this rank, the pictures this rank
+    rendered — the arrays handed to the PNG writer —, the image names the
+    stub received, and on rank 0 the pictures a Trainer without the mesh
+    renders from rank 0's state and last batch)."""
+    stub = StubWandb()
+    sys.modules["wandb"] = stub
+    config.action.mlops = True
+    pictures_dir = os.path.join(config.action.checkpoint_dir, f"pictures_{mesh.rank}")
+    os.makedirs(pictures_dir, exist_ok=True)
+    os.chdir(pictures_dir)  # log_warps writes ./images
+    rendered = []
+    save = visualization.save_warp_visualization
+
+    def record(out_dir, step, tgt, warped, depth, *args, **kwargs):
+        rendered.append((tgt, warped, depth))
+        return save(out_dir, step, tgt, warped, depth, *args, **kwargs)
+
+    visualization.save_warp_visualization = record
     data = SyntheticTripletDataset(2, config.action.batch_size, *config.image_shape,
                                    seed=0, uint8_images=True)
-    trainer = Trainer(config, data, device="cpu", mesh=mesh)
+    trainer = Trainer(config, data, log_fn=MetricLogger(config) if mesh.rank == 0 else None,
+                      device="cpu", mesh=mesh)
     metrics = trainer.fit(lambda epoch: data.batches(epoch),
                           lambda: SyntheticTripletDataset(
                               1, config.action.batch_size, *config.image_shape, seed=9,
                               uint8_images=True).batches())
-    try:
-        trainer.log_warps(trainer._last_batch)
-        error = None
-    except NotImplementedError as e:
-        error = str(e)
+    one_process = None
+    if mesh.rank == 0:
+        plain = Trainer(config, device="cpu")
+        for part in ("depth_model", "pose_model"):
+            getattr(plain.state, part).load_state_dict(
+                getattr(trainer.state, part).state_dict())
+        one_process = plain.warp_pictures(trainer._last_batch)
     directory = trainer.checkpoints.directory
-    return {"step": trainer.state.step, "metrics": metrics, "log_warps": error,
+    images = [sorted(p) for p, _ in stub.logged if any(k.endswith(".png") for k in p)]
+    return {"step": trainer.state.step, "metrics": metrics, "pictures": rendered,
+            "one_process_pictures": one_process, "logged_images": images,
             "checkpoints": sorted(os.listdir(directory)) if os.path.isdir(directory) else []}
 
 
@@ -170,7 +230,8 @@ def layout(mesh):
         make_mesh(mesh.size, spatial=3, device="cpu")
     except ValueError as e:
         errors["spatial_3"] = str(e)
-    # 32 rows over spatial 2: an even split, but not DispResNet's 64
+    # 32 rows over spatial 2: an even split, but one row of 32 for two
+    # bands (a band would hold no row of the encoder's coarsest level)
     batch = next(SyntheticTripletDataset(1, BATCH, 32, WIDTH, seed=1,
                                          uint8_images=True).batches())
     state = make_state(layout_weights(), "PoseNet")
@@ -182,7 +243,8 @@ def layout(mesh):
         shard_batch(mesh, {"tgt": np.zeros((BATCH, 33, WIDTH, 3), np.uint8)})
     except ValueError as e:
         errors["height_33"] = str(e)
-    for name, kwargs in (("DispNetS", {}), ("DispResNet", {"all_scales": True})):
+    for name, kwargs in (("DispNetS", {}), ("DispResNet", {"all_scales": True}),
+                         ("DispResNet", {"num_layers": 50, "all_scales": True})):
         try:
             bind_spatial([build_model(name, device="cpu", **kwargs)], mesh)
         except NotImplementedError as e:
@@ -252,7 +314,7 @@ def units(mesh, inputs):
     out["ssim_clip"] = photometric_loss(_rows(mesh, pred), _rows(mesh, target), mesh=mesh)
     disp = inputs["disp"]
     d = _leaf(mesh, disp)
-    value = smooth_loss([d], mesh=mesh)
+    value = smooth_loss([d], mesh=mesh, height=disp.shape[2])
     value.backward()
     out["smooth"] = (value.detach(), d.grad)
     d = _leaf(mesh, disp)

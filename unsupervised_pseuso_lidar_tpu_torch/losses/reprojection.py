@@ -21,9 +21,11 @@ Under a mesh with a "spatial" axis (parallel/spatial.py) tgt and refs are
 the WHOLE frames of this rank's images and the depths this rank's band of
 rows: the warp samples the whole source frames at the band's coordinates
 (kernel A on a band of grid rows), the targets are the band's rows, the
-SSIM windows cross the band's edges through a halo, and every mean is
-the band's, which is its share of the image's mean: the bands are equal,
-and the step averages over the ranks.
+SSIM windows cross the band's edges through a halo, a coarse scale's
+depth is upsampled on the band's slab (_full_res_depth), and every mean
+is the band's times parallel/spatial.band_weight: spatial × its share of
+the image's mean, the bands being of any height, so that the mean over
+the ranks, which the step takes, is the image's.
 """
 
 from __future__ import annotations
@@ -40,17 +42,47 @@ from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import (
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_loss
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    band,
+    band_weight,
+    first_band,
+    halo,
+    row_sharded,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_, div
 
 REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
 
 
-def _full_res_depth(depth: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """[B, 1, h, w] (or [B, h, w]) scale-s depth -> [B, H, W]."""
+def _full_res_depth(depth: torch.Tensor, height: int, width: int,
+                    mesh=None) -> torch.Tensor:
+    """[B, 1, h, w] (or [B, h, w]) scale-s depth -> [B, H, W].
+
+    Under a mesh with a "spatial" axis `depth` is this rank's band of the
+    scale-s map and the result its band of the image's rows: the band with
+    one coarse row of halo above and below (parallel/spatial.halo,
+    differentiable) is upsampled by the integer factor f = 2^s and f rows
+    are cropped at each end but at the image's border, where the slab's
+    own clamp is the image's. An integer-factor upsample with half-pixel
+    centres is shift-equivariant — the same source rows and weights —
+    so the band's rows are exactly the whole map's (check_height makes H
+    a multiple of f)."""
     if depth.ndim == 3:
         depth = depth[:, None]
-    return resize_bilinear(depth, height, width)[:, 0]
+    if not row_sharded(mesh):
+        return resize_bilinear(depth, height, width)[:, 0]
+    rows = band(mesh, height)
+    count = rows.stop - rows.start
+    factor = count // depth.shape[2]
+    if factor == 1:
+        return resize_bilinear(depth, count, width)[:, 0]
+    if factor * depth.shape[2] != count or height % factor:
+        raise ValueError(f"a band of {depth.shape[2]} rows does not upsample to the "
+                         f"{count} rows of its band of a {height}-row image")
+    slab = halo(depth, mesh, 1, 1)
+    full = resize_bilinear(slab, slab.shape[2] * factor, width)
+    top = 0 if first_band(mesh) else factor
+    return full[:, 0, top:top + count]
 
 
 def _channel_mean(err: torch.Tensor) -> torch.Tensor:
@@ -62,6 +94,14 @@ def _channel_mean(err: torch.Tensor) -> torch.Tensor:
     for c in range(1, err.shape[1]):
         total = total + err[:, c]
     return div(total, err.shape[1])
+
+
+def _share(mean: torch.Tensor, mesh, height: int) -> torch.Tensor:
+    """A mean over this rank's band -> spatial × the band's share of the
+    image's mean (parallel/spatial.band_weight; the mean itself where the
+    weight is 1)."""
+    weight = band_weight(mesh, height)
+    return mean if weight == 1.0 else mean * weight
 
 
 def reprojection_loss(
@@ -110,7 +150,7 @@ def reprojection_loss(
     srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
     fwd_w = 1.0 / (2.0 * num_scales) / 2.0
     for scale_depth in depths[0]:
-        depth_full = _full_res_depth(scale_depth, rows.stop - rows.start, width)
+        depth_full = _full_res_depth(scale_depth, height, width, mesh)
         for ref, transform in ((refs[0], t0), (refs[1], t1)):
             srcs.append(ref)
             tgts.append(tgt[:, :, rows])
@@ -122,7 +162,7 @@ def reprojection_loss(
         srcs.append(tgt)
         tgts.append(refs[0][:, :, rows])
         transforms.append(t0_inv)
-        depth_maps.append(_full_res_depth(scale_depth, rows.stop - rows.start, width))
+        depth_maps.append(_full_res_depth(scale_depth, height, width, mesh))
         weights.append(bwd_w)
 
     jobs = len(srcs)
@@ -140,10 +180,10 @@ def reprojection_loss(
     else:
         err = photometric_loss(warped, target, no_ssim=False, mesh=mesh)
     per_job = err.reshape(jobs, -1).mean(dim=1)
-    loss = torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
-                                            device=per_job.device))
+    loss = _share(torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
+                                                   device=per_job.device)), mesh, height)
     if with_coverage:
-        return loss, in_frame_fraction(coords, height)
+        return loss, _share(in_frame_fraction(coords, height), mesh, height)
     return loss
 
 
@@ -222,11 +262,10 @@ def min_reprojection_loss(
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
     keeps, in_frame = [], []
     for i, scale_depth in enumerate(depths):
-        band_rows = rows.stop - rows.start
-        depth_full = _full_res_depth(scale_depth, band_rows, width)
+        depth_full = _full_res_depth(scale_depth, height, width, mesh)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
-            depth_maps.append(_full_res_depth(depths_ref0[i], band_rows, width))
+            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled,
                              row_start=rows.start, height=height)
         if with_coverage:
@@ -244,7 +283,8 @@ def min_reprojection_loss(
             scale_loss = 0.5 * (scale_loss + err_b.mean())
         keeps.append(keep)
         total = total + scale_loss
-    out = (total / len(depths), torch.stack(keeps).mean().detach())
+    out = (_share(total / len(depths), mesh, height),
+           _share(torch.stack(keeps).mean().detach(), mesh, height))
     if with_coverage:
-        out += (torch.stack(in_frame).mean(),)
+        out += (_share(torch.stack(in_frame).mean(), mesh, height),)
     return out

@@ -21,12 +21,13 @@ def _gradients(pred: torch.Tensor):
     return dx, dy
 
 
-def _banded_terms(band: torch.Tensor, mesh):
+def _banded_terms(band: torch.Tensor, mesh, image_rows: int):
     """The four terms of smooth_loss on this rank's band [B, C, R, W] of
-    row-sharded maps, each this rank's share of the image's mean: its sum
-    over the differences whose TOP row the band holds, divided by the
-    image's count of them over the spatial size (so that the mean over
-    the ranks, which the step takes, is the image's mean). The vertical
+    row-sharded maps `image_rows` rows tall, each spatial × this rank's
+    share of the image's mean: its sum over the differences whose TOP row
+    the band holds, divided by the image's count of them over the spatial
+    size (so that the mean over the ranks, which the step takes, is the
+    image's mean, the bands being of any height). The vertical
     differences read the two rows below the band (halo); the last band
     has none, and holds one (dy) or two (dy²) differences fewer."""
     rows = band.shape[2]
@@ -36,30 +37,34 @@ def _banded_terms(band: torch.Tensor, mesh):
     dxdy = _gradients(dx)[1][:, :, :rows]
     dydx = _gradients(dy)[0][:, :, :rows]
     dy2 = _gradients(dy)[1][:, :, :rows]
-    height = rows * mesh.spatial
 
-    def share(d, image_rows):
+    def share(d, count_rows):
         per_row = d.shape[0] * d.shape[1] * d.shape[3]
-        return _abs(d).sum() / (per_row * image_rows / mesh.spatial)
+        return _abs(d).sum() / (per_row * count_rows / mesh.spatial)
 
-    return (share(dx2, height) + share(dxdy, height - 1) + share(dydx, height - 1)
-            + share(dy2, height - 2))
+    return (share(dx2, image_rows) + share(dxdy, image_rows - 1)
+            + share(dydx, image_rows - 1) + share(dy2, image_rows - 2))
 
 
 def smooth_loss(
-    pred_maps: Sequence[torch.Tensor] | torch.Tensor, decay: float = 2.3, mesh=None
+    pred_maps: Sequence[torch.Tensor] | torch.Tensor, decay: float = 2.3, mesh=None,
+    height: int | None = None,
 ) -> torch.Tensor:
     """Sum over scales (finest first, weights 1, 1/decay, 1/decay², …) of
     the mean absolute second-order differences dx², dxdy, dydx, dy².
     Under a mesh with a "spatial" axis the maps are this rank's band of
-    rows and each mean is its share (_banded_terms)."""
+    rows, map i of scale i of an image `height` rows tall (ceil(height /
+    2**i) rows whole), and each mean is its share (_banded_terms)."""
     if not isinstance(pred_maps, (tuple, list)):
         pred_maps = [pred_maps]
+    if row_sharded(mesh) and height is None:
+        raise ValueError("smooth_loss under a spatial mesh needs the image's height")
     loss = torch.zeros((), dtype=pred_maps[0].dtype, device=pred_maps[0].device)
     weight = 1.0
-    for scaled_map in pred_maps:
+    for scale, scaled_map in enumerate(pred_maps):
         if row_sharded(mesh):
-            loss = loss + weight * _banded_terms(scaled_map, mesh)
+            image_rows = -(-height // 2 ** scale)
+            loss = loss + weight * _banded_terms(scaled_map, mesh, image_rows)
             weight /= decay
             continue
         dx, dy = _gradients(scaled_map)

@@ -29,13 +29,17 @@ def normalize_depth(depth: torch.Tensor, mesh=None) -> torch.Tensor:
     it does not depend on the device's summation order (the warp
     coordinates, and the gradient's jumps at pixel crossings, follow
     it). Under a mesh with a "spatial" axis `depth` is this rank's band
-    of rows [B, (C,) R, W] and the image's sum is the fp64 sum of the
-    bands' sums over the data row, differentiable (Mesh.spatial_sum)."""
+    of rows [B, (C,) R, W] and the image's sum and pixel count are the
+    fp64 sums of the bands' over the data row, one all-reduce,
+    differentiable (Mesh.spatial_sum): the bands may differ in height."""
     inv = 1.0 / torch.clamp(depth, min=1e-7)
     dims = tuple(range(1, depth.ndim))
     if row_sharded(mesh):
-        total = mesh.spatial_sum(inv.sum(dim=dims, keepdim=True, dtype=torch.float64))
-        m = total / (inv[0].numel() * mesh.spatial)
+        sums = inv.sum(dim=dims, dtype=torch.float64)
+        count = torch.full((1,), float(inv[0].numel()), dtype=torch.float64,
+                           device=depth.device)
+        totals = mesh.spatial_sum(torch.cat([sums, count]))
+        m = (totals[:-1] / totals[-1]).reshape(-1, *[1] * len(dims))
     else:
         m = inv.mean(dim=dims, keepdim=True, dtype=torch.float64)
     return depth * m.to(depth.dtype)
@@ -76,21 +80,26 @@ def total_loss(
         depth_norm — target depths) or 'disp' (the raw disparities).
       mesh: the mesh the step runs under (parallel/mesh.py), or None;
         'ssim' then clamps at the global batch's threshold. Every other
-        reduction here is a mean over equal shards, which the step's
-        all-reduce of the metrics and gradients makes global. With a
-        "spatial" axis tgt and refs are the whole frames and the
-        disparities this rank's band of rows: the reductions that cross
-        the band's edges — SSIM windows, vertical smoothness differences,
-        depth_norm's per-image mean — exchange rows or sums with the
-        other bands (losses/reprojection.py, smoothness.py, above).
+        reduction here is a mean over equal blocks of images, which the
+        step's all-reduce of the metrics and gradients makes global. With
+        a "spatial" axis tgt and refs are the whole frames and each
+        disparity this rank's band of its scale's rows (scale i, finest
+        first; parallel/spatial.band): the reductions that cross the
+        band's edges — SSIM windows, vertical smoothness differences,
+        depth_norm's per-image mean, a coarse scale's upsample — exchange
+        rows or sums with the other bands, and each mean is spatial × the
+        band's share of the image's (losses/reprojection.py,
+        smoothness.py, above).
     """
+    height = tgt.shape[2]
     if row_sharded(mesh):
-        rows = band(mesh, tgt.shape[2])
-        if any(d.shape[2] != rows.stop - rows.start for frame in disparities for d in frame):
-            raise NotImplementedError(
-                "under a spatial mesh the loss takes full-resolution disparities "
-                "only: a coarser scale's upsample reads across the bands "
-                "(all_scales is not ported there; ROADMAP.md)")
+        for frame in disparities:
+            for scale, d in enumerate(frame):
+                rows = band(mesh, height, scale)
+                if d.shape[2] != rows.stop - rows.start:
+                    raise ValueError(
+                        f"a scale-{scale} disparity of {d.shape[2]} rows under the spatial "
+                        f"mesh: this rank's band of it is rows {rows.start}:{rows.stop}")
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
         depths = [[normalize_depth(d, mesh) for d in frame] for frame in depths]
@@ -110,9 +119,10 @@ def total_loss(
     if with_coverage:
         extra["warp_in_frame"] = in_frame[0]
     if smooth_on == "depth":
-        loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh)
+        loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh, height=height)
     elif smooth_on == "disp":
-        loss_smooth = smooth_loss(disparities[0], decay=smooth_decay, mesh=mesh)
+        loss_smooth = smooth_loss(disparities[0], decay=smooth_decay, mesh=mesh,
+                                  height=height)
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
     return loss_reproj, smooth_weight * loss_smooth, extra

@@ -26,6 +26,7 @@ unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -68,20 +69,26 @@ class BatchNorm2d(nn.BatchNorm2d):
     before the norm to cancellation."""
 
     mesh = None
+    # False while a rematerialized loss recomputes its forward
+    # (frozen_running_statistics): the first pass updated the statistics
+    update_running = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if self.mesh is not None and self.mesh.distributed:
             return self._global_batch_forward(x)
-        with torch.no_grad():
-            xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            self._update_running(mean, var)
+        if BatchNorm2d.update_running:
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+                self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if not BatchNorm2d.update_running:
+            return
         with torch.no_grad():
             decay = 1.0 - self.momentum
             self.running_mean.copy_(decay * self.running_mean + self.momentum * mean)
@@ -104,6 +111,19 @@ class BatchNorm2d(nn.BatchNorm2d):
             invstd = torch.rsqrt(var + self.eps).float()
         return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean.float(), invstd,
                                       count, self.mesh)
+
+
+@contextlib.contextmanager
+def frozen_running_statistics():
+    """Within: every BatchNorm2d normalizes as before but leaves its
+    running statistics alone (the recompute of a checkpointed loss, whose
+    first pass updated them)."""
+    previous = BatchNorm2d.update_running
+    BatchNorm2d.update_running = False
+    try:
+        yield
+    finally:
+        BatchNorm2d.update_running = previous
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -147,14 +167,17 @@ def _banded(x: torch.Tensor, mesh, kernel: int, stride: int, padding: int,
     padding) window reads across the band's edges: `padding` rows above
     and kernel − stride − padding below, from the neighbouring bands, or
     `border` rows at the image's top and bottom (the layer's own
-    padding). The window then runs with no row padding: with an even
-    band at an even first row, its stride-2 outputs are exactly the
-    image's output rows of this band."""
-    if x.shape[2] % stride:
+    padding, all `padding` rows of it at the bottom). The window then
+    runs with no row padding: a band starts at an even row (the 32-row
+    grain, parallel/mesh.row_bands), so its stride-2 outputs are exactly
+    the image's output rows of that band. Only the last band may hold an
+    odd row count; it ends where the image does, and the bottom padding
+    gives it the image's last output row."""
+    if x.shape[2] % stride and not last_band(mesh):
         raise ValueError(f"a band of {x.shape[2]} rows under a stride-{stride} window")
     above, below = padding, max(kernel - stride - padding, 0)
     x = halo(x, mesh, above, below)
-    pad = (0, 0, above if first_band(mesh) else 0, below if last_band(mesh) else 0)
+    pad = (0, 0, above if first_band(mesh) else 0, padding if last_band(mesh) else 0)
     return F.pad(x, pad, value=border) if any(pad) else x
 
 

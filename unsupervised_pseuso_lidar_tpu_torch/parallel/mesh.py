@@ -30,6 +30,40 @@ import torch.distributed as dist
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
 
+# the grain of the row bands: DispResNet's encoder halves the rows five
+# times, so a band edge at a multiple of 32 image rows is an integer row
+# at every level and every loss scale, and a stride-2 window over a band
+# that starts there yields exactly the image's output rows of that band
+ROW_MULTIPLE = 32
+
+
+def row_bands(height: int, spatial: int) -> list:
+    """[(start, stop)] of the `spatial` bands of an image `height` rows
+    tall, top to bottom. The C = ceil(height / 32) rows of 32 are split as
+    evenly as possible, the larger parts first, and band j holds image
+    rows [32·c_j, min(32·c_{j+1}, height)): 192 rows over 4 are 64, 64,
+    32, 32; where height is a multiple of 32·spatial these are the equal
+    bands JAX places. Only the last band can hold a row count that is not
+    a multiple of 32. With fewer rows of 32 than bands (a band would hold
+    none) the bands are equal, as JAX places them: the depth net refuses
+    such a height (parallel/spatial.check_height), the batch placement
+    takes it. Raises ValueError unless spatial divides height (JAX's
+    rule for a sharded dimension)."""
+    if height % spatial:
+        raise ValueError(f"an image of {height} rows does not split into {spatial} bands "
+                         f"(the spatial mesh needs the height a multiple of spatial)")
+    coarse = -(-height // ROW_MULTIPLE)
+    if coarse < spatial:
+        part = height // spatial
+        return [(j * part, (j + 1) * part) for j in range(spatial)]
+    base, extra = divmod(coarse, spatial)
+    edges = [0]
+    for j in range(spatial):
+        edges.append(edges[-1] + base + (j < extra))
+    return [(ROW_MULTIPLE * edges[j], min(ROW_MULTIPLE * edges[j + 1], height))
+            for j in range(spatial)]
+
+
 class Mesh:
     """A ("data",) or ("data", "spatial") mesh: the process group (None for
     the one-device mesh without one), this process's rank in it, its size,
@@ -73,12 +107,9 @@ class Mesh:
         return self.rank % self.spatial
 
     def band(self, height: int) -> slice:
-        """This rank's band of the rows of an image `height` rows tall."""
-        if height % self.spatial:
-            raise ValueError(f"an image of {height} rows does not split into "
-                             f"{self.spatial} bands (the port does not pad uneven shards)")
-        part = height // self.spatial
-        return slice(self.spatial_rank * part, (self.spatial_rank + 1) * part)
+        """This rank's band of the rows of an image `height` rows tall
+        (row_bands)."""
+        return slice(*row_bands(height, self.spatial)[self.spatial_rank])
 
     @property
     def distributed(self) -> bool:
@@ -173,8 +204,8 @@ class Sharding:
     """Where an array lives on the mesh: its `axis` split over "data"
     into contiguous row blocks, one a data row of the mesh (interleaved by
     micro-batch with accum_steps > 1, see shard_batch), and its
-    `spatial_axis` (image rows) split over "spatial" into contiguous
-    bands; or replicated (both None)."""
+    `spatial_axis` (image rows) split over "spatial" into the bands of
+    row_bands; or replicated (both None)."""
 
     mesh: Mesh
     axis: Optional[int]

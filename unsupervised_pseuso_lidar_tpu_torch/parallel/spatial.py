@@ -5,19 +5,27 @@ The port's own: under JAX's ("data", "spatial") mesh GSPMD partitions
 every convolution with halo exchange and places the reductions itself
 (parallel/mesh.py :54-63, losses/reprojection.py :47-80, geometry/warp.py
 :160-192). Here each rank of a data row holds a band of its images' rows
-— rank at spatial index j of s holds rows [j·H/s, (j+1)·H/s) — and the
-code that reads across a band's edge calls these functions:
+— the bands of parallel/mesh.row_bands, whose inner edges fall on
+multiples of 32 rows — and the code that reads across a band's edge
+calls these functions:
 
   * `halo` brings k rows from the band above and below (a
     torch.autograd.Function: its backward adds the halo rows' gradients
     back into their owner's rows) — the convolutions and the max-pool of
-    DispResNet (models/layers.py), SSIM's 3x3 windows (losses/photometric.py)
-    and the smoothness term's vertical differences (losses/smoothness.py);
+    DispResNet (models/layers.py), SSIM's 3x3 windows (losses/photometric.py),
+    the smoothness term's vertical differences (losses/smoothness.py) and
+    a coarse scale's bilinear upsample (losses/reprojection.py);
   * `gather_rows` assembles whole images on every rank of a data row
     (data frames, no gradient): the warp's source frames, the pose net's
-    input and the evaluation's depth maps (train/trainer.py);
+    input and the evaluation's and the pictures' depth maps
+    (train/trainer.py);
   * Mesh.spatial_sum (parallel/mesh.py) sums over the data row with
     autograd: normalize_depth's per-image mean.
+
+A rank's share of a mean over the image is its band's sum over the
+image's count (`band_weight`): every loss term is s × that share, so the
+mean over the ranks, which the step takes, is the image's mean for
+bands of any height.
 
 Both exchanges are one SUM all-reduce over the data row's group: each
 rank writes what it sends into its own slot of a zeroed buffer. gloo runs
@@ -33,13 +41,15 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import Mesh
+from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import (
+    ROW_MULTIPLE,
+    Mesh,
+    row_bands,
+)
 
-# DispResNet's encoder halves the rows five times: a band of H/s rows
-# keeps an even row count and an even first row at every level when
-# H is a multiple of 32·s, which makes each band's stride-2 outputs
-# exactly the global output rows of that band
-ROW_MULTIPLE = 32
+# rows a band must hold at every loss scale: the smoothness term's second
+# vertical difference reads two rows of the band below
+MIN_BAND_ROWS = 2
 
 
 def row_sharded(mesh: Optional[Mesh]) -> bool:
@@ -47,20 +57,59 @@ def row_sharded(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.spatial > 1
 
 
-def band(mesh: Optional[Mesh], height: int) -> slice:
+def band(mesh: Optional[Mesh], height: int, scale: int = 0) -> slice:
     """This rank's rows of an image `height` rows tall (all of them
-    without a spatial axis)."""
-    return mesh.band(height) if row_sharded(mesh) else slice(0, height)
+    without a spatial axis), or with `scale` its rows of the image's
+    scale-`scale` map (ceil(height / 2**scale) rows): the band's edges
+    divided by 2**scale, exact at the 32-row grain's inner edges."""
+    if not row_sharded(mesh):
+        return slice(0, -(-height // 2 ** scale))
+    rows = mesh.band(height)
+    return slice(rows.start // 2 ** scale, -(-rows.stop // 2 ** scale))
 
 
-def check_height(mesh: Optional[Mesh], height: int, width: int) -> None:
+def band_weight(mesh: Optional[Mesh], height: int) -> float:
+    """spatial · (this rank's rows) / height: a mean over this rank's band
+    of an image `height` rows tall times this is spatial × the band's
+    share of the image's mean, so that the mean over the ranks (the
+    step's) is the image's mean. 1.0 without a spatial axis and for equal
+    bands."""
+    if not row_sharded(mesh):
+        return 1.0
+    rows = mesh.band(height)
+    return mesh.spatial * (rows.stop - rows.start) / height
+
+
+def check_height(mesh: Optional[Mesh], height: int, width: int,
+                 scales=(0,)) -> None:
     """Raise ValueError unless DispResNet can shard an image of height x
-    width over the mesh's spatial axis (H a multiple of 32·spatial; JAX
-    pads uneven shards, the port does not)."""
-    if row_sharded(mesh) and height % (ROW_MULTIPLE * mesh.spatial):
-        raise ValueError(
-            f"a {height}x{width} image does not shard over spatial={mesh.spatial}: "
-            f"the height must be a multiple of {ROW_MULTIPLE * mesh.spatial}")
+    width over the mesh's spatial axis with output `scales`: the height a
+    multiple of spatial (JAX's rule), every band at least one row of the
+    encoder's coarsest level (ceil(height / 32) >= spatial), the last
+    band at least MIN_BAND_ROWS rows at every loss scale, and with scales
+    beyond 0 the height a multiple of 2**max(scales), so that a coarse
+    map's upsample to the image is an integer factor (losses/reprojection
+    upsamples it on a band). The same answer on every rank."""
+    if not row_sharded(mesh):
+        return
+    spatial = mesh.spatial
+    where = f"a {height}x{width} image does not shard over spatial={spatial}"
+    if height % spatial:
+        raise ValueError(f"{where}: the height must be a multiple of spatial")
+    if -(-height // ROW_MULTIPLE) < spatial:
+        raise ValueError(f"{where}: it needs ceil(H/{ROW_MULTIPLE}) >= spatial, one row of "
+                         f"the encoder's coarsest level a band (bands of no row are not "
+                         f"ported, ROADMAP.md)")
+    top = max(scales)
+    if height % 2 ** top:
+        raise ValueError(f"{where} at scales {tuple(scales)}: the height must be a "
+                         f"multiple of {2 ** top}")
+    start, stop = row_bands(height, spatial)[-1]
+    for scale in scales:
+        rows = -(-stop // 2 ** scale) - start // 2 ** scale
+        if rows < MIN_BAND_ROWS:
+            raise ValueError(f"{where}: its last band holds {rows} row(s) at scale "
+                             f"{scale}, fewer than {MIN_BAND_ROWS}")
 
 
 def first_band(mesh: Mesh) -> bool:
@@ -76,20 +125,28 @@ class _Halo(torch.autograd.Function):
     below rows of the band below], each halo absent at the image's border.
 
     Forward: slot j of a [s, ..., above + below, W] buffer holds band j's
-    last `above` rows and first `below` rows; one SUM all-reduce; band j
-    reads slot j − 1's first part and slot j + 1's second. Backward: the
+    last `above` rows (none for the last band) and first `below` rows
+    (none for the first); one SUM all-reduce; band j reads slot j − 1's
+    first part and slot j + 1's second. The bands may differ in height;
+    one that holds fewer rows than it must send is refused. Backward: the
     halo rows' gradients go into their owners' slots, one SUM all-reduce,
     and each band adds its slot to the rows it sent."""
 
     @staticmethod
     def forward(ctx, x, mesh, above, below):
         rows = x.shape[-2]
-        if rows < max(above, below):
-            raise ValueError(f"a band of {rows} rows cannot send {max(above, below)} halo rows")
         j, s = mesh.spatial_rank, mesh.spatial
+        send_above = above if j < s - 1 else 0
+        send_below = below if j > 0 else 0
+        if rows < max(send_above, send_below):
+            raise ValueError(f"a band of {rows} rows cannot send "
+                             f"{max(send_above, send_below)} halo rows")
         ctx.mesh, ctx.above, ctx.below = mesh, above, below
         buf = x.new_zeros((s, *x.shape[:-2], above + below, x.shape[-1]))
-        buf[j] = torch.cat([x[..., rows - above:, :], x[..., :below, :]], dim=-2)
+        if send_above:
+            buf[j][..., :above, :] = x[..., rows - above:, :]
+        if send_below:
+            buf[j][..., above:, :] = x[..., :below, :]
         dist.all_reduce(buf, group=mesh.spatial_group)
         parts = []
         if j > 0:
@@ -112,8 +169,10 @@ class _Halo(torch.autograd.Function):
             buf[j + 1][..., above:, :] = grad[..., top + rows:, :]
         dist.all_reduce(buf, group=mesh.spatial_group)
         dx = grad[..., top:top + rows, :].clone()
-        dx[..., rows - above:, :] += buf[j][..., :above, :]
-        dx[..., :below, :] += buf[j][..., above:, :]
+        if j < s - 1 and above:
+            dx[..., rows - above:, :] += buf[j][..., :above, :]
+        if j > 0 and below:
+            dx[..., :below, :] += buf[j][..., above:, :]
         return dx, None, None, None
 
 
@@ -126,17 +185,30 @@ def halo(x: torch.Tensor, mesh: Mesh, above: int, below: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+def image_height(mesh: Mesh, rows: int, device: torch.device) -> int:
+    """The image's row count from this rank's band of `rows` rows: the sum
+    over the data row (one all-reduce; a host sync)."""
+    total = torch.tensor([rows], dtype=torch.int64, device=device)
+    dist.all_reduce(total, group=mesh.spatial_group)
+    return int(total)
+
+
+@torch.no_grad()
+def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int, height: int) -> torch.Tensor:
     """Every band of the data row along `dim`, in order: this rank's band
-    of an image -> the whole image, the same on every rank of the row. No
-    gradient (data frames and evaluation maps). One SUM all-reduce of a
-    zeroed buffer that holds this rank's rows in its place: a sum of one
-    value and zeros is exact in every dtype."""
+    of an image `height` rows tall -> the whole image, the same on every
+    rank of the row. No gradient (data frames and evaluation maps). One
+    SUM all-reduce of a zeroed buffer that holds this rank's rows at its
+    band's offset: a sum of one value and zeros is exact in every
+    dtype."""
     dim = dim % x.ndim
-    rows = x.shape[dim]
+    rows = mesh.band(height)
+    if x.shape[dim] != rows.stop - rows.start:
+        raise ValueError(f"{x.shape[dim]} rows at dim {dim}: band {rows.start}:{rows.stop} "
+                         f"of a {height}-row image was expected")
     shape = list(x.shape)
-    shape[dim] = rows * mesh.spatial
+    shape[dim] = height
     out = x.new_zeros(shape)
-    out.narrow(dim, mesh.spatial_rank * rows, rows).copy_(x)
+    out.narrow(dim, rows.start, rows.stop - rows.start).copy_(x)
     dist.all_reduce(out, group=mesh.spatial_group)
     return out

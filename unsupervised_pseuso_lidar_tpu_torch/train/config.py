@@ -3,9 +3,9 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/train/config.py, kept as a
 copy so the port never imports the JAX package: the same schema, defaults
 and validation, so every file under configs/ loads unchanged. Keys that
-only tune the TPU build (warp_impl, warp_col_band, remat) are parsed and
-ignored by the port — its warp is the one exact kernel whatever warp_impl
-says.
+only tune the TPU build (warp_impl, warp_col_band) are parsed and ignored
+by the port — its warp is the one exact kernel whatever warp_impl says.
+remat rematerializes the step's loss, as in JAX (train/trainer.TrainStep).
 """
 
 from __future__ import annotations

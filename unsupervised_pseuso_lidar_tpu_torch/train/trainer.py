@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from unsupervised_pseuso_lidar_tpu_torch.data.augment import (
     AugmentParams,
@@ -57,6 +58,7 @@ from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
     Conv2d,
     Conv3x3,
     MaxPool2d,
+    frozen_running_statistics,
 )
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.pose_fc import PoseFc
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.posenet import PoseNet
@@ -71,6 +73,7 @@ from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     check_height,
     gather_rows,
+    image_height,
     row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
@@ -112,20 +115,29 @@ def batch_to_device(
     return out
 
 
-def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
+def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor],
+                 scales=(0,)) -> Dict[str, torch.Tensor]:
     """Under a mesh with a "spatial" axis: a device batch whose tgt and
     ref_imgs hold this rank's band of rows -> the same batch with the
     whole frames, gathered from the bands of the data row (the warp's
     sources and the pose net's input; parallel/spatial.gather_rows, in
-    the batch's dtype). Raises ValueError for a height DispResNet cannot
-    shard. The batch itself otherwise."""
+    the batch's dtype). Raises ValueError, on every rank, for a height
+    DispResNet cannot shard at output `scales` (check_height). The batch
+    itself otherwise."""
     if not row_sharded(mesh):
         return batch
-    out = dict(batch, tgt=gather_rows(batch["tgt"], mesh, 2),
-               ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3))
-    check_height(mesh, *out["tgt"].shape[2:])
-    return out
+    tgt = batch["tgt"]
+    height = image_height(mesh, tgt.shape[2], tgt.device)
+    check_height(mesh, height, tgt.shape[3], scales)
+    return dict(batch, tgt=gather_rows(tgt, mesh, 2, height),
+                ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3, height))
+
+
+def depth_scales(model: nn.Module) -> Tuple[int, ...]:
+    """The output scales of a depth net: DispResNet's `scales`, (0,) for a
+    net that does not say (the only one bind_spatial takes is
+    DispResNet)."""
+    return tuple(getattr(model, "scales", (0,)))
 
 
 def normalize_uint8_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -302,20 +314,17 @@ def bind_spatial(models, mesh: Optional[Mesh]) -> None:
     Conv3x3) at `mesh` when it has a "spatial" axis — they then exchange
     halos with the neighbouring bands — and unbind them otherwise.
 
-    Under a spatial mesh the depth net must be DispResNet with one output
-    scale and the pose net PoseNet or PoseFc, which runs on the whole
-    frames (its 7 stride-2 convs leave fewer rows than ranks); any other
-    model, and all_scales, raises NotImplementedError (ROADMAP.md)."""
+    Under a spatial mesh the depth net must be DispResNet (any depth, one
+    output scale or all_scales) and the pose net PoseNet or PoseFc, which
+    runs on the whole frames (its 7 stride-2 convs leave fewer rows than
+    ranks); any other model raises NotImplementedError, naming it
+    (ROADMAP.md)."""
     sharded = row_sharded(mesh)
     for model in models:
-        if sharded and not (isinstance(model, (PoseNet, PoseFc))
-                            or (isinstance(model, DispResNet) and model.scales == (0,))):
-            what = type(model).__name__ + (" with all_scales"
-                                           if isinstance(model, DispResNet) else "")
+        if sharded and not isinstance(model, (PoseNet, PoseFc, DispResNet)):
             raise NotImplementedError(
-                f"{what} under a spatial mesh is not ported (ROADMAP.md, "
-                "'Open under a spatial mesh'): only DispResNet at one scale "
-                "with PoseNet or PoseFc")
+                f"{type(model).__name__} under a spatial mesh is not ported (ROADMAP.md, "
+                "'Open under a spatial mesh'): only DispResNet with PoseNet or PoseFc")
         for m in model.modules():
             if isinstance(m, (Conv2d, MaxPool2d, Conv3x3)):
                 m.mesh = mesh if sharded else None
@@ -325,9 +334,11 @@ def all_reduce_gradients(mesh: Mesh, params) -> None:
     """Average the gradients of `params` over the mesh: one all-reduce of
     one flat buffer a dtype, then divided by the mesh size (JAX's psum
     over "data", where the JAX step places it). Every rank's loss is the
-    mean over its block of the batch, and the blocks are equal (the
-    terms whose counts differ between ranks scale themselves to that
-    rule), so the average is the gradient of the global loss. A parameter without a
+    mean over its block of the batch, the blocks of images are equal, and
+    under a "spatial" axis each band's terms are spatial × its share of
+    the image's (bands of any height; losses/), the terms whose counts
+    differ between ranks scaling themselves to that rule, so the average
+    is the gradient of the global loss. A parameter without a
     gradient is left without one: which parameters the loss reads is a
     property of the step's graph, the same on every rank."""
     if not mesh.distributed:
@@ -403,7 +414,16 @@ class TrainStep:
     runs DispResNet on its band (bind_spatial) and the pose net on the
     whole frames, and the loss on its band (losses/total.py).
 
-    remat is accepted and ignored (a memory knob of the JAX step).
+    With remat the loss of each micro-batch is rematerialized, the
+    counterpart of the JAX step's jax.checkpoint(loss_fn):
+    torch.utils.checkpoint (non-reentrant, no early stop) keeps only its
+    inputs and recomputes its forward in the backward. The recompute
+    leaves the BatchNorm running statistics alone
+    (layers.frozen_running_statistics) and draws no random numbers (the
+    augmentation draws come before the loss); under a mesh it runs the
+    same halo and BatchNorm all-reduces in the same order on every rank.
+    The loss and the gradient are those without remat; only memory and
+    time change.
     """
 
     def __init__(
@@ -446,6 +466,7 @@ class TrainStep:
         self.min_bidirectional = min_bidirectional
         self.supervised_weight = supervised_weight
         self.accum_steps = accum_steps
+        self.remat = remat
         self.color_jitter = color_jitter
         self.hflip = hflip
         self.aug_seed = aug_seed
@@ -485,6 +506,22 @@ class TrainStep:
             extra["supervised_loss"] = sup
         return loss, reproj, smooth, extra
 
+    def _rematerialized_loss(self, batch: Dict[str, torch.Tensor]):
+        """loss_fn(batch) under torch.utils.checkpoint: its first call is
+        the forward, any later one the backward's recompute."""
+        calls = []
+
+        def loss(micro):
+            recompute = bool(calls)
+            calls.append(1)
+            if not recompute:
+                return self.loss_fn(micro)
+            with frozen_running_statistics():
+                return self.loss_fn(micro)
+
+        with set_checkpoint_early_stop(False):
+            return checkpoint(loss, batch, use_reentrant=False, preserve_rng_state=False)
+
     def _aug_params(self, micro_size: int) -> Optional[AugmentParams]:
         """As in JAX, every micro-batch is augmented with the same draws:
         those of (aug_seed, step) at the GLOBAL micro-batch's size, of
@@ -506,7 +543,7 @@ class TrainStep:
             batch = shard_batch(self.mesh, batch, self.accum_steps)
         batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
-        )))
+        ), depth_scales(state.depth_model)))
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
         aug = self._aug_params(batch["tgt"].shape[0] // self.accum_steps)
@@ -519,7 +556,10 @@ class TrainStep:
             if aug is not None:
                 micro = augment_batch(micro, aug, jitter=self.color_jitter,
                                       flip=self.hflip)
-            loss, reproj, smooth, extra = self.loss_fn(micro)
+            if self.remat:
+                loss, reproj, smooth, extra = self._rematerialized_loss(micro)
+            else:
+                loss, reproj, smooth, extra = self.loss_fn(micro)
             loss.backward()
             values = {"loss": loss, "mul_app_loss": reproj,
                       "smoothness_loss": smooth, **extra}
@@ -637,8 +677,8 @@ class EvalStep:
         disparity lists, poses and intrinsics; and the batch's groundtruth
         and oxts when it has them."""
         batch = normalize_uint8_batch(whole_frames(
-            self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True)
-        ))
+            self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True),
+            depth_scales(self.depth_model)))
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
@@ -691,9 +731,11 @@ class EvalStep:
         inputs = self.loss_inputs(batch)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         if row_sharded(self.mesh):
-            depth_pred = gather_rows(depth_pred, self.mesh, 1)
+            height = inputs["tgt"].shape[2]
+            depth_pred = gather_rows(depth_pred, self.mesh, 1, height)
             if "groundtruth" in inputs:
-                inputs["groundtruth"] = gather_rows(inputs["groundtruth"], self.mesh, 1)
+                inputs["groundtruth"] = gather_rows(inputs["groundtruth"], self.mesh, 1,
+                                                    height)
         metrics = {"loss": self.loss(inputs), **self.metrics(inputs, depth_pred)}
         if self.mesh is None or "groundtruth" not in inputs:
             return global_means(self.mesh, metrics), depth_pred
@@ -740,7 +782,8 @@ class Trainer:
     after it is built and after a restore (every rank restores the same
     checkpoint), and only rank 0 logs (log_fn, wandb pictures and
     histograms) and writes checkpoints; the other ranks wait for it at
-    the end of each epoch."""
+    the end of each epoch. Under a "spatial" axis the other ranks of its
+    data row join it in the pictures' banded forward (fit, log_warps)."""
 
     def __init__(
         self,
@@ -852,40 +895,60 @@ class Trainer:
             )
 
     @torch.no_grad()
-    def log_warps(self, batch, step: int = 0, out_dir: str = "./images") -> Dict[str, str]:
-        """Render the first sample's target, ref0 warped into the target
-        frame (pose 0, kernel A on the card) and depth as PNGs under
-        out_dir (utils/visualization.save_warp_visualization); returns
-        {file name: path}. The models run in eval mode, as in JAX; the
-        batch is normalized first, so a uint8 batch renders as a float one.
-        Under a mesh with a "spatial" axis it raises NotImplementedError
-        (ROADMAP.md): the depth net there runs on bands of rows."""
-        from unsupervised_pseuso_lidar_tpu_torch.utils.visualization import (
-            save_warp_visualization,
-        )
+    def warp_pictures(self, batch) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The first sample's target [H, W, 3], ref0 warped into the target
+        frame with pose 0 [H, W, 3] (kernel A on the card) and depth
+        [H, W], as numpy arrays: what log_warps renders. The models run in
+        eval mode, as in JAX; the batch is normalized first, so a uint8
+        batch renders as a float one.
 
-        if row_sharded(self.mesh):
-            raise NotImplementedError(
-                "log_warps under a spatial mesh is not ported (ROADMAP.md, "
-                "'Open under a spatial mesh')")
-
+        Under a mesh with a "spatial" axis every rank of the first data
+        row must call it: each runs the depth net on its band of that
+        row's images (the halo convolutions need all of them), the bands
+        of the first image's depth are gathered (gather_rows), and rank 0
+        warps and returns the arrays; the other ranks return None."""
         act = self.config.action
-        batch = normalize_uint8_batch(batch_to_device(batch, self.device))
+        sharded = row_sharded(self.mesh)
+        if sharded:
+            batch = shard_batch(self.mesh, batch, self.train_step.accum_steps)
+        batch = normalize_uint8_batch(whole_frames(
+            self.mesh, batch_to_device(batch, self.device),
+            depth_scales(self.state.depth_model)))
+        height = batch["tgt"].shape[2]
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=act.precision == "bf16"):
             disps_tgt, _, poses = forward_batch(
                 self.state.depth_model, self.state.pose_model, batch, train=False,
-                semi_sup_pose=act.semi_sup_pose,
+                semi_sup_pose=act.semi_sup_pose, rows=band(self.mesh, height),
             )
-        depth = disp_to_depth(disps_tgt[0][:, 0].float())
-        warped = inverse_warp(batch["ref_imgs"][:, 0], depth, poses[:, 0].float(),
-                              batch["intrinsics"])
+        depth = disp_to_depth(disps_tgt[0][:1, 0].float())
+        if sharded:
+            depth = gather_rows(depth, self.mesh, 1, height)
+            if self.mesh.rank != 0:
+                return None
+        warped = inverse_warp(batch["ref_imgs"][:1, 0], depth, poses[:1, 0].float(),
+                              batch["intrinsics"][:1])
 
         def hwc(x):
             return x[0].permute(1, 2, 0).cpu().numpy()
 
-        return save_warp_visualization(out_dir, step, hwc(batch["tgt"]), hwc(warped),
-                                       depth[0].cpu().numpy())
+        return hwc(batch["tgt"]), hwc(warped), depth[0].cpu().numpy()
+
+    def log_warps(self, batch, step: int = 0, out_dir: str = "./images"
+                  ) -> Optional[Dict[str, str]]:
+        """Render warp_pictures(batch) as PNGs under out_dir
+        (utils/visualization.save_warp_visualization); returns {file name:
+        path}, or None on a rank that renders nothing (under a spatial
+        mesh every rank of the first data row calls it and rank 0
+        renders; warp_pictures)."""
+        from unsupervised_pseuso_lidar_tpu_torch.utils.visualization import (
+            save_warp_visualization,
+        )
+
+        pictures = self.warp_pictures(batch)
+        if pictures is None:
+            return None
+        return save_warp_visualization(out_dir, step, *pictures)
 
     def validate(self, val_batches) -> Dict[str, float]:
         """Mean of the eval step's metrics over an iterable of batches (the
@@ -909,10 +972,17 @@ class Trainer:
         during an epoch lets it finish, checkpoints it and stops (resume
         with from_scratch: False). Returns the last epoch's metrics.
 
-        Under a mesh rank 0 alone saves; then the ranks all-reduce their
-        interrupt flags, which is also where the others wait for the save,
-        so a signal to any rank stops every rank after the same
-        checkpoint."""
+        Under a mesh rank 0 alone saves, logs and renders; then the ranks
+        all-reduce their interrupt flags, which is also where the others
+        wait for the save, so a signal to any rank stops every rank after
+        the same checkpoint. Under a "spatial" axis the ranks learn once
+        whether rank 0 logs pictures, and every rank of the first data row
+        then runs log_warps with it (its banded forward needs them all)."""
+        wandb_logger = getattr(self.log_fn, "_wandb", None) is not None
+        draws = wandb_logger
+        if row_sharded(self.mesh):
+            flag = torch.tensor([float(wandb_logger)], device=self.mesh.device)
+            draws = float(self.mesh.all_reduce_(flag)) > 0 and self.mesh.data_rank == 0
         interrupted = []
         previous = {}
         try:
@@ -929,10 +999,11 @@ class Trainer:
                     metrics.update({f"val_{k}": v for k, v in val.items()})
                     if self.log_fn is not None:
                         self.log_fn(metrics, self.state.step)
-                if getattr(self.log_fn, "_wandb", None) is not None:
-                    if self._last_batch is not None:
-                        paths = self.log_warps(self._last_batch, step=self.state.step)
+                if draws and self._last_batch is not None:
+                    paths = self.log_warps(self._last_batch, step=self.state.step)
+                    if wandb_logger:
                         self.log_fn.log_images(paths, self.state.step)
+                if wandb_logger:
                     self.log_fn.log_param_histograms(
                         {"depth": self.state.depth_model, "pose": self.state.pose_model},
                         self.state.step)
