@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --spatial-repeat WORLD RUNS   # one spatial group, RUNS times
 
 Builds the port's CUDA kernels from the sources in this checkout (into
 build/torch_ext/), holds the division helper of kernels B and C
@@ -103,7 +104,7 @@ then drives the port's entry points with seeded random weights:
   spatial       the "spatial" mesh axis (image rows sharded over ranks in
                 bands of the 32-row grain: halo-exchanging convolutions, the
                 loss on bands, kernels A and A' on a band of grid rows). gloo
-                ranks spawned on the one card, three groups: at data 1 x
+                ranks spawned on the one card, four groups: at data 1 x
                 spatial 2 basic_config (1280x384, batch 4, 'min', PoseFc,
                 depth_norm; each rank 192 rows) for 3 steps, the same with
                 action.remat (against the ranks' remat-off steps too), and
@@ -116,13 +117,21 @@ then drives the port's entry points with seeded random weights:
                 spatial 4 (640x192, batch 12; bands of 64, 64, 32, 32 rows)
                 for 2 steps in fp32 (the config's precision overridden),
                 then one at its own bf16 (the loss beside the one-process
-                bf16 step's). Each step starts from the one-process
+                bf16 step's). In the first group also basic_config with
+                DispNetS (4 scales; its 128x level on the gathered map,
+                launches {4, 4, 5, 4}) and with StnDispNet and its STN
+                (GroupNorm over the bands, banded transposed convs, the
+                whole frame sampled) for 2 steps each; and configs/tpu_v5e.yaml
+                at data 1 x spatial 8 in fp32 (JAX's equal bands of 24
+                rows, which hold no row of layer3 / layer4: those levels
+                gathered) for 2. Each step starts from the one-process
                 trainer's state before that step; against its step on the
                 whole batch: the loss, the gradient, the BatchNorm
                 statistics, and each rank's launches of A, A', B and C; each
-                rank's ms a step, peak memory and the memory its autograd
-                graph holds at the loss beside the one process's (ranks
-                time-sharing one card)
+                rank's ms a step, peak memory (allocated, reserved, and the
+                card's free memory after the step) and the memory its
+                autograd graph holds at the loss beside the one process's
+                (ranks time-sharing one card)
 
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
@@ -324,6 +333,10 @@ PARALLEL_LOSS_RTOL = 2e-4
 PARALLEL_STATS_RTOL = 1e-5
 PARALLEL_PARAMS_RTOL, PARALLEL_PARAMS_ATOL = 1e-3, 2e-4
 PARALLEL_TIMEOUT_S = 300
+# what a spawned rank on the shared card keeps outside its allocator's cap
+# (its CUDA context and libraries' handles): each rank's cap is an equal
+# share of the card's free memory less this (spatial_rank)
+RANK_OVERHEAD_BYTES = 2**30
 # the spatial phase's sharded step vs the one-process step from the same
 # state: the loss (the gradient at GRAD_REL_L2, the BatchNorm statistics
 # at PARALLEL_STATS_RTOL)
@@ -2343,15 +2356,28 @@ def spatial_groups():
     cases, the config Trainer.fit runs with a wandb stub or None). A case
     is (name, config path, overrides, steps): overrides set the config's
     action keys, and "all_scales" DispResNet's (the configs' paths given:
-    a spawned rank reads no patched global)."""
+    a spawned rank reads no patched global); "depth" replaces the depth
+    net by (name, kwargs)."""
     return ((2, 2, (("basic_config", BASIC_CONFIG, {}, TRAIN_STEPS),
                     ("basic_config_remat", BASIC_CONFIG, {"remat": True}, TRAIN_STEPS),
-                    ("all_scales_2", BASIC_CONFIG, {"all_scales": True}, 2)), BASIC_CONFIG),
+                    ("all_scales_2", BASIC_CONFIG, {"all_scales": True}, 2),
+                    ("dispnets_2", BASIC_CONFIG, {"depth": ("DispNetS", {})}, 2),
+                    ("stn_2", BASIC_CONFIG, {"depth": ("StnDispNet", {"use_stn": True})}, 2)),
+             BASIC_CONFIG),
             (4, 2, (("ssim_2x2", MEAN_CONFIG, {"loss_mode": "ssim"}, 2),), None),
             # the precision override: fp32 (TF32 off) for the checks, then
             # one step at the config's own bf16
             (4, 4, (("tpu_v5e_4", CONFIG, {"precision": "fp32"}, 2),
-                    ("tpu_v5e_4_bf16", CONFIG, {}, 1)), None))
+                    ("tpu_v5e_4_bf16", CONFIG, {}, 1)), None),
+            # JAX's equal bands of 24 rows (ceil(192 / 32) = 6 < 8): layer3,
+            # layer4 and the decoder's 32x and 16x stages run gathered
+            (8, 8, (("tpu_v5e_8", CONFIG, {"precision": "fp32"}, 2),), None))
+
+
+def case_scales(config):
+    """The output scales of a spatial case's depth net."""
+    depth = config.model.depth
+    return 4 if depth.name == "DispNetS" or depth.kwargs.get("all_scales") else 1
 
 
 def spatial_setup(path, overrides, steps):
@@ -2360,6 +2386,8 @@ def spatial_setup(path, overrides, steps):
     for key, value in overrides.items():
         if key == "all_scales":
             config.model.depth.kwargs = {**config.model.depth.kwargs, "all_scales": value}
+        elif key == "depth":
+            config.model.depth.name, config.model.depth.kwargs = value[0], dict(value[1])
         else:
             setattr(config.action, key, value)
     batches = list(SyntheticTripletDataset(steps, config.action.batch_size,
@@ -2371,7 +2399,8 @@ def spatial_setup(path, overrides, steps):
 def spatial_steps(trainer, batches, device, starts=None):
     """trainer's train step on each of `batches` -> per step the metrics,
     gradients, BatchNorm statistics, launches, ms by CUDA events, peak
-    memory allocated, and the memory the autograd graph holds when the
+    memory allocated and reserved, the card's free memory after the step
+    (every process's use), and the memory the autograd graph holds when the
     loss is computed — allocated then, less allocated before the step:
     the saved activations, without cuDNN's transient workspaces (None off
     the card: a CPU rehearsal; with remat the loss's forward keeps only
@@ -2415,6 +2444,10 @@ def spatial_steps(trainer, batches, device, starts=None):
                     "launches": dict(kernels.launch_counts),
                     "ms": events[0].elapsed_time(events[1]) if on_card else None,
                     "peak_bytes": torch.cuda.max_memory_allocated(device) if on_card
+                    else None,
+                    "reserved_bytes": torch.cuda.max_memory_reserved(device) if on_card
+                    else None,
+                    "card_free_bytes": torch.cuda.mem_get_info(device)[0] if on_card
                     else None,
                     "graph_bytes": held[0] - before if on_card else None})
         if starts is None:
@@ -2491,15 +2524,19 @@ def spatial_fit(mesh, device, directory, path):
 
 
 def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_path,
-                 fit_dir, fit_config):
+                 fit_dir, fit_config, memory_fraction=None):
     """One of `world` gloo ranks on `device` (cuda:0 for all) under
     make_mesh(world, spatial): spatial_steps of each case from the states
     in starts_path, then with fit_config spatial_fit under fit_dir, saved
-    to out_path (or the rank's traceback)."""
+    to out_path (or the rank's traceback). On the card its caching
+    allocator is capped at `memory_fraction` of the card: ranks that
+    share a card cannot free each other's cached blocks, so without a cap
+    one rank's cache can starve another's allocation."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
     if device.type == "cuda":
+        torch.cuda.set_per_process_memory_fraction(memory_fraction, device)
         build.load_libraries()
     distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
     try:
@@ -2515,9 +2552,11 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
                 torch.cuda.empty_cache()
         if fit_config is not None:
             out["fit"] = spatial_fit(mesh, device, fit_dir, fit_config)
+        out["memory_cap_bytes"] = (memory_fraction * torch.cuda.mem_get_info(device)[1]
+                                   if device.type == "cuda" else None)
         result = {"ok": out}
-    except BaseException:  # reported by the parent with its traceback
-        result = {"error": traceback.format_exc()}
+    except BaseException:  # reported by the parent with its traceback and time
+        result = {"error": traceback.format_exc(), "at": time.time()}
     finally:
         dist.destroy_process_group()
     torch.save(result, out_path)
@@ -2525,10 +2564,16 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
 
 def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
     """Run spatial_rank on `world` spawned gloo ranks, all on `device` (the
-    one card) -> their results, rank order (a rank's failure or a hang
-    raises)."""
+    one card), each with an equal share of the card's free memory (less
+    RANK_OVERHEAD_BYTES) -> their results, rank order (a rank's failure or
+    a hang raises, naming every rank's error, earliest first, and exit
+    code)."""
     ctx = mp.get_context("spawn")
     port = distributed.free_port()
+    fraction = None
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        fraction = (free / world - RANK_OVERHEAD_BYTES) / total
     with tempfile.TemporaryDirectory() as tmp:
         starts_path = os.path.join(tmp, "starts.pt")
         torch.save(starts, starts_path)
@@ -2536,7 +2581,7 @@ def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
         fit_dir = os.path.join(tmp, "fit")
         procs = [ctx.Process(target=spatial_rank,
                              args=(r, world, spatial, port, paths[r], str(device), cases,
-                                   starts_path, fit_dir, fit_config))
+                                   starts_path, fit_dir, fit_config, fraction))
                  for r in range(world)]
         for proc in procs:
             proc.start()
@@ -2546,14 +2591,22 @@ def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
             check(not any(p.is_alive() for p in procs),
                   f"spatial {world}x{spatial}: the gloo ranks still ran after "
                   f"{PARALLEL_TIMEOUT_S} s")
-            ranks = []
+            # every rank's outcome first: a rank that fails closes its
+            # peers' connections, so the first error is rarely the cause
+            ranks, errors = [], []
             for rank, (proc, rank_path) in enumerate(zip(procs, paths)):
-                check(os.path.exists(rank_path),
-                      f"spatial {world}x{spatial}: rank {rank} exited with {proc.exitcode}")
+                if not os.path.exists(rank_path):
+                    errors.append((0.0, f"rank {rank} exited with {proc.exitcode} and no "
+                                        "result"))
+                    continue
                 result = torch.load(rank_path, weights_only=False)
-                check("error" not in result,
-                      f"spatial {world}x{spatial} rank {rank}: {result.get('error')}")
-                ranks.append(result["ok"])
+                if "error" in result:
+                    errors.append((result["at"], f"rank {rank} (exit code {proc.exitcode}, "
+                                                 f"at {result['at']:.3f}): {result['error']}"))
+                else:
+                    ranks.append(result["ok"])
+            check(not errors, f"spatial {world}x{spatial}: " + "\n".join(
+                e for _, e in sorted(errors)))
         finally:
             for proc in procs:
                 if proc.is_alive():
@@ -2562,15 +2615,15 @@ def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
     return ranks
 
 
-def spatial_phase(device):
-    """The "spatial" mesh axis on the card (see the module docstring).
-    Prints the phase's record, then checks it; returns each rank's
-    launches over basic_config's steps."""
+def spatial_phase(device, groups=None):
+    """The "spatial" mesh axis on the card (see the module docstring), over
+    `groups` (spatial_groups' by default). Prints the phase's record, then
+    checks it; returns each rank's launches over basic_config's steps."""
     t_phase = time.perf_counter()
     out, checks = {"phase": "spatial", "card": card()}, []
     rank_launches = None
     one_process = {}
-    for world, spatial, cases, fit_config in spatial_groups():
+    for world, spatial, cases, fit_config in groups or spatial_groups():
         # the one-process steps on the whole batches, alone on the card (with
         # remat off: the reference of a remat case too); the state before
         # each is the ranks' start
@@ -2592,7 +2645,7 @@ def spatial_phase(device):
         for name, path, overrides, steps in cases:
             config = spatial_setup(path, overrides, 1)[0]
             bf16 = config.action.precision == "bf16"
-            scales = 4 if overrides.get("all_scales") else 1
+            scales = case_scales(config)
             per_step = expected_launches(config.action.loss_mode, scales, config.action.remat)
             height = config.image_shape[0]
             record = {"ranks": world, "mesh": {"data": world // spatial, "spatial": spatial},
@@ -2604,12 +2657,13 @@ def spatial_phase(device):
                       "depth": config.model.depth.name, "scales": scales,
                       "precision": config.action.precision, "remat": config.action.remat,
                       "depth_norm": config.action.depth_norm, "steps": [],
-                      "group_ranks_seconds": ranks_seconds}
+                      "group_ranks_seconds": ranks_seconds,
+                      "memory_cap_mib_per_rank": [_mib(r["memory_cap_bytes"]) for r in ranks]}
             for i, ref in enumerate(refs[name]):
                 got = ranks[0][name][i]
                 rel, worst = _grad_compare(got["grads"], ref["grads"])
-                stats_rel = max(float(((got["stats"][k] - v).abs() / (v.abs() + 1.0)).max())
-                                for k, v in ref["stats"].items())
+                stats_rel = max((float(((got["stats"][k] - v).abs() / (v.abs() + 1.0)).max())
+                                 for k, v in ref["stats"].items()), default=0.0)
                 loss_rel = _rel(got["metrics"]["loss"], ref["metrics"]["loss"])
                 step = {
                     "loss": got["metrics"]["loss"], "loss_one_process": ref["metrics"]["loss"],
@@ -2620,6 +2674,9 @@ def spatial_phase(device):
                     "ms_one_process": ref["ms"],
                     "peak_mib_per_rank": [_mib(r[name][i]["peak_bytes"]) for r in ranks],
                     "peak_mib_one_process": _mib(ref["peak_bytes"]),
+                    "reserved_mib_per_rank": [_mib(r[name][i]["reserved_bytes"]) for r in ranks],
+                    "card_free_mib_per_rank": [_mib(r[name][i]["card_free_bytes"])
+                                               for r in ranks],
                     "graph_mib_per_rank": [_mib(r[name][i]["graph_bytes"]) for r in ranks],
                     "graph_mib_one_process": _mib(ref["graph_bytes"])}
                 checks += [
@@ -2673,6 +2730,32 @@ def spatial_phase(device):
     return rank_launches
 
 
+def spatial_repeat(world, runs, device="cuda:0"):
+    """The spatial phase's groups of `world` ranks, `runs` times over on
+    one card (python3 chip_smoke.py --spatial-repeat WORLD RUNS): each
+    run's record, or its failure with every rank's error, earliest first,
+    and exit code. Returns the number of runs that failed."""
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    build.load_libraries()
+    groups = tuple(g for g in spatial_groups() if g[0] == world)
+    check(bool(groups), f"no spatial group of {world} ranks")
+    failed = 0
+    for run in range(runs):
+        try:
+            spatial_phase(device, groups)
+            emit({"phase": "spatial_repeat", "ranks": world, "run": run, "ok": True})
+        except AssertionError as e:
+            failed += 1
+            emit({"phase": "spatial_repeat", "ranks": world, "run": run, "ok": False,
+                  "error": str(e)})
+    emit({"phase": "spatial_repeat", "ranks": world, "runs": runs, "failed": failed,
+          "card": card()})
+    return failed
+
+
 def spatial_fit_record(ranks):
     """The record and checks of spatial_fit's ranks: every rank at step 2;
     rank 0 alone rendered and logged one picture set, whose target equals
@@ -2720,4 +2803,6 @@ def _to_cpu(tree):
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
+    if sys.argv[1:2] == ["--spatial-repeat"]:
+        sys.exit(1 if spatial_repeat(int(sys.argv[2]), int(sys.argv[3])) else 0)
     main()

@@ -14,7 +14,8 @@ whole, and one whole step of DispResNet-18 and of DispResNet-50
 (bottleneck blocks on bands) with all_scales against the port's
 one-process step (DispResNet-50's gradient against that step under a
 one-rank mesh: its step is chaotic, see its test) and JAX's loss on the
-whole batch; which depth nets bind_spatial takes.
+whole batch; which depth nets bind_spatial takes (DispResNet, DispNetS,
+StnDispNet) and refuses (BtsModel).
 
 The ranks are tests/torch_spatial_uneven_worker.py's, spawned on the CPU
 by torch_parallel_worker.start_ranks.
@@ -41,6 +42,7 @@ from tests.test_torch_spatial_uneven import (
     test_step_on_uneven_bands_matches_the_one_process_step as _one_process_check,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import _full_res_depth
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import Banded
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import Mesh
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import bind_spatial
@@ -177,8 +179,24 @@ def test_bind_spatial_takes_dispresnet_at_every_depth_and_scale_set(kwargs):
     assert model.encoder.encoder.conv1.mesh is mesh
 
 
-@pytest.mark.parametrize("name,kwargs", [("DispNetS", {}),
-                                         ("StnDispNet", {"image_shape": (64, 96)})])
+@pytest.mark.parametrize("name,kwargs", [
+    ("DispNetS", {}), ("StnDispNet", {"image_shape": (64, 96)}),
+    ("StnDispNet", {"use_stn": True, "image_shape": (64, 96)})])
+def test_bind_spatial_takes_dispnets_and_stn_dispnet(name, kwargs):
+    # every banded module of the net (its convs, transposed convs and
+    # GroupNorms, and the net itself) is bound to the mesh, and unbound
+    # without it
+    mesh = Mesh(None, 0, SPATIAL, torch.device("cpu"), spatial=SPATIAL)
+    model = build_model(name, device="cpu", **kwargs)
+    bind_spatial([model, build_model("PoseFc", device="cpu", image_shape=(64, 96))], mesh)
+    banded = [m for m in model.modules() if isinstance(m, Banded)]
+    assert model in banded and len(banded) > 20
+    assert all(m.mesh is mesh for m in banded)
+    bind_spatial([model], None)
+    assert all(m.mesh is None for m in banded)
+
+
+@pytest.mark.parametrize("name,kwargs", [("BtsModel", {"num_features": 64})])
 def test_bind_spatial_names_a_depth_net_it_does_not_take(name, kwargs):
     mesh = Mesh(None, 0, SPATIAL, torch.device("cpu"), spatial=SPATIAL)
     with pytest.raises(NotImplementedError, match=f"{name} under a spatial mesh"):

@@ -230,21 +230,23 @@ def layout(mesh):
         make_mesh(mesh.size, spatial=3, device="cpu")
     except ValueError as e:
         errors["spatial_3"] = str(e)
-    # 32 rows over spatial 2: an even split, but one row of 32 for two
-    # bands (a band would hold no row of the encoder's coarsest level)
+    # 32 rows over spatial 2: an even split into bands of 16 rows, which
+    # hold no row of the encoder's coarsest level: that level runs on the
+    # gathered map (parallel/spatial.banded_level)
     batch = next(SyntheticTripletDataset(1, BATCH, 32, WIDTH, seed=1,
                                          uint8_images=True).batches())
     state = make_state(layout_weights(), "PoseNet")
-    try:
-        make_train_step(state, device="cpu", mesh=mesh, loss_mode="min")(batch)
-    except ValueError as e:
-        errors["height_32"] = str(e)
+    metrics = make_train_step(state, device="cpu", mesh=mesh, loss_mode="min")(batch)
+    out["height_32"] = {k: float(v) for k, v in metrics.items()}
     try:
         shard_batch(mesh, {"tgt": np.zeros((BATCH, 33, WIDTH, 3), np.uint8)})
     except ValueError as e:
         errors["height_33"] = str(e)
-    for name, kwargs in (("DispNetS", {}), ("DispResNet", {"all_scales": True}),
-                         ("DispResNet", {"num_layers": 50, "all_scales": True})):
+    for name, kwargs in (("DispNetS", {}), ("StnDispNet", {"use_stn": True,
+                                                           "image_shape": (64, 96)}),
+                         ("DispResNet", {"all_scales": True}),
+                         ("DispResNet", {"num_layers": 50, "all_scales": True}),
+                         ("BtsModel", {"num_features": 64})):
         try:
             bind_spatial([build_model(name, device="cpu", **kwargs)], mesh)
         except NotImplementedError as e:
@@ -287,13 +289,14 @@ def layer(kind):
     return layers.Conv3x3(4, 5)
 
 
-def run_layer(kind, x, g, mesh=None):
+def run_layer(kind, x, g, mesh=None, height=None):
     """-> (output, input gradient, weight gradient or None) of sum(layer(x)
-    · g) on x (this rank's band under `mesh`)."""
+    · g) on x (this rank's band under `mesh` of an image `height` rows
+    tall; the layer at level 0)."""
     module = layer(kind)
     for m in module.modules():
-        if hasattr(m, "mesh"):
-            m.mesh = mesh
+        if isinstance(m, layers.Banded):
+            m.mesh, m.level, m.height = mesh, 0, height
     leaf = x.clone().requires_grad_()
     out = module(leaf)
     (out * g).sum().backward()
@@ -305,13 +308,14 @@ def units(mesh, inputs):
     """Every unit of test_torch_spatial.UNITS on this rank's band."""
     out = {}
     for name, kind, x, g in inputs["layers"]:
-        out[name] = run_layer(kind, _rows(mesh, x), _rows(mesh, g), mesh)
+        out[name] = run_layer(kind, _rows(mesh, x), _rows(mesh, g), mesh, x.shape[2])
     pred, target, g = inputs["ssim"]
     p, t = _leaf(mesh, pred), _leaf(mesh, target)
-    m = photometric_loss(p, t, clip_loss=0.0, mesh=mesh)
+    m = photometric_loss(p, t, clip_loss=0.0, mesh=mesh, height=pred.shape[2])
     (m * _rows(mesh, g)).sum().backward()
     out["ssim"] = (m.detach(), p.grad, t.grad)
-    out["ssim_clip"] = photometric_loss(_rows(mesh, pred), _rows(mesh, target), mesh=mesh)
+    out["ssim_clip"] = photometric_loss(_rows(mesh, pred), _rows(mesh, target), mesh=mesh,
+                                        height=pred.shape[2])
     disp = inputs["disp"]
     d = _leaf(mesh, disp)
     value = smooth_loss([d], mesh=mesh, height=disp.shape[2])

@@ -12,6 +12,7 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import ssim_distance_fused
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     first_band,
     halo,
+    level_rows,
     row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
@@ -30,6 +31,7 @@ def photometric_loss(
     ssim_weight: float = 0.85,
     clip_loss: float = 0.5,
     mesh=None,
+    height: int | None = None,
 ) -> torch.Tensor:
     """Per-pixel photometric error map [B, C, H, W]: ssim_weight · SSIM
     distance + (1 - ssim_weight) · L1 (L1 alone with no_ssim), clamped at
@@ -45,17 +47,20 @@ def photometric_loss(
     sums of the map and of its square and their counts are all-reduced.
 
     Under a mesh with a "spatial" axis pred and target are this rank's
-    band of rows, and the SSIM runs on a slab: the band plus one halo row
-    from each neighbouring band (parallel/spatial.halo; none at the
-    image's top and bottom, where the kernel's own reflection is the
-    image's). The slab's outer rows are dropped. Their cotangent is then
+    band of the rows of images `height` rows tall, and the SSIM runs on a
+    slab: the band plus one halo row from each neighbouring band
+    (parallel/spatial.halo; none at the image's top and bottom, where the
+    kernel's own reflection is the image's). The slab's outer rows are
+    dropped. Their cotangent is then
     0, so kernel C's dx on the slab is exact as it is, and the halo's
     backward returns the halo rows' dx to the bands that own them."""
     if no_ssim:
         photometric = abs_(target - pred)
     elif row_sharded(mesh):
+        if height is None:
+            raise ValueError("photometric_loss under a spatial mesh needs the image's height")
         rows, channels = pred.shape[2], pred.shape[1]
-        slab = halo(torch.cat([pred, target], dim=1), mesh, 1, 1)
+        slab = halo(torch.cat([pred, target], dim=1), mesh, 1, 1, level_rows(mesh, height, 0))
         slab_pred = slab[:, :channels].contiguous()
         slab_target = slab[:, channels:].contiguous()
         if not target.requires_grad:

@@ -22,7 +22,8 @@ the WHOLE frames of this rank's images and the depths this rank's band of
 rows: the warp samples the whole source frames at the band's coordinates
 (kernel A on a band of grid rows), the targets are the band's rows, the
 SSIM windows cross the band's edges through a halo, a coarse scale's
-depth is upsampled on the band's slab (_full_res_depth), and every mean
+depth is upsampled on the band's slab, or whole where the scale is not
+banded (_full_res_depth), and every mean
 is the band's times parallel/spatial.band_weight: spatial × its share of
 the image's mean, the bands being of any height, so that the mean over
 the ranks, which the step takes, is the image's.
@@ -45,8 +46,10 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     band_weight,
+    banded_level,
     first_band,
     halo,
+    level_rows,
     row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_, div
@@ -55,23 +58,28 @@ REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
 
 
 def _full_res_depth(depth: torch.Tensor, height: int, width: int,
-                    mesh=None) -> torch.Tensor:
+                    mesh=None, scale: int = 0) -> torch.Tensor:
     """[B, 1, h, w] (or [B, h, w]) scale-s depth -> [B, H, W].
 
-    Under a mesh with a "spatial" axis `depth` is this rank's band of the
-    scale-s map and the result its band of the image's rows: the band with
-    one coarse row of halo above and below (parallel/spatial.halo,
-    differentiable) is upsampled by the integer factor f = 2^s and f rows
-    are cropped at each end but at the image's border, where the slab's
-    own clamp is the image's. An integer-factor upsample with half-pixel
-    centres is shift-equivariant — the same source rows and weights —
-    so the band's rows are exactly the whole map's (check_height makes H
-    a multiple of f)."""
+    Under a mesh with a "spatial" axis the result is this rank's band of
+    the image's rows. Where `scale` is banded (parallel/spatial.
+    banded_level) `depth` is this rank's band of the scale-s map: the
+    band with one coarse row of halo above and below (parallel/spatial.
+    halo, differentiable) is upsampled by the integer factor f = 2^s and
+    f rows are cropped at each end but at the image's border, where the
+    slab's own clamp is the image's. An integer-factor upsample with
+    half-pixel centres is shift-equivariant — the same source rows and
+    weights — so the band's rows are exactly the whole map's
+    (check_height makes H a multiple of f). Where it is not, `depth` is
+    the whole scale-s map (every rank's copy): it is upsampled whole and
+    the band's rows taken."""
     if depth.ndim == 3:
         depth = depth[:, None]
     if not row_sharded(mesh):
         return resize_bilinear(depth, height, width)[:, 0]
     rows = band(mesh, height)
+    if not banded_level(mesh, height, scale):
+        return resize_bilinear(depth, height, width)[:, 0, rows]
     count = rows.stop - rows.start
     factor = count // depth.shape[2]
     if factor == 1:
@@ -79,7 +87,7 @@ def _full_res_depth(depth: torch.Tensor, height: int, width: int,
     if factor * depth.shape[2] != count or height % factor:
         raise ValueError(f"a band of {depth.shape[2]} rows does not upsample to the "
                          f"{count} rows of its band of a {height}-row image")
-    slab = halo(depth, mesh, 1, 1)
+    slab = halo(depth, mesh, 1, 1, level_rows(mesh, height, scale))
     full = resize_bilinear(slab, slab.shape[2] * factor, width)
     top = 0 if first_band(mesh) else factor
     return full[:, 0, top:top + count]
@@ -149,8 +157,8 @@ def reprojection_loss(
 
     srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
     fwd_w = 1.0 / (2.0 * num_scales) / 2.0
-    for scale_depth in depths[0]:
-        depth_full = _full_res_depth(scale_depth, height, width, mesh)
+    for scale, scale_depth in enumerate(depths[0]):
+        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale)
         for ref, transform in ((refs[0], t0), (refs[1], t1)):
             srcs.append(ref)
             tgts.append(tgt[:, :, rows])
@@ -158,11 +166,11 @@ def reprojection_loss(
             depth_maps.append(depth_full)
             weights.append(fwd_w)
     bwd_w = 1.0 / (2.0 * num_scales)
-    for scale_depth in depths[1]:
+    for scale, scale_depth in enumerate(depths[1]):
         srcs.append(tgt)
         tgts.append(refs[0][:, :, rows])
         transforms.append(t0_inv)
-        depth_maps.append(_full_res_depth(scale_depth, height, width, mesh))
+        depth_maps.append(_full_res_depth(scale_depth, height, width, mesh, scale))
         weights.append(bwd_w)
 
     jobs = len(srcs)
@@ -178,7 +186,7 @@ def reprojection_loss(
     elif mode == "mse":
         err = (warped - target) ** 2
     else:
-        err = photometric_loss(warped, target, no_ssim=False, mesh=mesh)
+        err = photometric_loss(warped, target, no_ssim=False, mesh=mesh, height=height)
     per_job = err.reshape(jobs, -1).mean(dim=1)
     loss = _share(torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
                                                    device=per_job.device)), mesh, height)
@@ -249,7 +257,7 @@ def min_reprojection_loss(
     # rows of (src, target) = (refs, tgt) serves both directions
     ident_pair = _channel_mean(photometric_loss(
         src[: 2 * batch, :, rows], target[: 2 * batch], no_ssim=no_ssim, clip_loss=0.0,
-        mesh=mesh,
+        mesh=mesh, height=height,
     ))
     # +1e-5 after the scale, in fp32: ties go to the warp, and an
     # exact-zero identity pixel stays masked at any ident_scale
@@ -262,17 +270,17 @@ def min_reprojection_loss(
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
     keeps, in_frame = [], []
     for i, scale_depth in enumerate(depths):
-        depth_full = _full_res_depth(scale_depth, height, width, mesh)
+        depth_full = _full_res_depth(scale_depth, height, width, mesh, i)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
-            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh))
+            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh, i))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled,
                              row_start=rows.start, height=height)
         if with_coverage:
             in_frame.append(in_frame_fraction(coords, height))
         warped = sample_with_impl(src, coords, impl=warp_impl)
         err = _channel_mean(photometric_loss(
-            warped, target, no_ssim=no_ssim, clip_loss=0.0, mesh=mesh,
+            warped, target, no_ssim=no_ssim, clip_loss=0.0, mesh=mesh, height=height,
         ))  # [jobs*B, H, W]
         err_f = torch.minimum(err[:batch], err[batch : 2 * batch])
         keep = (err_f <= ident).float().mean()

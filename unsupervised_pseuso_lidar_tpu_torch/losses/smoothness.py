@@ -10,7 +10,12 @@ from typing import Sequence
 
 import torch
 
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import halo, row_sharded
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    banded_level,
+    halo,
+    level_rows,
+    row_sharded,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_ as _abs
 
 
@@ -21,17 +26,18 @@ def _gradients(pred: torch.Tensor):
     return dx, dy
 
 
-def _banded_terms(band: torch.Tensor, mesh, image_rows: int):
+def _banded_terms(band: torch.Tensor, mesh, image_rows: int, rows_of_bands):
     """The four terms of smooth_loss on this rank's band [B, C, R, W] of
     row-sharded maps `image_rows` rows tall, each spatial × this rank's
     share of the image's mean: its sum over the differences whose TOP row
     the band holds, divided by the image's count of them over the spatial
     size (so that the mean over the ranks, which the step takes, is the
     image's mean, the bands being of any height). The vertical
-    differences read the two rows below the band (halo); the last band
-    has none, and holds one (dy) or two (dy²) differences fewer."""
+    differences read the two rows below the band (halo, past a band of
+    one row: `rows_of_bands`, every band's row count); where the image
+    ends fewer come, and the band holds as many differences fewer."""
     rows = band.shape[2]
-    ext = halo(band, mesh, 0, 2)
+    ext = halo(band, mesh, 0, 2, rows_of_bands)
     dx, dy = _gradients(ext)
     dx2 = _gradients(dx[:, :, :rows])[0]
     dxdy = _gradients(dx)[1][:, :, :rows]
@@ -52,9 +58,12 @@ def smooth_loss(
 ) -> torch.Tensor:
     """Sum over scales (finest first, weights 1, 1/decay, 1/decay², …) of
     the mean absolute second-order differences dx², dxdy, dydx, dy².
-    Under a mesh with a "spatial" axis the maps are this rank's band of
-    rows, map i of scale i of an image `height` rows tall (ceil(height /
-    2**i) rows whole), and each mean is its share (_banded_terms)."""
+    Under a mesh with a "spatial" axis map i is of scale i of an image
+    `height` rows tall (ceil(height / 2**i) rows whole): this rank's band
+    of its rows, each mean its share (_banded_terms), or at a scale that
+    is not banded (parallel/spatial.banded_level) the whole map, each of
+    whose means every rank takes whole — their mean over the ranks is
+    the image's."""
     if not isinstance(pred_maps, (tuple, list)):
         pred_maps = [pred_maps]
     if row_sharded(mesh) and height is None:
@@ -62,9 +71,10 @@ def smooth_loss(
     loss = torch.zeros((), dtype=pred_maps[0].dtype, device=pred_maps[0].device)
     weight = 1.0
     for scale, scaled_map in enumerate(pred_maps):
-        if row_sharded(mesh):
+        if row_sharded(mesh) and banded_level(mesh, height, scale):
             image_rows = -(-height // 2 ** scale)
-            loss = loss + weight * _banded_terms(scaled_map, mesh, image_rows)
+            loss = loss + weight * _banded_terms(scaled_map, mesh, image_rows,
+                                                 level_rows(mesh, height, scale))
             weight /= decay
             continue
         dx, dy = _gradients(scaled_map)

@@ -17,7 +17,11 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
     reprojection_loss,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band, row_sharded
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    band,
+    banded_level,
+    row_sharded,
+)
 
 
 def normalize_depth(depth: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -84,7 +88,9 @@ def total_loss(
         step's all-reduce of the metrics and gradients makes global. With
         a "spatial" axis tgt and refs are the whole frames and each
         disparity this rank's band of its scale's rows (scale i, finest
-        first; parallel/spatial.band): the reductions that cross the
+        first; parallel/spatial.band), or the whole scale-i map where
+        scale i is not banded (parallel/spatial.banded_level: its terms
+        are then taken whole on every rank): the reductions that cross the
         band's edges — SSIM windows, vertical smoothness differences,
         depth_norm's per-image mean, a coarse scale's upsample — exchange
         rows or sums with the other bands, and each mean is spatial × the
@@ -96,13 +102,16 @@ def total_loss(
         for frame in disparities:
             for scale, d in enumerate(frame):
                 rows = band(mesh, height, scale)
+                if not banded_level(mesh, height, scale):
+                    rows = slice(0, -(-height // 2 ** scale))
                 if d.shape[2] != rows.stop - rows.start:
                     raise ValueError(
                         f"a scale-{scale} disparity of {d.shape[2]} rows under the spatial "
-                        f"mesh: this rank's band of it is rows {rows.start}:{rows.stop}")
+                        f"mesh: this rank's part of it is rows {rows.start}:{rows.stop}")
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
-        depths = [[normalize_depth(d, mesh) for d in frame] for frame in depths]
+        depths = [[normalize_depth(d, mesh if banded_level(mesh, height, scale) else None)
+                   for scale, d in enumerate(frame)] for frame in depths]
     extra = {}
     if mode == "min":
         loss_reproj, extra["automask_keep"], *in_frame = min_reprojection_loss(

@@ -18,29 +18,44 @@ is 32·⌈H/32⌉·⌈W/32⌉ of `image_shape` (flax infers it at init), flatten
 CHW as in the reference. The loaders (train/checkpoint.py) keep a dead
 branch, or one whose width is not this model's, at its own values, as the
 JAX package's import ignores them.
+
+Under a mesh with a "spatial" axis (trainer.bind_spatial) x is a band of
+the image's rows: the convs, transposed convs and GroupNorms are the
+banded ones of models/layers.py, each given its level. With use_stn the
+localization runs on the bands too (on the gathered map at a level whose
+bands hold no whole row), its 32x map is gathered with its gradient
+(parallel/spatial.gather_band), fc_loc runs on every rank, the affine
+grid's rows of the band sample, and the plain grid_sample
+samples the WHOLE frame, gathered from the bands: theta depends on every
+band, and a band's grid may point at any row of the frame.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
+    Banded,
     DownsampleConvGN,
     UpconvGN,
     conv,
     init_module_,
     lecun_normal_,
+    set_image_height,
 )
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import grid_sample
+from unsupervised_pseuso_lidar_tpu_torch.parallel import spatial
 
 LOCALIZATION_WIDTHS = (16, 32, 32, 32, 32)
 FC_WIDTHS = (1280, 256, 128, 6)
 # the reference's fixed STN input size (H, W)
 REFERENCE_SHAPE = (384, 1280)
 IDENTITY_THETA = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+# the depth net's levels: its decoder returns 16·ceil(H/16) rows
+DEPTH_LEVELS = 4
 
 
 def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -87,8 +102,14 @@ def stn_flat_width(image_shape: Tuple[int, int]) -> int:
     return LOCALIZATION_WIDTHS[-1] * h * w
 
 
-class StnDispNet(nn.Module):
-    """Returns [disp] ([B, 1, H', W'], H' = 16·⌈⌈⌈⌈H/2⌉/2⌉/2⌉/2⌉)."""
+class StnDispNet(Banded, nn.Module):
+    """Returns [disp] ([B, 1, H', W'], H' = 16·⌈⌈⌈⌈H/2⌉/2⌉/2⌉/2⌉); under a
+    spatial mesh its band of the rows."""
+
+    # under a spatial mesh the height must be a multiple of this (the
+    # decoder's 16·ceil(H/16) rows would reach the loss as a non-integer
+    # resample of a band; parallel/spatial.check_height)
+    row_multiple = 2 ** DEPTH_LEVELS
 
     def __init__(self, use_stn: bool = False,
                  image_shape: Tuple[int, int] = REFERENCE_SHAPE):
@@ -96,8 +117,8 @@ class StnDispNet(nn.Module):
         self.use_stn = use_stn
         cin = 3
         blocks = []
-        for width in LOCALIZATION_WIDTHS:
-            blocks.append(DownsampleConvGN(cin, width))
+        for level, width in enumerate(LOCALIZATION_WIDTHS):
+            blocks.append(DownsampleConvGN(cin, width, level=level))
             cin = width
         self.localization = nn.Sequential(*blocks)
         flat = stn_flat_width(image_shape if use_stn else REFERENCE_SHAPE)
@@ -110,12 +131,12 @@ class StnDispNet(nn.Module):
         self.fc_loc = nn.Sequential(*layers)
         cin = 3
         for i, width in enumerate((32, 64, 128, 256)):
-            setattr(self, f"conv{i + 1}", DownsampleConvGN(cin, width))
+            setattr(self, f"conv{i + 1}", DownsampleConvGN(cin, width, level=i))
             cin = width
         for i, width in enumerate((128, 64, 32, 16)):
-            setattr(self, f"upconv_{i + 1}", UpconvGN(cin, width))
+            setattr(self, f"upconv_{i + 1}", UpconvGN(cin, width, level=DEPTH_LEVELS - i))
             cin = width
-        self.predict = nn.Sequential(conv(16, 1, 3), nn.Sigmoid())
+        self.predict = nn.Sequential(conv(16, 1, 3, level=0), nn.Sigmoid())
         self._init_stn()
 
     def _init_stn(self) -> None:
@@ -129,11 +150,22 @@ class StnDispNet(nn.Module):
             self.fc_loc[-1].weight.zero_()
             self.fc_loc[-1].bias.copy_(torch.tensor(IDENTITY_THETA))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> List[torch.Tensor]:
+        """x: the images, or under a spatial mesh this rank's band of the
+        rows of images `height` rows tall."""
+        set_image_height(self, x, height)
         if self.use_stn:
-            theta = self.fc_loc(self.localization(x).flatten(1)).reshape(-1, 2, 3)
-            x = grid_sample(x, affine_grid(theta, x.shape[2], x.shape[3]),
-                            align_corners=False)
+            loc = self.localization(x)
+            frame, rows = x, slice(None)
+            if spatial.row_sharded(self.mesh):
+                loc = spatial.whole(loc, self.mesh, height, len(LOCALIZATION_WIDTHS))
+                frame = spatial.gather_band(x, self.mesh, height)
+                rows = spatial.band(self.mesh, height)
+            theta = self.fc_loc(loc.flatten(1)).reshape(-1, 2, 3)
+            # the whole grid's rows: the einsum rounds by its shape, and a
+            # sample's gradient jumps where its position crosses a pixel
+            grid = affine_grid(theta, frame.shape[2], frame.shape[3])[:, rows]
+            x = grid_sample(frame, grid, align_corners=False)
         out = x
         for i in range(4):
             out = getattr(self, f"conv{i + 1}")(out)

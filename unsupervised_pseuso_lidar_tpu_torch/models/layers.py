@@ -15,13 +15,22 @@ state-dict keys are the reference's (conv1.0 / conv1.2 / conv1.3 for a
 DispNetS encoder block, upconv_1.0 / upconv_1.1 for a StnDispNet one).
 
 Row sharding (a mesh with a "spatial" axis, parallel/spatial.py): Conv2d,
-MaxPool2d and Conv3x3 are nn.Conv2d, nn.MaxPool2d and the reflect-padded
-conv that, once `mesh` is set on them (trainer.bind_spatial), take the
-rows they read across their band's edges from the neighbouring bands
-(halo exchange) and pad only at the image's top and bottom: zeros for a
-conv, −inf for the max-pool, the reflection for Conv3x3. Without a mesh
-they are their parents. The module names, and so the state dicts, are
-unchanged.
+MaxPool2d, Conv3x3, ConvTranspose2d and GroupNorm are nn.Conv2d,
+nn.MaxPool2d, the reflect-padded conv, nn.ConvTranspose2d and
+nn.GroupNorm that, once `mesh` is set on them (trainer.bind_spatial),
+run on a band of the image's rows: the windows take the rows they read
+across the band's edges from the neighbouring bands (halo exchange) and
+pad only at the image's top and bottom — zeros for a conv, −inf for the
+max-pool, the reflection for Conv3x3, a zero row under the transposed
+conv — and GroupNorm takes each image's statistics over the data row.
+Each knows its `level` (its input is 2**level times smaller than the
+image; set by its net) and the image's `height` (set by its net's
+forward, set_image_height) and applies the banded-level rule there
+(spatial.on_bands): at a level whose bands hold no whole row it runs as
+its parent on the whole map, gathered from the bands (spatial.whole),
+and a transposed conv whose output level is banded again cuts its band
+out (spatial.placed). Without a mesh they are their parents. The module
+names, and so the state dicts, are unchanged.
 """
 
 from __future__ import annotations
@@ -37,7 +46,13 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.resample import reflect_pad1
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     first_band,
     halo,
+    halo_reach,
     last_band,
+    level_rows,
+    on_bands,
+    placed,
+    row_sharded,
+    whole,
 )
 
 
@@ -161,116 +176,246 @@ class _GlobalBatchNorm(torch.autograd.Function):
                 None, None, None, None)
 
 
+class Banded:
+    """A module that runs on a band of the image's rows under a spatial
+    `mesh` (set by trainer.bind_spatial), at `level` (its input 2**level
+    times smaller than the image, set by its net), for an image `height`
+    rows tall (set by its net's forward: set_image_height). Under a
+    spatial mesh both must be set (spatial.on_bands raises otherwise)."""
+
+    mesh = None
+    level = None
+    height = None
+
+    def on_bands(self, level) -> bool:
+        """spatial.on_bands at `level` of this module's image."""
+        return on_bands(self.mesh, self.height, level)
+
+    def band_rows(self):
+        """Every band's row count at this module's level (the halo's)."""
+        return level_rows(self.mesh, self.height, self.level)
+
+
+def set_image_height(net: nn.Module, x: torch.Tensor, height) -> None:
+    """Under a spatial mesh of `net` (a Banded depth net): check that x
+    [B, C, R, W] is this rank's band of an image `height` rows tall and
+    set that height on every Banded module of the net. Nothing without a
+    spatial axis."""
+    if not row_sharded(net.mesh):
+        return
+    if height is None:
+        raise ValueError(f"{type(net).__name__} on a band of rows needs the image's height")
+    rows = net.mesh.band(height)
+    if x.shape[2] != rows.stop - rows.start:
+        raise ValueError(f"{x.shape[2]} rows: band {rows.start}:{rows.stop} of a "
+                         f"{height}-row image was expected")
+    for m in net.modules():
+        if isinstance(m, Banded):
+            m.height = height
+
+
+def _out_level(level, stride: int):
+    return None if level is None else level + stride.bit_length() - 1
+
+
 def _banded(x: torch.Tensor, mesh, kernel: int, stride: int, padding: int,
-            border: float) -> torch.Tensor:
+            border: float, rows) -> torch.Tensor:
     """x, this rank's band, extended by the rows a (kernel, stride,
     padding) window reads across the band's edges: `padding` rows above
-    and kernel − stride − padding below, from the neighbouring bands, or
-    `border` rows at the image's top and bottom (the layer's own
-    padding, all `padding` rows of it at the bottom). The window then
-    runs with no row padding: a band starts at an even row (the 32-row
-    grain, parallel/mesh.row_bands), so its stride-2 outputs are exactly
-    the image's output rows of that band. Only the last band may hold an
-    odd row count; it ends where the image does, and the bottom padding
-    gives it the image's last output row."""
+    and kernel − stride − padding below, from the neighbouring bands
+    (past a short one: `rows`, every band's row count), or `border` rows
+    where the image ends (the layer's own padding, all `padding` rows of
+    it below the last band). The window then runs with no row padding: a
+    band at a banded level starts at an even row of its input
+    (spatial.banded_level), so its stride-2 outputs are exactly the
+    image's output rows of that band. Only the last band may hold an odd
+    row count; it ends where the image does, and the bottom padding gives
+    it the image's last output row."""
     if x.shape[2] % stride and not last_band(mesh):
         raise ValueError(f"a band of {x.shape[2]} rows under a stride-{stride} window")
     above, below = padding, max(kernel - stride - padding, 0)
-    x = halo(x, mesh, above, below)
-    pad = (0, 0, above if first_band(mesh) else 0, padding if last_band(mesh) else 0)
+    bottom = padding if last_band(mesh) else below
+    got_above, got_below = halo_reach(mesh, above, below, rows)
+    x = halo(x, mesh, above, below, rows)
+    pad = (0, 0, above - got_above, bottom - got_below)
     return F.pad(x, pad, value=border) if any(pad) else x
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(Banded, nn.Conv2d):
     """nn.Conv2d; under a row-sharding `mesh` its rows come with halos
-    (_banded, zero rows at the image's border)."""
-
-    mesh = None
+    (_banded, zero rows at the image's border), or where its output level
+    is not banded it runs on the whole map."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh is None:
-            return super().forward(x)
-        x = _banded(x, self.mesh, self.kernel_size[0], self.stride[0], self.padding[0], 0.0)
+        if not self.on_bands(_out_level(self.level, self.stride[0])):
+            return super().forward(whole(x, self.mesh, self.height, self.level))
+        x = _banded(x, self.mesh, self.kernel_size[0], self.stride[0], self.padding[0], 0.0,
+                    self.band_rows())
         return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
                         self.dilation, self.groups)
 
 
-class MaxPool2d(nn.MaxPool2d):
+class MaxPool2d(Banded, nn.MaxPool2d):
     """nn.MaxPool2d; under a row-sharding `mesh` its rows come with halos
-    (_banded, −inf rows at the image's border)."""
-
-    mesh = None
+    (_banded, −inf rows at the image's border), or where its output level
+    is not banded it runs on the whole map."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh is None:
-            return super().forward(x)
-        x = _banded(x, self.mesh, self.kernel_size, self.stride, self.padding, -math.inf)
+        if not self.on_bands(_out_level(self.level, self.stride)):
+            return super().forward(whole(x, self.mesh, self.height, self.level))
+        x = _banded(x, self.mesh, self.kernel_size, self.stride, self.padding, -math.inf,
+                    self.band_rows())
         return F.max_pool2d(x, self.kernel_size, self.stride, (0, self.padding))
 
 
+class ConvTranspose2d(Banded, nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (JAX's TorchConvTranspose: k 3, stride 2,
+    padding 1, output_padding 1 — output 2x the input). Under a
+    row-sharding `mesh`, on a band of n rows: output row 2i reads input
+    row i and row 2i + 1 reads rows i and i + 1, so the band takes one
+    row of the band below (halo) — a zero row at the image's bottom,
+    which is the output_padding row's — and its 2n output rows are the
+    image's output rows of the band. Where its input level is not
+    banded it runs on the whole map and cuts this rank's band out of the
+    output where that level is banded (spatial.placed)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.on_bands(self.level):
+            return placed(super().forward(x), self.mesh, self.height,
+                          None if self.level is None else self.level - 1)
+        if (self.kernel_size[0], self.stride[0], self.padding[0],
+                self.output_padding[0]) != (3, 2, 1, 1):
+            raise ValueError("a banded ConvTranspose2d takes kernel 3, stride 2, padding 1, "
+                             "output_padding 1 (JAX's TorchConvTranspose)")
+        rows = self.band_rows()
+        got_below = halo_reach(self.mesh, 0, 1, rows)[1]
+        x = halo(x, self.mesh, 0, 1, rows)
+        if not got_below:
+            x = F.pad(x, (0, 0, 0, 1))
+        y = F.conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
+                               (0, self.output_padding[1]), self.groups, self.dilation)
+        return y[:, :, :2 * (x.shape[2] - 1)]
+
+
+class GroupNorm(Banded, nn.GroupNorm):
+    """nn.GroupNorm. Under a row-sharding
+    `mesh` each (image, group)'s statistics are its band's Σx, Σx² and
+    count summed over the data row (Mesh.spatial_sum: differentiable, one
+    all-reduce; per image, so not over the data axis), accumulated in
+    fp64 — autograd through E[x²] − E[x]² in fp32 would lose ~1e-4 of
+    the gradient to cancellation — and the band normalized with them, in
+    train and eval mode alike. At a level that is not banded, and without
+    a mesh, it is its parent."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.on_bands(self.level):
+            return super().forward(x)
+        batch, groups = x.shape[0], self.num_groups
+        xg = x.float().reshape(batch, groups, -1)
+        xd = xg.double()
+        count = torch.full((1,), float(xg.shape[2]), dtype=torch.float64, device=x.device)
+        sums = self.mesh.spatial_sum(torch.cat(
+            [xd.sum(dim=2).reshape(-1), (xd * xd).sum(dim=2).reshape(-1), count]))
+        del xd
+        n = batch * groups
+        mean = sums[:n] / sums[-1]
+        var = torch.clamp(sums[n:2 * n] / sums[-1] - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + self.eps)
+        y = (xg - mean.float().reshape(batch, groups, 1)) * invstd.float().reshape(
+            batch, groups, 1)
+        y = y.reshape(x.shape)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        autocast = torch.is_autocast_enabled(x.device.type)
+        return y if autocast else y.to(x.dtype)
+
+
 def conv(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-         bias: bool = True) -> nn.Conv2d:
-    """nn.Conv2d with torch's symmetric (k-1)//2 padding (JAX's TorchConv)."""
-    return nn.Conv2d(in_channels, out_channels, kernel_size, stride,
-                     (kernel_size - 1) // 2, bias=bias)
+         bias: bool = True, level=None) -> Conv2d:
+    """Conv2d with torch's symmetric (k-1)//2 padding (JAX's TorchConv) at
+    `level` (Banded)."""
+    layer = Conv2d(in_channels, out_channels, kernel_size, stride,
+                   (kernel_size - 1) // 2, bias=bias)
+    layer.level = level
+    return layer
 
 
-def conv_transpose(in_channels: int, out_channels: int) -> nn.ConvTranspose2d:
+def conv_transpose(in_channels: int, out_channels: int, level=None) -> ConvTranspose2d:
     """JAX's TorchConvTranspose: ConvTranspose2d(k=3, stride=2, padding=1,
-    output_padding=1), output = 2x the input size."""
-    return nn.ConvTranspose2d(in_channels, out_channels, 3, stride=2, padding=1,
-                              output_padding=1)
+    output_padding=1), output = 2x the input size, at input `level`
+    (Banded)."""
+    layer = ConvTranspose2d(in_channels, out_channels, 3, stride=2, padding=1,
+                            output_padding=1)
+    layer.level = level
+    return layer
+
+
+def group_norm(channels: int, level=None) -> GroupNorm:
+    """GroupNorm(16) with flax's epsilon at `level` (Banded)."""
+    layer = GroupNorm(16, channels, eps=GN_EPS)
+    layer.level = level
+    return layer
+
+
+def _next(level):
+    return None if level is None else level + 1
 
 
 class DownsampleConvBN(nn.Sequential):
     """Conv(s2) + ReLU + BatchNorm + Conv(s1) + ReLU: the DispNetS encoder
-    block, its norm after the activation (the reference's order)."""
+    block, its norm after the activation (the reference's order); its
+    input at `level`."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 level=None):
         super().__init__(
-            conv(in_channels, out_channels, kernel_size, stride=2), nn.ReLU(),
+            conv(in_channels, out_channels, kernel_size, stride=2, level=level), nn.ReLU(),
             BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
-            conv(out_channels, out_channels, kernel_size), nn.ReLU(),
+            conv(out_channels, out_channels, kernel_size, level=_next(level)), nn.ReLU(),
         )
 
 
 class DownsampleConvGN(nn.Sequential):
-    """Conv(s2) + GroupNorm(16) + ReLU + Conv(s1) + GroupNorm(16) + ReLU."""
+    """Conv(s2) + GroupNorm(16) + ReLU + Conv(s1) + GroupNorm(16) + ReLU;
+    its input at `level`."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 level=None):
+        out = _next(level)
         super().__init__(
-            conv(in_channels, out_channels, kernel_size, stride=2),
-            nn.GroupNorm(16, out_channels, eps=GN_EPS), nn.ReLU(),
-            conv(out_channels, out_channels, kernel_size),
-            nn.GroupNorm(16, out_channels, eps=GN_EPS), nn.ReLU(),
+            conv(in_channels, out_channels, kernel_size, stride=2, level=level),
+            group_norm(out_channels, out), nn.ReLU(),
+            conv(out_channels, out_channels, kernel_size, level=out),
+            group_norm(out_channels, out), nn.ReLU(),
         )
 
 
 class UpconvGN(nn.Sequential):
-    """ConvTranspose(3, s2) + GroupNorm(16) + ReLU."""
+    """ConvTranspose(3, s2) + GroupNorm(16) + ReLU; its input at `level`."""
 
-    def __init__(self, in_channels: int, out_channels: int):
-        super().__init__(conv_transpose(in_channels, out_channels),
-                         nn.GroupNorm(16, out_channels, eps=GN_EPS), nn.ReLU())
+    def __init__(self, in_channels: int, out_channels: int, level=None):
+        out = None if level is None else level - 1
+        super().__init__(conv_transpose(in_channels, out_channels, level),
+                         group_norm(out_channels, out), nn.ReLU())
 
 
-class Conv3x3(nn.Module):
-    """Reflection-pad-1 + 3x3 conv (parameters under ``.conv``). Under a
-    row-sharding `mesh` the rows above and below the band are the
+class Conv3x3(Banded, nn.Module):
+    """Reflection-pad-1 + 3x3 conv (parameters under ``.conv``) at `level`.
+    Under a row-sharding `mesh` the rows above and below the band are the
     neighbouring bands' and the reflection is taken at the image's top
     and bottom only: image row 1 (−2) may lie in the band below (above)
-    when a band holds one row, so it is read after the exchange."""
+    when a band holds one row, so it is read after the exchange. At a
+    level that is not banded it runs on the whole map."""
 
-    mesh = None
-
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, level=None):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 3)
+        self.level = level
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mesh is None:
+        if not self.on_bands(self.level):
             return self.conv(reflect_pad1(x))
-        x = halo(x, self.mesh, 1, 1)
+        x = halo(x, self.mesh, 1, 1, self.band_rows())
         if first_band(self.mesh):
             x = torch.cat([x[:, :, 1:2], x], dim=2)
         if last_band(self.mesh):
@@ -281,11 +426,12 @@ class Conv3x3(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv3x3 (reflect pad) + ELU (parameters under ``.conv.conv``)."""
+    """Conv3x3 (reflect pad) + ELU (parameters under ``.conv.conv``) at
+    `level`."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int, level=None):
         super().__init__()
-        self.conv = Conv3x3(in_channels, out_channels)
+        self.conv = Conv3x3(in_channels, out_channels, level)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.elu(self.conv(x))

@@ -45,9 +45,9 @@ def row_bands(height: int, spatial: int) -> list:
     32, 32; where height is a multiple of 32·spatial these are the equal
     bands JAX places. Only the last band can hold a row count that is not
     a multiple of 32. With fewer rows of 32 than bands (a band would hold
-    none) the bands are equal, as JAX places them: the depth net refuses
-    such a height (parallel/spatial.check_height), the batch placement
-    takes it. Raises ValueError unless spatial divides height (JAX's
+    none) the bands are equal, as JAX places them: the depth nets then
+    compute the levels whose bands hold no whole row on the gathered map
+    (parallel/spatial.banded_level). Raises ValueError unless spatial divides height (JAX's
     rule for a sharded dimension)."""
     if height % spatial:
         raise ValueError(f"an image of {height} rows does not split into {spatial} bands "

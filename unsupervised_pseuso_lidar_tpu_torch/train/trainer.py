@@ -12,10 +12,10 @@ result is the JAX step's on the global batch: BatchNorm statistics, the
 where they are taken, the parameter gradients are averaged once a step
 before the optimizer, and the metrics are global means on every rank.
 With a "spatial" axis a rank's block is a band of its images' rows:
-DispResNet runs on the band with halo-exchanging convolutions
-(bind_spatial), the pose net on the whole frames, which the step
-gathers from the bands of its data row, and the loss on the band
-(losses/total.py).
+the depth net (DispResNet, DispNetS or StnDispNet) runs on the band with
+halo-exchanging layers (bind_spatial), the pose net on the whole frames,
+which the step gathers from the bands of its data row, and the loss on
+the band (losses/total.py).
 
 Batches use the JAX package's schema and layout — tgt [B, H, W, 3],
 ref_imgs [B, 2, H, W, 3] (uint8 or ImageNet-normalized float),
@@ -52,12 +52,12 @@ from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import (
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth, inverse_warp
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.dispnet import DispNetS
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.resnet_dispnet import DispResNet
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.stn_dispnet import StnDispNet
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import (
+    Banded,
     BatchNorm2d,
-    Conv2d,
-    Conv3x3,
-    MaxPool2d,
     frozen_running_statistics,
 )
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.pose_fc import PoseFc
@@ -116,27 +116,28 @@ def batch_to_device(
 
 
 def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor],
-                 scales=(0,)) -> Dict[str, torch.Tensor]:
+                 depth_model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """Under a mesh with a "spatial" axis: a device batch whose tgt and
     ref_imgs hold this rank's band of rows -> the same batch with the
     whole frames, gathered from the bands of the data row (the warp's
     sources and the pose net's input; parallel/spatial.gather_rows, in
     the batch's dtype). Raises ValueError, on every rank, for a height
-    DispResNet cannot shard at output `scales` (check_height). The batch
-    itself otherwise."""
+    `depth_model` cannot shard at its output scales (check_height with
+    depth_scales and its own row_multiple). The batch itself otherwise."""
     if not row_sharded(mesh):
         return batch
     tgt = batch["tgt"]
     height = image_height(mesh, tgt.shape[2], tgt.device)
-    check_height(mesh, height, tgt.shape[3], scales)
+    check_height(mesh, height, tgt.shape[3], depth_scales(depth_model),
+                 getattr(depth_model, "row_multiple", 1))
     return dict(batch, tgt=gather_rows(tgt, mesh, 2, height),
                 ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3, height))
 
 
-def depth_scales(model: nn.Module) -> Tuple[int, ...]:
-    """The output scales of a depth net: DispResNet's `scales`, (0,) for a
-    net that does not say (the only one bind_spatial takes is
-    DispResNet)."""
+def depth_scales(model: Optional[nn.Module]) -> Tuple[int, ...]:
+    """The output scales of a depth net: its `scales` (DispResNet's one or
+    four, DispNetS's four), (0,) for a net that does not say
+    (StnDispNet, BtsModel)."""
     return tuple(getattr(model, "scales", (0,)))
 
 
@@ -169,14 +170,19 @@ def forward_batch(
     -> (disps_tgt, disps_ref0, poses). With semi_sup_pose the poses are
     the batch's OXTS odometry [B, 2, 6] and the pose net does not run (so
     it gets no gradient). The depth net sees the image `rows` (a rank's
-    band under a spatial mesh), the pose net the whole frames."""
+    band under a spatial mesh, with the image's height), the pose net the
+    whole frames."""
     depth_model.train(train)
     pose_model.train(train)
     tgt = batch["tgt"]
     ref0 = batch["ref_imgs"][:, 0]
     ref1 = batch["ref_imgs"][:, 1]
     bsz = tgt.shape[0]
-    disps = depth_model(torch.cat([tgt, ref0], dim=0)[:, :, rows])
+    images = torch.cat([tgt, ref0], dim=0)
+    if isinstance(depth_model, Banded) and row_sharded(depth_model.mesh):
+        disps = depth_model(images[:, :, rows], height=images.shape[2])
+    else:
+        disps = depth_model(images[:, :, rows])
     disps_tgt = [d[:bsz] for d in disps]
     disps_ref0 = [d[bsz:] for d in disps]
     if semi_sup_pose:
@@ -309,24 +315,32 @@ def bind_batch_norm(models, mesh: Optional[Mesh]) -> None:
                 m.mesh = mesh
 
 
+# the nets that run under a spatial mesh: the depth nets on bands, the
+# pose nets on the whole frames (their 7 stride-2 convs leave fewer rows
+# than ranks)
+SPATIAL_NETS = (DispResNet, DispNetS, StnDispNet, PoseNet, PoseFc)
+
+
 def bind_spatial(models, mesh: Optional[Mesh]) -> None:
-    """Point the row-sharded layers of `models` (layers.Conv2d, MaxPool2d,
-    Conv3x3) at `mesh` when it has a "spatial" axis — they then exchange
-    halos with the neighbouring bands — and unbind them otherwise.
+    """Point the row-sharded modules of `models` (layers.Banded: the
+    depth nets and their convs, transposed convs, max-pools and
+    GroupNorms) at `mesh` when it has a "spatial" axis — they then run on
+    bands, exchanging halos with the neighbouring bands or gathering the
+    levels whose bands hold no whole row — and unbind them otherwise.
 
     Under a spatial mesh the depth net must be DispResNet (any depth, one
-    output scale or all_scales) and the pose net PoseNet or PoseFc, which
-    runs on the whole frames (its 7 stride-2 convs leave fewer rows than
-    ranks); any other model raises NotImplementedError, naming it
-    (ROADMAP.md)."""
+    output scale or all_scales), DispNetS or StnDispNet (with or without
+    its STN), and the pose net PoseNet or PoseFc; any other model
+    (BtsModel) raises NotImplementedError, naming it (ROADMAP.md)."""
     sharded = row_sharded(mesh)
     for model in models:
-        if sharded and not isinstance(model, (PoseNet, PoseFc, DispResNet)):
+        if sharded and not isinstance(model, SPATIAL_NETS):
             raise NotImplementedError(
                 f"{type(model).__name__} under a spatial mesh is not ported (ROADMAP.md, "
-                "'Open under a spatial mesh'): only DispResNet with PoseNet or PoseFc")
+                "'Open under a spatial mesh'): only DispResNet, DispNetS or StnDispNet "
+                "with PoseNet or PoseFc")
         for m in model.modules():
-            if isinstance(m, (Conv2d, MaxPool2d, Conv3x3)):
+            if isinstance(m, Banded):
                 m.mesh = mesh if sharded else None
 
 
@@ -411,7 +425,7 @@ class TrainStep:
     Under a mesh with a "spatial" axis the ranks of a data row hold bands
     of the same images: the step gathers the whole frames from the bands
     (whole_frames), augments them with the draws of the data row's images,
-    runs DispResNet on its band (bind_spatial) and the pose net on the
+    runs the depth net on its band (bind_spatial) and the pose net on the
     whole frames, and the loss on its band (losses/total.py).
 
     With remat the loss of each micro-batch is rematerialized, the
@@ -543,7 +557,7 @@ class TrainStep:
             batch = shard_batch(self.mesh, batch, self.accum_steps)
         batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
             batch, self.device, keep_groundtruth=bool(self.supervised_weight)
-        ), depth_scales(state.depth_model)))
+        ), state.depth_model))
         if batch["tgt"].shape[0] % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
         aug = self._aug_params(batch["tgt"].shape[0] // self.accum_steps)
@@ -678,7 +692,7 @@ class EvalStep:
         and oxts when it has them."""
         batch = normalize_uint8_batch(whole_frames(
             self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True),
-            depth_scales(self.depth_model)))
+            self.depth_model))
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16"):
             disps_tgt, disps_ref0, poses = forward_batch(
@@ -912,8 +926,7 @@ class Trainer:
         if sharded:
             batch = shard_batch(self.mesh, batch, self.train_step.accum_steps)
         batch = normalize_uint8_batch(whole_frames(
-            self.mesh, batch_to_device(batch, self.device),
-            depth_scales(self.state.depth_model)))
+            self.mesh, batch_to_device(batch, self.device), self.state.depth_model))
         height = batch["tgt"].shape[2]
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=act.precision == "bf16"):
