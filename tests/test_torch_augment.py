@@ -23,7 +23,6 @@ from unsupervised_pseuso_lidar_tpu_torch.data import augment
 from unsupervised_pseuso_lidar_tpu_torch.train import trainer as trainer_module
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(51)
 B, H, W = 3, 10, 14
 # images are O(1) after normalization; one multiply and one add a pixel
 ATOL = 1e-6
@@ -57,14 +56,15 @@ def _jax_params(seed, step, batch, jitter=True, flip=True):
                                  torch.from_numpy(flips))
 
 
-def _batch():
+def _batch(seed):
+    rng = np.random.default_rng(seed)
     k = np.array([[20.0, 0, 6.5], [0, 20.0, 5.0], [0, 0, 1]], np.float32)
     return {
-        "tgt": RNG.normal(size=(B, H, W, 3)).astype(np.float32),
-        "ref_imgs": RNG.normal(size=(B, 2, H, W, 3)).astype(np.float32),
-        "intrinsics": (k + RNG.normal(0, 0.5, (B, 3, 3))).astype(np.float32),
-        "groundtruth": RNG.uniform(0, 80, (B, H, W)).astype(np.float32),
-        "oxts": RNG.normal(0, 0.3, (B, 2, 6)).astype(np.float32),
+        "tgt": rng.normal(size=(B, H, W, 3)).astype(np.float32),
+        "ref_imgs": rng.normal(size=(B, 2, H, W, 3)).astype(np.float32),
+        "intrinsics": (k + rng.normal(0, 0.5, (B, 3, 3))).astype(np.float32),
+        "groundtruth": rng.uniform(0, 80, (B, H, W)).astype(np.float32),
+        "oxts": rng.normal(0, 0.3, (B, 2, 6)).astype(np.float32),
     }
 
 
@@ -75,7 +75,7 @@ def _port_batch(batch):
 
 
 def test_color_jitter_matches_jax():
-    batch = _batch()
+    batch = _batch(51)
     key = jax.random.PRNGKey(7)
     ref_tgt, ref_refs = jax_augment.color_jitter(key, jnp.asarray(batch["tgt"]),
                                                  jnp.asarray(batch["ref_imgs"]))
@@ -92,7 +92,7 @@ def test_color_jitter_matches_jax():
 
 def test_horizontal_flip_matches_jax():
     # at least one sample flipped and one not; cx' = W - 1 - cx exactly
-    batch = _batch()
+    batch = _batch(51)
     key = next(k for k in (jax.random.PRNGKey(s) for s in range(20))
                if 0 < int(jax.random.bernoulli(k, 0.5, (B,)).sum()) < B)
     ref = jax_augment.horizontal_flip(key, jnp.asarray(batch["tgt"]),
@@ -114,7 +114,7 @@ def test_horizontal_flip_matches_jax():
 @pytest.mark.parametrize("jitter,flip", [(True, True), (True, False), (False, True)])
 def test_augment_batch_matches_jax(jitter, flip):
     # the GT flip and the OXTS mirror follow the same decisions
-    batch = _batch()
+    batch = _batch(51)
     for seed, step in ((0, 0), (42, 17)):
         ref = jax_augment.augment_batch(jnp.asarray(step),
                                         {k: jnp.asarray(v) for k, v in batch.items()},
@@ -131,7 +131,8 @@ def test_augment_batch_matches_jax(jitter, flip):
 
 def test_the_triplet_gets_the_same_parameters():
     # refs equal to the target stay equal to it under every draw
-    tgt = torch.from_numpy(RNG.normal(size=(8, 3, H, W)).astype(np.float32))
+    rng = np.random.default_rng(51)
+    tgt = torch.from_numpy(rng.normal(size=(8, 3, H, W)).astype(np.float32))
     batch = {"tgt": tgt, "ref_imgs": torch.stack([tgt, tgt], 1).clone(),
              "intrinsics": torch.eye(3).repeat(8, 1, 1)}
     for step in range(3):

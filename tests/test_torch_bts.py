@@ -32,6 +32,7 @@ import yaml
 
 from tests.test_data import DATE, DRIVE, mini_kitti  # noqa: F401
 from tests.test_torch_serve import _assert_clouds_match
+from tests.test_torch_train import STEP_SETTINGS, _grads_in_opt_state
 from tests.test_torch_zoo import assert_state_equal, nchw, nhwc, random_variables
 from unsupervised_pseuso_lidar_tpu.cli import inference as jax_inference_cli
 from unsupervised_pseuso_lidar_tpu.cli import pipeline as jax_pipeline_cli
@@ -45,11 +46,14 @@ from unsupervised_pseuso_lidar_tpu.train.checkpoint import (
     export_torch_state,
     import_torch_state,
 )
+from unsupervised_pseuso_lidar_tpu.train.trainer import make_train_step_body
 from unsupervised_pseuso_lidar_tpu_torch.cli import export as export_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import inference as inference_cli
 from unsupervised_pseuso_lidar_tpu_torch.cli import pipeline as pipeline_cli
+from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
 from unsupervised_pseuso_lidar_tpu_torch.geometry.calibration import Calibration
 from unsupervised_pseuso_lidar_tpu_torch.geometry.oxts import load_velo_scan
+from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.bts import local_planar_guidance
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
@@ -60,11 +64,19 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     reference_state,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
-from unsupervised_pseuso_lidar_tpu_torch.train.trainer import create_train_state
+from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+    TrainState,
+    batch_to_device,
+    create_train_state,
+    forward_batch,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+    normalize_uint8_batch,
+)
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(93)
 HEIGHT, WIDTH, NUM_FEATURES = 64, 96, 512
 # the five outputs: relative L2 over each map; reduc1x1 and the final
 # depth also elementwise (_check_outputs); LPG alone elementwise where its
@@ -74,6 +86,11 @@ REL_L2, RTOL, DENOM_MIN = 1e-5, 1e-4, 0.05
 # statistics, which the two fp32 forwards compute apart by ~1e-6: the
 # outputs drift to ~1.5e-5 (relative L2) by the decoder
 TRAIN_REL_L2 = 1e-4
+# the training step against JAX's (test_train_step_matches_jax): its
+# metrics (rel), and JAX's fp32 gradient against the port's step in fp64
+# (rel L2 of the whole gradient, and of each leaf: a leaf that enters the
+# loss otherwise than in JAX moves by O(1))
+STEP_LOSS_RTOL, STEP_FP64_REL_L2, STEP_FP64_LEAF_REL_L2 = 1e-6, 5e-2, 1e-1
 # BatchNorm running statistics after a train-mode forward: rel and abs
 # (DenseNet-161 normalizes 160 times by batch statistics in train mode;
 # ResNet-50's bound, tests/test_torch_resnets.py)
@@ -92,8 +109,8 @@ def bts():
     return model, variables, port
 
 
-def _image(batch=2):
-    return RNG.normal(size=(batch, HEIGHT, WIDTH, 3)).astype(np.float32)
+def _image(seed, batch=2):
+    return np.random.default_rng(seed).normal(size=(batch, HEIGHT, WIDTH, 3)).astype(np.float32)
 
 
 def _denominators(plane_eq, upratio):
@@ -115,10 +132,11 @@ def test_local_planar_guidance_matches_jax(upratio):
     # unit normals with θ < π/3 and distances in (0, 80), as
     # Reduction1x1 emits them; the worst pixels come near a zero
     # denominator
-    theta = RNG.uniform(0, np.pi / 3, (2, 5, 7))
-    phi = RNG.uniform(0, 2 * np.pi, (2, 5, 7))
+    rng = np.random.default_rng(93)
+    theta = rng.uniform(0, np.pi / 3, (2, 5, 7))
+    phi = rng.uniform(0, 2 * np.pi, (2, 5, 7))
     plane = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi),
-                      np.cos(theta), RNG.uniform(0.1, 80, (2, 5, 7))], -1).astype(np.float32)
+                      np.cos(theta), rng.uniform(0.1, 80, (2, 5, 7))], -1).astype(np.float32)
     ref = np.asarray(jax_bts.local_planar_guidance(jnp.asarray(plane), upratio))
     got = local_planar_guidance(nchw(plane), upratio).numpy()
     assert got.shape == ref.shape == (2, 5 * upratio, 7 * upratio)
@@ -144,7 +162,7 @@ def _check_outputs(got, ref, rel_l2=REL_L2):
 def test_forward_matches_jax(bts):
     # eval mode: (d8, d4, d2, reduc1x1, final depth), each [B, 1, H, W]
     model, variables, port = bts
-    img = _image()
+    img = _image(93)
     ref = jax.jit(lambda v, x: model.apply(v, x, train=False))(variables, jnp.asarray(img))
     with torch.no_grad():
         got = port.eval()(nchw(img))
@@ -161,7 +179,7 @@ def test_train_mode_forward_and_running_statistics_match_jax(bts):
     port = build_model("BtsModel", device="cpu", num_features=NUM_FEATURES)
     port.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"],
                                              "BtsModel"))
-    img = _image()
+    img = _image(94)
     ref, mutated = jax.jit(lambda v, x: model.apply(v, x, train=True, mutable=["batch_stats"]))(
         variables, jnp.asarray(img))
     got = port.train()(nchw(img))
@@ -204,6 +222,124 @@ def test_state_dicts_match_jax_export_and_import(bts):
     load_reference_state(fresh, {k: torch.from_numpy(np.array(v)) for k, v in blob.items()})
     new_params, new_stats = import_torch_state(params, stats, blob, "BtsModel")
     assert_state_equal(fresh.state_dict(), state_dict_from_jax(new_params, new_stats, "BtsModel"))
+
+
+# --------------------------------------------------------------------------
+# the training step
+# --------------------------------------------------------------------------
+
+
+def _port_step_grads(variables, pose_variables, batch, dtype):
+    """The port's training-step loss and parameter gradients {net.key}
+    (fp64) of BtsModel + PoseNet with the flax variables, the models and
+    the normalized batch in `dtype` (forward_batch and total_loss with
+    STEP_SETTINGS, as the train step runs them)."""
+    depth = build_model("BtsModel", device="cpu", num_features=NUM_FEATURES)
+    depth.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"],
+                                              "BtsModel"))
+    pose = build_model("PoseNet", device="cpu")
+    pose.load_state_dict(state_dict_from_jax(pose_variables["params"], {}, "PoseNet"))
+    depth.to(dtype)
+    pose.to(dtype)
+    port_batch = normalize_uint8_batch(batch_to_device(batch, torch.device("cpu")))
+    port_batch = {k: v.to(dtype) for k, v in port_batch.items()}
+    disps_tgt, disps_ref0, poses = forward_batch(depth, pose, port_batch, train=True)
+    reproj, smooth, _ = total_loss(
+        port_batch["tgt"], [port_batch["ref_imgs"][:, 0], port_batch["ref_imgs"][:, 1]],
+        [disps_tgt, disps_ref0], poses, port_batch["intrinsics"], mode="min",
+        **STEP_SETTINGS)
+    (reproj + smooth).backward()
+    return float(reproj + smooth), {f"{net}.{k}": p.grad.double()
+                                    for net, model in (("depth", depth), ("pose", pose))
+                                    for k, p in model.named_parameters()}
+
+
+def test_train_step_matches_jax(bts):
+    # one training step of BtsModel + PoseNet(s2d_convs=0) at 64x96, batch
+    # 2, fp32, 'min' with test_torch_train's settings, against JAX's
+    # make_train_step_body with the gather warp: BTS's five outputs enter
+    # both losses as five full-resolution "disparities" (JAX's
+    # forward_batch), so the metrics agree at rel STEP_LOSS_RTOL. The pose
+    # head's bias moves the warp by a few pixels (tests/test_torch_train's
+    # docstring). The gradient of this step is ill-conditioned in fp32
+    # (160 train-mode BatchNorms, down to 2x3 pixels a map at 1/32): the
+    # port's fp32 step, JAX's and the port's own under 1e-7 relative
+    # weight noise all sit 1e-3 – 4e-2 per leaf from each other (on a
+    # CPU), so the reference is the port's step evaluated in fp64. The
+    # port's fp32 gradient is at least as near to it as JAX's fp32 one
+    # (flat rel L2: 4.8e-3 and 1.8e-2 at batch seed 1, 1.5e-3 and 8.9e-3
+    # at seed 2), and JAX's within STEP_FP64_REL_L2 of it, each of its
+    # leaves and the port's within STEP_FP64_LEAF_REL_L2 (worst leaves at
+    # seed 1: JAX's 3.5e-2, the port's 9.4e-3). JAX's step cannot run in
+    # fp64: it casts the normalized images and the nets' outputs to fp32
+    # before the loss (its train/trainer.py:226, :273-278), and the warp
+    # its coordinates (geometry/warp.py:83-86, ops/resample.py:134-135)
+    model, variables, _ = bts
+    pose = jax_build_model("PoseNet", s2d_convs=0)
+    img = jnp.zeros((1, HEIGHT, WIDTH, 3), jnp.float32)
+    pose_variables = random_variables(pose, img, [img, img], seed=3)
+    head = pose_variables["params"]["TorchConv_7"]["Conv_0"]
+    head["bias"] = (np.random.default_rng(5).normal(size=(2, 6)) * np.array(
+        [0.005] * 3 + [0.03] * 3) / 0.06).reshape(-1).astype(np.float32)
+    params = {"depth": variables["params"], "pose": pose_variables["params"]}
+    batch = next(SyntheticTripletDataset(1, 2, HEIGHT, WIDTH, seed=1,
+                                         uint8_images=True).batches())
+    tx = _grads_in_opt_state()
+    body = make_train_step_body(model, pose, tx, loss_mode="min", warp_impl="gather",
+                                **STEP_SETTINGS)
+    state = jax_trainer.TrainState(step=jnp.asarray(0, jnp.int32), params=params,
+                                   batch_stats={"depth": variables["batch_stats"], "pose": {}},
+                                   opt_state=tx.init(params))
+    new_state, ref = jax.jit(body)(state, {k: jnp.asarray(batch[k]) for k in
+                                           ("tgt", "ref_imgs", "intrinsics")})
+    grads = jax.tree.map(np.asarray, new_state.opt_state)
+    jax_grads = {f"{net}.{k}": torch.from_numpy(np.asarray(v)).double()
+                 for net, name in (("depth", "BtsModel"), ("pose", "PoseNet"))
+                 for k, v in state_dict_from_jax(grads[net], None, name).items()}
+
+    depth = build_model("BtsModel", device="cpu", num_features=NUM_FEATURES)
+    depth.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"],
+                                              "BtsModel"))
+    pose_net = build_model("PoseNet", device="cpu")
+    pose_net.load_state_dict(state_dict_from_jax(pose_variables["params"], {}, "PoseNet"))
+    optimizer = make_optimizer(load_config("configs/tpu_v5e.yaml"), depth, pose_net)
+    port_state = TrainState(depth, pose_net, optimizer, make_lr_schedule(optimizer, 30, 0.1, 1))
+    got = make_train_step(port_state, device="cpu", loss_mode="min", **STEP_SETTINGS)(batch)
+    port_grads = {f"{net}.{k}": p.grad.double()
+                  for net, model in (("depth", depth), ("pose", pose_net))
+                  for k, p in model.named_parameters()}
+    for key in ref:
+        rel = abs(float(got[key]) / float(ref[key]) - 1.0)
+        print(f"{key}: rel {rel:.3g}")
+        assert rel <= STEP_LOSS_RTOL, (key, rel)
+
+    loss64, exact = _port_step_grads(variables, pose_variables, batch, torch.float64)
+    assert abs(float(got["loss"]) / loss64 - 1.0) <= STEP_LOSS_RTOL
+    assert sorted(port_grads) == sorted(jax_grads) == sorted(exact)
+    keys = sorted(exact)
+
+    def flat(tree):
+        return torch.cat([tree[k].reshape(-1) for k in keys])
+
+    def leaf_rels(a, b):
+        return {k: _rel_l2(a[k].numpy(), b[k].numpy()) for k in keys}
+
+    def leaves(a, b):
+        rels = leaf_rels(a, b)
+        worst = max(rels, key=rels.get)
+        return f"leaves median {np.median(list(rels.values())):.3g}, worst {rels[worst]:.3g} ({worst})"
+
+    port_rel = _rel_l2(flat(port_grads).numpy(), flat(exact).numpy())
+    jax_rel = _rel_l2(flat(jax_grads).numpy(), flat(exact).numpy())
+    print(f"to the fp64 step: port {port_rel:.3g} ({leaves(port_grads, exact)}), JAX "
+          f"{jax_rel:.3g} ({leaves(jax_grads, exact)}); port to JAX "
+          f"{leaves(port_grads, jax_grads)}")
+    assert port_rel <= jax_rel, (port_rel, jax_rel)
+    assert jax_rel <= STEP_FP64_REL_L2, jax_rel
+    for grads in (jax_grads, port_grads):
+        rels = leaf_rels(grads, exact)
+        worst = max(rels, key=rels.get)
+        assert rels[worst] <= STEP_FP64_LEAF_REL_L2, (worst, rels[worst])
 
 
 def test_bts_serving_blob_matches_jax(bts, tmp_path):

@@ -291,11 +291,12 @@ def test_autograd_functions_launch_the_backward_kernels(cuda):
 
 
 def test_backward_wrappers_refuse_img_grad_and_bf16(cuda):
-    img = torch.rand(1, 3, 8, 8, device=cuda)
+    gen = torch.Generator().manual_seed(3)
+    img = torch.rand(1, 3, 8, 8, generator=gen).to(cuda)
     grid = torch.zeros(1, 8, 8, 2, device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="gradient"):
         kernels.warp_bilinear(img.clone().requires_grad_(), grid)
-    g = torch.rand(1, 3, 8, 8, device=cuda)
+    g = torch.rand(1, 3, 8, 8, generator=gen).to(cuda)
     before = dict(kernels.launch_counts)
     with pytest.raises(ValueError, match="float32"):
         kernels.warp_bilinear_bwd_grid(img, grid.detach(), g.bfloat16())
@@ -320,7 +321,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_fused_ssim_routes_only_fp32_to_the_kernel(cuda):
-    x = torch.rand(1, 3, 16, 16, device=cuda)
+    x = torch.rand(1, 3, 16, 16, generator=torch.Generator().manual_seed(4)).to(cuda)
     before = dict(kernels.launch_counts)
     # a CUDA tensor never falls back to the plain version: bf16 raises
     with pytest.raises(ValueError, match="float32"):

@@ -26,7 +26,6 @@ from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(41)
 
 
 def _assert_metrics_close(got, ref, rtol=1e-5, atol=0.0):
@@ -101,19 +100,19 @@ def test_nanmedian_averages_the_middle_pair():
     assert float(got[0]) == 3.0 and float(got[1]) == 3.0 and torch.isnan(got[2])
 
 
-def _depth_batch():
+def _depth_batch(rng):
     """[3, 24, 40] sparse ground truth (0 = no return, a few beyond 80 m)
     and a prediction off by a per-image scale and noise; image 1 has no
     valid pixel, image 0 an even count."""
-    gt = RNG.uniform(2.0, 90.0, (3, 24, 40)).astype(np.float32)
-    gt[RNG.uniform(size=gt.shape) < 0.6] = 0.0
+    gt = rng.uniform(2.0, 90.0, (3, 24, 40)).astype(np.float32)
+    gt[rng.uniform(size=gt.shape) < 0.6] = 0.0
     gt[1] = 0.0
     inside = (gt[0] > 1e-3) & (gt[0] < 80.0)
     if inside.sum() % 2:  # an even count of valid pixels in image 0
         gt[0][np.argwhere(inside)[0][0], np.argwhere(inside)[0][1]] = 0.0
     scale = np.array([0.3, 2.0, 1.7], np.float32)[:, None, None]
     pred = (np.where(gt > 0, gt, 20.0) * scale
-            * RNG.uniform(0.8, 1.2, gt.shape)).astype(np.float32)
+            * rng.uniform(0.8, 1.2, gt.shape)).astype(np.float32)
     return gt, pred
 
 
@@ -121,7 +120,8 @@ def _depth_batch():
                                                 (True, False), (True, True)])
 def test_compute_errors_matches_jax(eigen, median_scale):
     # per image, then the mean over images with a valid pixel: rtol 1e-5
-    gt, pred = _depth_batch()
+    rng = np.random.default_rng(41)
+    gt, pred = _depth_batch(rng)
     jax_mask = mask = None
     if eigen:
         crop = metrics.eigen_crop_mask(24, 40)
@@ -141,7 +141,8 @@ def test_compute_errors_matches_jax(eigen, median_scale):
 
 
 def test_euler2mat_matches_jax():
-    angles = RNG.uniform(-np.pi, np.pi, (5, 3)).astype(np.float32)
+    rng = np.random.default_rng(41)
+    angles = rng.uniform(-np.pi, np.pi, (5, 3)).astype(np.float32)
     np.testing.assert_allclose(se3.euler2mat(torch.from_numpy(angles)).numpy(),
                                np.asarray(jax_se3.euler2mat(jnp.asarray(angles))),
                                atol=1e-6)
@@ -151,9 +152,10 @@ def test_euler2mat_matches_jax():
 def test_pose_errors_match_jax(gt_mode):
     # [B, N, 6] snippets, rotations up to ~0.3 rad (the two conventions
     # diverge there); rtol 1e-5
-    pred = np.concatenate([RNG.normal(0, 0.1, (4, 2, 3)), RNG.normal(0, 0.5, (4, 2, 3))],
+    rng = np.random.default_rng(41)
+    pred = np.concatenate([rng.normal(0, 0.1, (4, 2, 3)), rng.normal(0, 0.5, (4, 2, 3))],
                           -1).astype(np.float32)
-    gt = (pred + RNG.normal(0, 0.05, pred.shape)).astype(np.float32)
+    gt = (pred + rng.normal(0, 0.05, pred.shape)).astype(np.float32)
     ref = jax_pose_eval.pose_errors(jnp.asarray(pred), jnp.asarray(gt), gt_mode=gt_mode)
     got = pose.pose_errors(torch.from_numpy(pred), torch.from_numpy(gt), gt_mode=gt_mode)
     _assert_metrics_close(got, ref)
@@ -168,12 +170,13 @@ HEIGHT, WIDTH = 64, 96
 def test_pose_forward_matches_jax():
     # the bare pose forward on a normalized NCHW batch (JAX: NHWC) with
     # the same PoseNet weights; atol 1e-5, as the model tests
+    rng = np.random.default_rng(41)
     jax_net = jax_build_model("PoseNet", s2d_convs=0)
     img = jnp.zeros((1, HEIGHT, WIDTH, 3), jnp.float32)
     params = jax.tree.map(np.asarray, jax.jit(jax_net.init)(jax.random.PRNGKey(4), img,
                                                              [img, img])["params"])
-    tgt = RNG.normal(size=(2, HEIGHT, WIDTH, 3)).astype(np.float32)
-    refs = RNG.normal(size=(2, 2, HEIGHT, WIDTH, 3)).astype(np.float32)
+    tgt = rng.normal(size=(2, HEIGHT, WIDTH, 3)).astype(np.float32)
+    refs = rng.normal(size=(2, 2, HEIGHT, WIDTH, 3)).astype(np.float32)
     ref = jax_pose_eval.pose_forward(jax_net, {"pose": params}, {"pose": {}},
                                      {"tgt": jnp.asarray(tgt), "ref_imgs": jnp.asarray(refs)})
     net = build_model("PoseNet", device="cpu")

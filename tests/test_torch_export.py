@@ -23,7 +23,6 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import DepthToPoin
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(71)
 # an exported program against its live module (cli.export --verify's bound,
 # JAX's); the fused program against JAX's as test_torch_slice holds the
 # serve pipeline: depth rel 1e-4, valid masks apart on < 0.1 % of pixels,
@@ -32,8 +31,8 @@ TOL = 2e-5
 DEPTH_RTOL, MASK_SHARE, POINTS_ATOL = 1e-4, 1e-3, 1e-3
 
 
-def _img(batch):
-    return torch.from_numpy(RNG.uniform(-1, 1, (batch, HEIGHT, WIDTH, 3)).astype(np.float32))
+def _img(rng, batch):
+    return torch.from_numpy(rng.uniform(-1, 1, (batch, HEIGHT, WIDTH, 3)).astype(np.float32))
 
 
 def _live(fn, img):
@@ -46,40 +45,42 @@ def test_concrete_and_batch_poly_round_trips(models, tmp_path, precision):  # no
     # one program traced at batch 2 with a symbolic batch that runs at 1
     # and 3, and (fp32) a concrete batch-2 one; bf16 runs the model under
     # autocast, the weights stay fp32
+    rng = np.random.default_rng(71)
     _, _, _, depth, _ = models
     fn = export.make_depth_fn(depth, precision=precision)
     concrete, poly = str(tmp_path / "c.pt2"), str(tmp_path / "p.pt2")
-    export.export_program(fn, [_img(2)], poly, batch_poly=True)
+    export.export_program(fn, [_img(rng, 2)], poly, batch_poly=True)
     assert all(p.dtype == torch.float32 for p in export.load_exported(poly).state_dict.values()
                if p.is_floating_point())
     if precision == "fp32":
-        export.export_program(fn, [_img(2)], concrete)
-        img = _img(2)
+        export.export_program(fn, [_img(rng, 2)], concrete)
+        img = _img(rng, 2)
         got = export.run_exported(concrete, img, device="cpu")
         assert got.shape == (2, HEIGHT, WIDTH)
         np.testing.assert_allclose(got.numpy(), _live(fn, img).numpy(), rtol=TOL, atol=TOL)
         with pytest.raises(RuntimeError, match="to be equal to 2"):
-            export.run_exported(concrete, _img(3), device="cpu")  # the batch is fixed
+            export.run_exported(concrete, _img(rng, 3), device="cpu")  # the batch is fixed
     for batch in (1, 3):
-        img = _img(batch)
+        img = _img(rng, batch)
         got = export.run_exported(poly, img.numpy(), device="cpu")
         assert got.shape == (batch, HEIGHT, WIDTH)
         np.testing.assert_allclose(got.numpy(), _live(fn, img).numpy(), rtol=TOL, atol=TOL)
     with pytest.raises(ValueError, match="example batch"):
-        export.export_program(fn, [_img(1)], poly, batch_poly=True)
+        export.export_program(fn, [_img(rng, 1)], poly, batch_poly=True)
 
 
 def test_fused_program_matches_jax(models, tmp_path):  # noqa: F811
     # the batch-polymorphic fused program (depth -> cloud) at batch 3
     # against JAX's make_depth_cloud_fn on the same weights and calib, the
     # depth through the monodepth2 range mapping (min_depth given)
+    rng = np.random.default_rng(71)
     jax_depth, _, state, depth, _ = models
     calib = _write_calib(tmp_path / "calib")
     path = str(tmp_path / "fused.pt2")
     fused = export.make_depth_cloud_fn(export.make_depth_fn(depth, min_depth=0.5, max_depth=80.0),
                                        PseudoLiDAR(calib, device="cpu"))
-    export.export_program(fused, [_img(2)], path, batch_poly=True)
-    img = _img(3)
+    export.export_program(fused, [_img(rng, 2)], path, batch_poly=True)
+    img = _img(rng, 3)
     got = export.run_exported(path, img, device="cpu")
     variables = {"params": state.params["depth"], "batch_stats": state.batch_stats["depth"]}
     ref_fn = jax_export.make_depth_cloud_fn(
@@ -101,11 +102,12 @@ def test_fused_program_matches_jax(models, tmp_path):  # noqa: F811
 
 def test_sidecar_describes_the_artifact(models, tmp_path):  # noqa: F811
     # the reserved fields describe the artifact and win over metadata
+    rng = np.random.default_rng(71)
     _, _, _, depth, _ = models
     path = str(tmp_path / "art" / "d.pt2")
     metadata = {"model": "DispResNet", "format": "x", "device": "tpu", "inputs": [],
                 "outputs": None, "size_bytes": 1, "torch_version": "0"}
-    export.export_program(export.make_depth_fn(depth), [_img(2)], path, batch_poly=True,
+    export.export_program(export.make_depth_fn(depth), [_img(rng, 2)], path, batch_poly=True,
                           metadata=metadata)
     with open(path + ".json") as f:
         sidecar = json.load(f)
@@ -126,26 +128,28 @@ def test_run_exported_refuses_another_device(models, tmp_path):  # noqa: F811
     # a program runs where it was traced: another device, or an input on
     # another device, raises instead of moving anything ("meta" stands in
     # for a second device on a host without a card)
+    rng = np.random.default_rng(71)
     _, _, _, depth, _ = models
     path = str(tmp_path / "d.pt2")
-    export.export_program(export.make_depth_fn(depth), [_img(1)], path)
+    export.export_program(export.make_depth_fn(depth), [_img(rng, 1)], path)
     with pytest.raises(ValueError, match="traced on cpu"):
-        export.run_exported(path, _img(1), device="meta")
+        export.run_exported(path, _img(rng, 1), device="meta")
     with pytest.raises(ValueError, match="an input is on meta"):
-        export.run_exported(path, _img(1).to("meta"), device="cpu")
+        export.run_exported(path, _img(rng, 1).to("meta"), device="cpu")
 
 
 def test_an_exported_program_serves_the_pipeline(models, tmp_path):  # noqa: F811
     # a loaded batch-polymorphic program as the pipeline's depth function,
     # on a 3-camera step: the live model's results
+    rng = np.random.default_rng(71)
     _, _, _, depth, _ = models
     path = str(tmp_path / "d.pt2")
     fn = export.make_depth_fn(depth)
-    export.export_program(fn, [_img(2)], path, batch_poly=True)
+    export.export_program(fn, [_img(rng, 2)], path, batch_poly=True)
     calib = _write_calib(tmp_path / "calib")
     pipes = [DepthToPointCloudPipeline(f, PseudoLiDAR(calib, device="cpu"), device="cpu")
              for f in (export.load_exported(path).module(), fn)]
-    frames = _img(3).numpy()
+    frames = _img(rng, 3).numpy()
     for got, want in zip(*(p.process_batch(frames) for p in pipes)):
         np.testing.assert_allclose(got.depth, want.depth, rtol=TOL, atol=TOL)
         np.testing.assert_allclose(got.points, want.points, rtol=TOL, atol=TOL)
@@ -194,6 +198,7 @@ def test_cli_export_serves_the_other_depth_models(tmp_path, capsys):
     # StnDispNet's and DispNetS' programs with --verify (the finest scale
     # through disp_to_depth), and BtsModel's metric depth (its last
     # output, 80·sigmoid), each against its live module
+    rng = np.random.default_rng(71)
     for name in ("StnDispNet", "DispNetS", "BtsModel"):
         cfg = tmp_path / f"{name}.yaml"
         cfg.write_text(f"model:\n  depth:\n    name: {name}\n")
@@ -203,7 +208,7 @@ def test_cli_export_serves_the_other_depth_models(tmp_path, capsys):
         assert "verify OK" in capsys.readouterr().out
         with open(out + ".json") as f:
             assert json.load(f)["model"] == name
-        depth = export.run_exported(out, _img(1), device="cpu")
+        depth = export.run_exported(out, _img(rng, 1), device="cpu")
         assert depth.shape == (1, HEIGHT, WIDTH)
         if name == "BtsModel":
             assert 0.0 < float(depth.min()) and float(depth.max()) < 80.0

@@ -23,7 +23,6 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
 )
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(5)
 
 # a small camera sized for a 40x120 depth map (baseline terms included)
 # and the real KITTI 2011_09_26 velodyne->camera transform
@@ -38,23 +37,25 @@ T_VELO_CAM = np.array(
      [0.0, 0.0, 0.0, 1.0]], dtype=np.float32)
 
 
-def _poses(batch):
+def _poses(rng, batch):
     return np.concatenate(
-        [RNG.normal(0, 0.05, (batch, 3)), RNG.normal(0, 0.5, (batch, 3))],
+        [rng.normal(0, 0.05, (batch, 3)), rng.normal(0, 0.5, (batch, 3))],
         axis=-1,
     ).astype(np.float32)
 
 
 @pytest.mark.parametrize("invert", [False, True])
 def test_pose_matrix_matches_jax(invert):
-    vec = _poses(4)
+    rng = np.random.default_rng(5)
+    vec = _poses(rng, 4)
     ref = jax_se3.pose_matrix(jnp.asarray(vec), invert=invert)
     got = se3.pose_matrix(torch.from_numpy(vec), invert=invert)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6)
 
 
 def test_invert_pose_and_inverted_parameters_match_jax():
-    vec = _poses(3)
+    rng = np.random.default_rng(5)
+    vec = _poses(rng, 3)
     mat = np.array(jax_se3.pose_matrix(jnp.asarray(vec)))
     ref = jax_se3.invert_pose(jnp.asarray(mat))
     got = se3.invert_pose(torch.from_numpy(mat))
@@ -72,9 +73,10 @@ def test_invert_pose_and_inverted_parameters_match_jax():
 def test_warp_coords_matches_jax():
     # the folded K·T·K⁻¹ form in fp32 on both sides; coords are O(1) with
     # a 1/z division, rtol 1e-5 + atol 1e-5
+    rng = np.random.default_rng(5)
     batch, height, width = 3, 24, 40
-    depth = RNG.uniform(1.0, 30.0, (batch, height, width)).astype(np.float32)
-    transform = np.array(jax_se3.pose_matrix(jnp.asarray(_poses(batch))))
+    depth = rng.uniform(1.0, 30.0, (batch, height, width)).astype(np.float32)
+    transform = np.array(jax_se3.pose_matrix(jnp.asarray(_poses(rng, batch))))
     k = np.array([[50.0, 0, 20.0], [0, 50.0, 12.0], [0, 0, 1]], np.float32)
     intr = np.broadcast_to(k, (batch, 3, 3)).copy()
     ref = jax_warp.warp_coords(
@@ -92,7 +94,8 @@ def test_warp_coords_matches_jax():
 
 
 def test_disp_to_depth_matches_jax():
-    disp = RNG.uniform(0, 1, (2, 1, 6, 8)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    disp = rng.uniform(0, 1, (2, 1, 6, 8)).astype(np.float32)
     ref = jax_warp.disp_to_depth(jnp.asarray(disp))
     got = warp.disp_to_depth(torch.from_numpy(disp))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
@@ -102,7 +105,8 @@ def test_disp_to_depth_matches_jax():
 def test_resize_bilinear_matches_jax(out_hw):
     # F.interpolate(align_corners=False) vs JAX's 2-sparse interpolation
     # matrices at fp32 HIGHEST: atol 1e-5
-    img = RNG.normal(size=(2, 6, 10, 1)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    img = rng.normal(size=(2, 6, 10, 1)).astype(np.float32)
     ref = jax_resize(jnp.asarray(img), *out_hw)
     got = resize_bilinear(torch.from_numpy(np.moveaxis(img, -1, 1)), *out_hw)
     np.testing.assert_allclose(
@@ -115,7 +119,8 @@ def test_depth_to_pointcloud_matches_jax(sparsity):
     # points within 1e-3 m (fp32 matrix inverse and 4x4 product at tens of
     # meters); the valid masks agree except where a point sits on the crop
     # boundary to within that rounding
-    depth = RNG.uniform(2.0, 60.0, (2, 40, 120)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    depth = rng.uniform(2.0, 60.0, (2, 40, 120)).astype(np.float32)
     depth[:, ::7, ::5] = 0.0  # no-return pixels
     ref_pts, ref_valid = jax_depth_to_pointcloud(
         jnp.asarray(depth), jnp.asarray(P), jnp.asarray(T_VELO_CAM),
@@ -241,7 +246,8 @@ def test_velo_to_depth_image_matches_jax():
 
 def test_img_to_velo_matches_jax():
     # the inverse through the projector: the same points at atol 1e-3 m
-    depth = RNG.uniform(2.0, 60.0, (40, 120)).astype(np.float32)
+    rng = np.random.default_rng(5)
+    depth = rng.uniform(2.0, 60.0, (40, 120)).astype(np.float32)
     depth[::5, ::3] = 0.0
     ref = jax_velo2img.project_img_to_velo(depth, T_VELO_CAM, P)
     got = velo2img.project_img_to_velo(depth, T_VELO_CAM, P)

@@ -22,7 +22,6 @@ from unsupervised_pseuso_lidar_tpu_torch.losses import (
 )
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(21)
 B, H, W = 2, 24, 40
 K = np.array([[40.0, 0, 20.0], [0, 40.0, 12.0], [0, 0, 1]], np.float32)
 
@@ -31,7 +30,7 @@ def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
 
 
-def _frames(rng=RNG):
+def _frames(rng):
     # a smooth scene and its slightly shifted neighbours, so warps land
     # mostly in frame and the automask sees both outcomes
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
@@ -41,7 +40,7 @@ def _frames(rng=RNG):
     return [f.astype(np.float32) for f in frames]
 
 
-def _poses(rng=RNG):
+def _poses(rng):
     return np.concatenate(
         [rng.normal(0, 0.01, (B, 2, 3)), rng.normal(0, 0.1, (B, 2, 3))], -1
     ).astype(np.float32)
@@ -50,7 +49,8 @@ def _poses(rng=RNG):
 @pytest.mark.parametrize("no_ssim,clip", [(False, 0.5), (False, 0.0), (True, 0.5)])
 def test_photometric_loss_matches_jax(no_ssim, clip):
     # includes the detached mean + clip·std clamp; atol 1e-6
-    pred, target, _ = _frames()
+    rng = np.random.default_rng(21)
+    pred, target, _ = _frames(rng)
     ref = jax_photometric.photometric_loss(
         jnp.asarray(pred), jnp.asarray(target), no_ssim=no_ssim, clip_loss=clip
     )
@@ -62,7 +62,8 @@ def test_photometric_loss_matches_jax(no_ssim, clip):
 
 
 def test_smooth_loss_and_normalize_depth_match_jax():
-    maps = [RNG.uniform(0.5, 20.0, (B, H // 2 ** s, W // 2 ** s, 1)).astype(np.float32)
+    rng = np.random.default_rng(21)
+    maps = [rng.uniform(0.5, 20.0, (B, H // 2 ** s, W // 2 ** s, 1)).astype(np.float32)
             for s in range(3)]
     ref = jax_smoothness.smooth_loss([jnp.asarray(m) for m in maps])
     got = smoothness.smooth_loss([_nchw(m) for m in maps])
@@ -79,11 +80,12 @@ def test_smooth_loss_and_normalize_depth_match_jax():
 def test_min_reprojection_loss_matches_jax(bidirectional, ident_scale, no_ssim):
     # two scales (the half-res one resized to full res inside the loss);
     # a mean of per-pixel minima: rel 1e-5
-    tgt, ref0, ref1 = _frames()
-    poses = _poses()
-    depths = [RNG.uniform(2.0, 8.0, (B, H // 2 ** s, W // 2 ** s, 1)).astype(np.float32)
+    rng = np.random.default_rng(21)
+    tgt, ref0, ref1 = _frames(rng)
+    poses = _poses(rng)
+    depths = [rng.uniform(2.0, 8.0, (B, H // 2 ** s, W // 2 ** s, 1)).astype(np.float32)
               for s in range(2)]
-    depths_ref0 = [d * RNG.uniform(0.9, 1.1, d.shape).astype(np.float32)
+    depths_ref0 = [d * rng.uniform(0.9, 1.1, d.shape).astype(np.float32)
                    for d in depths]
     ref = jax_reprojection.min_reprojection_loss(
         jnp.asarray(tgt), [jnp.asarray(ref0), jnp.asarray(ref1)],
@@ -137,9 +139,10 @@ def test_automask_keep_matches_jax(bidirectional, ident_scale):
 def test_total_loss_matches_jax(smooth_on):
     # disparities -> depth -> per-image normalization -> loss, with the
     # smoothness term on depth or disparity; rel 1e-5 on each term
-    tgt, ref0, ref1 = _frames()
-    poses = _poses()
-    disps = [[RNG.uniform(0.05, 0.9, (B, H, W, 1)).astype(np.float32)]
+    rng = np.random.default_rng(21)
+    tgt, ref0, ref1 = _frames(rng)
+    poses = _poses(rng)
+    disps = [[rng.uniform(0.05, 0.9, (B, H, W, 1)).astype(np.float32)]
              for _ in range(2)]
     intr = np.broadcast_to(K, (B, 3, 3)).copy()
     ref = jax_total.total_loss(
@@ -218,9 +221,10 @@ def test_reprojection_loss_and_gradients_match_jax(mode, seed):
 def test_total_loss_other_modes_match_jax(mode):
     # total_loss' non-'min' branch: disparities -> depth -> the
     # bidirectional loss + smoothness; rel 1e-5 on each term
-    tgt, ref0, ref1 = _frames()
-    poses = _poses()
-    disps = [[RNG.uniform(0.05, 0.9, (B, H, W, 1)).astype(np.float32)]
+    rng = np.random.default_rng(21)
+    tgt, ref0, ref1 = _frames(rng)
+    poses = _poses(rng)
+    disps = [[rng.uniform(0.05, 0.9, (B, H, W, 1)).astype(np.float32)]
              for _ in range(2)]
     ref = jax_total.total_loss(
         jnp.asarray(tgt), [jnp.asarray(ref0), jnp.asarray(ref1)],
@@ -242,7 +246,8 @@ def test_no_ssim_gradient_at_ties_matches_jax():
     # at z = 0, so d/dpred of sum |target - pred| is -1 at every pixel.
     # torch.abs' rule (0 at a tie) gave 0 at the ties, the fault the port
     # had before utils/numerics.abs_
-    target = RNG.uniform(0, 1, (1, 4, 4, 3)).astype(np.float32)
+    rng = np.random.default_rng(21)
+    target = rng.uniform(0, 1, (1, 4, 4, 3)).astype(np.float32)
     pred = target.copy()
     pred[:, :, 0] -= 0.25
     ref = jax.grad(lambda p: jnp.sum(jax_photometric.photometric_loss(

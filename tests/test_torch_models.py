@@ -20,17 +20,17 @@ from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(3)
 
 
 def _numpy_tree(tree):
     return jax.tree.map(np.asarray, jax.device_get(tree))
 
 
-def _random_batch_stats(stats):
+def _random_batch_stats(stats, seed):
     # non-trivial running statistics, so the BatchNorm mapping is exercised
+    rng = np.random.default_rng(seed)
     return jax.tree.map(
-        lambda a: RNG.uniform(0.5, 1.5, a.shape).astype(np.float32), stats
+        lambda a: rng.uniform(0.5, 1.5, a.shape).astype(np.float32), stats
     )
 
 
@@ -40,7 +40,7 @@ def jax_depth():
     img = jnp.zeros((1, 64, 128, 3), jnp.float32)
     variables = jax.jit(partial(model.init, train=False))(jax.random.PRNGKey(0), img)
     params = _numpy_tree(variables["params"])
-    stats = _random_batch_stats(_numpy_tree(variables["batch_stats"]))
+    stats = _random_batch_stats(_numpy_tree(variables["batch_stats"]), 3)
     return model, params, stats
 
 
@@ -59,22 +59,23 @@ def jax_pose():
 POSEFC_HW = (128, 128)
 
 
-def _posefc(hw):
+def _posefc(hw, seed):
     """Flax PoseFc variables at image size hw, every Dense layer random
     (the last one is zero-initialized, which would hide its mapping)."""
     model = jax_build_model("PoseFc")
     img = jnp.zeros((1, *hw, 3), jnp.float32)
     params = _numpy_tree(jax.jit(model.init)(jax.random.PRNGKey(2), img, [img, img])["params"])
+    rng = np.random.default_rng(seed)
     for i in range(3):
         dense = params[f"Dense_{i}"]
-        dense["kernel"] = RNG.normal(0, 0.3, dense["kernel"].shape).astype(np.float32)
-        dense["bias"] = RNG.normal(0, 0.1, dense["bias"].shape).astype(np.float32)
+        dense["kernel"] = rng.normal(0, 0.3, dense["kernel"].shape).astype(np.float32)
+        dense["bias"] = rng.normal(0, 0.1, dense["bias"].shape).astype(np.float32)
     return model, params
 
 
 @pytest.fixture(scope="module")
 def jax_posefc():
-    return _posefc(POSEFC_HW)
+    return _posefc(POSEFC_HW, 3)
 
 
 def _variables(name, jax_depth, jax_pose, jax_posefc):
@@ -112,8 +113,9 @@ def test_dispresnet_matches_flax(hw, jax_depth):
     # fp32 both sides (JAX at HIGHEST matmul precision, conftest); 48x80 is
     # not a multiple of 32, which exercises crop-to-skip and the final
     # image-shape crop: atol 1e-4 on sigmoid disparities
+    rng = np.random.default_rng(3)
     model, params, stats = jax_depth
-    img = RNG.normal(size=(2, *hw, 3)).astype(np.float32)
+    img = rng.normal(size=(2, *hw, 3)).astype(np.float32)
     ref = jax.jit(partial(model.apply, train=False))(
         {"params": params, "batch_stats": stats}, jnp.asarray(img)
     )
@@ -132,8 +134,9 @@ def test_dispresnet_matches_flax(hw, jax_depth):
 def test_posenet_matches_flax(jax_pose):
     # [tgt, ref0, ref1] concatenated on channels; atol 1e-5 on the
     # 0.06-scaled poses
+    rng = np.random.default_rng(3)
     model, params = jax_pose
-    imgs = [RNG.normal(size=(2, 64, 128, 3)).astype(np.float32) for _ in range(3)]
+    imgs = [rng.normal(size=(2, 64, 128, 3)).astype(np.float32) for _ in range(3)]
     ref = model.apply({"params": params}, jnp.asarray(imgs[0]),
                       [jnp.asarray(imgs[1]), jnp.asarray(imgs[2])])
     port = build_model("PoseNet", device="cpu")
@@ -154,8 +157,9 @@ def test_posefc_matches_flax(hw, jax_posefc):
     # the FC width follows the image size (12·ceil(H/128)·ceil(W/128));
     # 96x320 is non-square and not a multiple of 128. atol 1e-5; the
     # rotation half is exactly 0 on both sides
-    model, params = jax_posefc if hw == POSEFC_HW else _posefc(hw)
-    imgs = [RNG.normal(size=(2, *hw, 3)).astype(np.float32) for _ in range(3)]
+    rng = np.random.default_rng(3)
+    model, params = jax_posefc if hw == POSEFC_HW else _posefc(hw, 4)
+    imgs = [rng.normal(size=(2, *hw, 3)).astype(np.float32) for _ in range(3)]
     ref = np.asarray(model.apply({"params": params}, jnp.asarray(imgs[0]),
                                  [jnp.asarray(imgs[1]), jnp.asarray(imgs[2])]))
     port = build_model("PoseFc", device="cpu", image_shape=hw)
@@ -172,12 +176,13 @@ def test_posefc_loads_a_reference_state_dict(jax_posefc):
     # the reference schema (fc_loc.0 columns in torch's CHW flatten order),
     # as the JAX package exports it, loads strictly into the port and gives
     # the flax outputs: the port flattens CHW like the reference
+    rng = np.random.default_rng(3)
     model, params = jax_posefc
     reference = {k: torch.from_numpy(np.ascontiguousarray(v))
                  for k, v in export_torch_state(params, {}, "PoseFc").items()}
     port = build_model("PoseFc", device="cpu", image_shape=POSEFC_HW)
     port.load_state_dict(reference, strict=True)
-    imgs = [RNG.normal(size=(1, *POSEFC_HW, 3)).astype(np.float32) for _ in range(3)]
+    imgs = [rng.normal(size=(1, *POSEFC_HW, 3)).astype(np.float32) for _ in range(3)]
     ref = model.apply({"params": params}, jnp.asarray(imgs[0]),
                       [jnp.asarray(imgs[1]), jnp.asarray(imgs[2])])
     t = _nchw_list(imgs)
@@ -218,8 +223,9 @@ def test_jax_posenet_space_to_depth_fault(jax_pose):
     # plain conv (s2d_convs=0, matched above). This records the size of
     # the gap on the poses; it fails once the JAX rewrite is fixed, and the
     # parity tests can then use the default model.
+    rng = np.random.default_rng(3)
     model, params = jax_pose
-    imgs = [jnp.asarray(RNG.normal(size=(2, 64, 128, 3)).astype(np.float32))
+    imgs = [jnp.asarray(rng.normal(size=(2, 64, 128, 3)).astype(np.float32))
             for _ in range(3)]
     plain = model.apply({"params": params}, imgs[0], imgs[1:])
     blocked = jax_build_model("PoseNet").apply({"params": params}, imgs[0], imgs[1:])

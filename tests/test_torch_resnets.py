@@ -32,7 +32,6 @@ from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(92)
 RESNETS = ("DispResNet-34", "DispResNet-50")
 # ResNet-50 normalizes 53 times by batch statistics before its last
 # BatchNorm in train mode, and the two fp32 forwards drift to ~2e-5 of the
@@ -73,7 +72,7 @@ def test_forward_matches_jax(case, train, resnets):
     # BatchNorm statistics after a train-mode forward at DEEP_STATS_RTOL
     check_forward(case, resnets[case], (48, 80), train,
                   num_outputs=4 if case == "DispResNet-50" else 1,
-                  stats_tol=DEEP_STATS_RTOL)
+                  stats_tol=DEEP_STATS_RTOL, seed=92)
 
 
 @pytest.mark.parametrize("case", RESNETS)
@@ -85,9 +84,10 @@ def test_posedecoder_matches_jax(resnets):
     # over the ResNet-50 encoder features (2048 channels at the last level)
     # of two frames, as the port's encoder computes them from the bridged
     # weights: axisangle and translation at atol 1e-6 (0.01-scaled)
+    rng = np.random.default_rng(92)
     encoder = port_model("DispResNet", resnets["DispResNet-50"], **CASES["DispResNet-50"][2])
     encoder = encoder.encoder.eval()
-    frames = [RNG.normal(size=(2, *HW, 3)).astype(np.float32) for _ in range(2)]
+    frames = [rng.normal(size=(2, *HW, 3)).astype(np.float32) for _ in range(2)]
     with torch.no_grad():
         feats = [encoder(nchw(f)) for f in frames]
     assert [f.shape[1] for f in feats[0]] == list(num_ch_enc(50))

@@ -51,7 +51,6 @@ from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import create_train_state
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(61)
 # the serve tolerances of test_torch_slice: depth rel 1e-4; valid masks
 # apart only where a point sits on the crop boundary (< 0.1 % of pixels);
 # points atol 1e-3 m
@@ -88,9 +87,10 @@ def test_run_multi_equals_process_per_stream(models, tmp_path):  # noqa: F811
     # 3 cameras x 2 rig steps: one batch-3 forward a step, one result per
     # camera, each equal to process() of its frame; a fourth camera with
     # one frame stops the rig after one step
+    rng = np.random.default_rng(61)
     _, _, _, depth, _ = models
     pipe = _pipeline(depth, tmp_path)
-    frames = RNG.normal(size=(3, 2, HEIGHT, WIDTH, 3)).astype(np.float32)
+    frames = rng.normal(size=(3, 2, HEIGHT, WIDTH, 3)).astype(np.float32)
     results = []
     assert pipe.run_multi([iter(cam) for cam in frames], results.append, queue_size=8) == 2
     assert [(r.frame_index, r.stream_index) for r in results] == [
@@ -148,7 +148,8 @@ def test_latest_wins_queue_drops_stale_frames(tmp_path):
 def test_save_cloud_round_trips_through_both_packages(tmp_path):
     # .bin: raw float32 rows that both velodyne readers load; .npy: numpy;
     # the two packages write the same bytes
-    cloud = RNG.normal(size=(57, 4)).astype(np.float32)
+    rng = np.random.default_rng(61)
+    cloud = rng.normal(size=(57, 4)).astype(np.float32)
     for ext in ("bin", "npy"):
         ours, theirs = str(tmp_path / f"port.{ext}"), str(tmp_path / f"jax.{ext}")
         save_cloud(ours, cloud)
@@ -161,8 +162,9 @@ def test_save_cloud_round_trips_through_both_packages(tmp_path):
 
 
 def test_disparity_mappings_match_jax():
-    disp = RNG.uniform(0.0, 1.0, (2, 5, 7)).astype(np.float32)
-    depth = RNG.uniform(0.1, 80.0, (2, 5, 7)).astype(np.float32)
+    rng = np.random.default_rng(61)
+    disp = rng.uniform(0.0, 1.0, (2, 5, 7)).astype(np.float32)
+    depth = rng.uniform(0.1, 80.0, (2, 5, 7)).astype(np.float32)
     np.testing.assert_allclose(warp.depth_to_disp(torch.from_numpy(depth)).numpy(),
                                np.asarray(jax_warp.depth_to_disp(jnp.asarray(depth))),
                                rtol=1e-6)
@@ -447,13 +449,14 @@ def ros_stubs(monkeypatch):
 
 
 def test_ros_adapter_publishes_xyzi_clouds(ros_stubs, models, tmp_path):  # noqa: F811
+    rng = np.random.default_rng(61)
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.ros_adapter import (
         RosPseudoLidarNode,
         cloud_to_pointcloud2_msg,
     )
 
     published, subscribed = ros_stubs
-    cloud = RNG.normal(size=(11, 4)).astype(np.float64)
+    cloud = rng.normal(size=(11, 4)).astype(np.float64)
     msg = cloud_to_pointcloud2_msg(cloud, stamp=5)
     assert [f.name for f in msg.fields] == ["x", "y", "z", "i"]
     assert [f.offset for f in msg.fields] == [0, 4, 8, 12]
@@ -468,7 +471,7 @@ def test_ros_adapter_publishes_xyzi_clouds(ros_stubs, models, tmp_path):  # noqa
     pipe = _pipeline(depth, tmp_path)
     node = RosPseudoLidarNode(pipe, size_hw=(HEIGHT, WIDTH))
     node.start()
-    frame = RNG.integers(0, 256, (HEIGHT + 6, WIDTH + 10, 3)).astype(np.uint8)
+    frame = rng.integers(0, 256, (HEIGHT + 6, WIDTH + 10, 3)).astype(np.uint8)
     subscribed[0](_Msg(data=frame, header=_Msg(stamp=9)))
     (cloud_topic, cloud_msg), (depth_topic, depth_msg) = published
     assert (cloud_topic, depth_topic) == ("PL/output", "depth/output")

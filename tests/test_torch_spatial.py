@@ -376,11 +376,12 @@ def test_the_ssim_clip_threshold_is_the_whole_image_s(runs):
 def test_mesh_layout_groups_and_what_the_mesh_refuses(runs):
     # make_mesh(4, spatial=2): shape {data 2, spatial 2}, rank r at
     # (r // 2, r % 2), its data row's group the ranks {2·(r // 2), +1};
-    # spatial 3 of 4 ranks, an odd split and BtsModel raise; a 32-row
-    # image (one row of 32 for two bands: DispResNet's coarsest level
-    # runs on the gathered map) trains; DispNetS, StnDispNet with its STN
-    # and DispResNet-18 and -50 with all_scales bind
-    bts = "BtsModel{'num_features': 64}"
+    # spatial 3 of 4 ranks, an odd split and BtsModel at 80 rows (no
+    # multiple of 32) raise; a 32-row image (one row of 32 for two bands:
+    # DispResNet's coarsest level runs on the gathered map) trains;
+    # DispNetS, StnDispNet with its STN, DispResNet-18 and -50 with
+    # all_scales and BtsModel bind
+    bts = "bts_height_80"
     for rank, result in enumerate(r["layout"] for r in runs["2x2"]):
         assert result["shape"] == {"data": 2, "spatial": 2}
         assert (result["rank"], result["data_rank"], result["spatial_rank"]) == (
@@ -391,7 +392,7 @@ def test_mesh_layout_groups_and_what_the_mesh_refuses(runs):
         assert all(np.isfinite(v) for v in result["height_32"].values())
         assert result["height_32"] == runs["2x2"][0]["layout"]["height_32"]
         assert "does not split into 2 bands" in errors["height_33"]
-        assert "ROADMAP" in errors[bts] and "BtsModel under a spatial mesh" in errors[bts]
+        assert "80x96 image does not shard" in errors[bts] and "multiple of 32" in errors[bts]
         assert sorted(errors) == [bts, "height_33", "spatial_3"]
 
 

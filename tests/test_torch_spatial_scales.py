@@ -14,8 +14,8 @@ whole, and one whole step of DispResNet-18 and of DispResNet-50
 (bottleneck blocks on bands) with all_scales against the port's
 one-process step (DispResNet-50's gradient against that step under a
 one-rank mesh: its step is chaotic, see its test) and JAX's loss on the
-whole batch; which depth nets bind_spatial takes (DispResNet, DispNetS,
-StnDispNet) and refuses (BtsModel).
+whole batch; the depth nets bind_spatial takes (DispResNet, DispNetS,
+StnDispNet, BtsModel: tests/test_torch_spatial_bts.py trains it).
 
 The ranks are tests/torch_spatial_uneven_worker.py's, spawned on the CPU
 by torch_parallel_worker.start_ranks.
@@ -181,11 +181,12 @@ def test_bind_spatial_takes_dispresnet_at_every_depth_and_scale_set(kwargs):
 
 @pytest.mark.parametrize("name,kwargs", [
     ("DispNetS", {}), ("StnDispNet", {"image_shape": (64, 96)}),
-    ("StnDispNet", {"use_stn": True, "image_shape": (64, 96)})])
+    ("StnDispNet", {"use_stn": True, "image_shape": (64, 96)}),
+    ("BtsModel", {"num_features": 128})])
 def test_bind_spatial_takes_dispnets_and_stn_dispnet(name, kwargs):
-    # every banded module of the net (its convs, transposed convs and
-    # GroupNorms, and the net itself) is bound to the mesh, and unbound
-    # without it
+    # every banded module of the net (its convs, pools, transposed convs
+    # and GroupNorms, and the net itself) is bound to the mesh, and
+    # unbound without it
     mesh = Mesh(None, 0, SPATIAL, torch.device("cpu"), spatial=SPATIAL)
     model = build_model(name, device="cpu", **kwargs)
     bind_spatial([model, build_model("PoseFc", device="cpu", image_shape=(64, 96))], mesh)
@@ -195,9 +196,3 @@ def test_bind_spatial_takes_dispnets_and_stn_dispnet(name, kwargs):
     bind_spatial([model], None)
     assert all(m.mesh is None for m in banded)
 
-
-@pytest.mark.parametrize("name,kwargs", [("BtsModel", {"num_features": 64})])
-def test_bind_spatial_names_a_depth_net_it_does_not_take(name, kwargs):
-    mesh = Mesh(None, 0, SPATIAL, torch.device("cpu"), spatial=SPATIAL)
-    with pytest.raises(NotImplementedError, match=f"{name} under a spatial mesh"):
-        bind_spatial([build_model(name, device="cpu", **kwargs)], mesh)

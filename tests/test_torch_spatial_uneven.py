@@ -133,27 +133,29 @@ def runs(tmp_path_factory):
             "ref": ref, "one_process_remat": one_process_remat, "jax": losses}
 
 
-@pytest.mark.parametrize("height,spatial,scales,message", [
-    (97, 2, (0,), "a multiple of spatial"),
-    (32, 2, (0,), None),
-    (96, 4, (0,), None),
-    (100, 2, (0, 1, 2, 3), "multiple of 8"),
-    (104, 4, (0, 1, 2, 3), None),
-    (96, 2, (0,), None), (80, 2, (0,), None), (192, 4, (0, 1, 2, 3), None),
-    (384, 8, (0, 1, 2, 3), None), (384, 3, (0,), None), (192, 3, (0, 1, 2, 3), None),
-    (66, 3, (0,), None), (64, 4, (0,), None), (192, 8, (0,), None)])
-def test_check_height_names_the_limit_it_refuses(height, spatial, scales, message):
-    # every (H, s) with H % s == 0 is taken, with all scales also H a
-    # multiple of 8 (JAX's rule, and a coarse scale's integer upsample on
-    # a band): bands that hold no row of a level run it on the gathered
-    # map, and a halo reaches past a short band; anything else raises a
-    # ValueError that names the limit
+@pytest.mark.parametrize("height,spatial,multiple,message", [
+    (97, 2, 1, "a multiple of spatial"),
+    (32, 2, 1, None),
+    (96, 4, 1, None),
+    (100, 2, 1, None),
+    (104, 4, 1, None),
+    (96, 2, 32, None), (80, 2, 32, "a multiple of 32"), (192, 4, 1, None),
+    (384, 8, 1, None), (384, 3, 1, None), (352, 4, 32, None),
+    (66, 3, 1, None), (64, 4, 1, None), (192, 8, 1, None)])
+def test_check_height_names_the_limit_it_refuses(height, spatial, multiple, message):
+    # every (H, s) with H % s == 0 is taken (JAX's rule), for BtsModel
+    # (`multiple` 32) also H a multiple of 32, below which JAX's model
+    # cannot concatenate its skips either: bands that hold no row of a
+    # level run it on the gathered map, a halo reaches past a short band,
+    # and a coarse map whose upsample to the image is no integer factor is
+    # resized whole (100 rows with all scales: 13 rows at 1/8); anything
+    # else raises a ValueError that names the limit
     mesh = Mesh(None, 0, spatial, torch.device("cpu"), spatial=spatial)
     if message is None:
-        check_height(mesh, height, 64, scales)
+        check_height(mesh, height, 64, multiple)
         return
     with pytest.raises(ValueError, match="does not shard over spatial") as error:
-        check_height(mesh, height, 64, scales)
+        check_height(mesh, height, 64, multiple)
     assert message in str(error.value) and f"{height}x64" in str(error.value)
 
 

@@ -62,7 +62,6 @@ from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(31)
 HEIGHT, WIDTH = 64, 96
 CONFIG = "configs/tpu_v5e.yaml"
 # the training objective of configs/tpu_v5e.yaml, exact warp on both sides
@@ -98,7 +97,7 @@ def _rel_l2(got, ref):
 # --------------------------------------------------------------------------
 
 
-def _off_pixel_grid(batch, height, width, lo, hi, rng=RNG):
+def _off_pixel_grid(batch, height, width, lo, hi, rng):
     """Normalized sample coordinates whose pixel positions lie in [lo, hi)
     (in units of the image size) and at least 1e-3 px from an integer,
     where the bilinear gradient jumps."""
@@ -111,14 +110,14 @@ def _off_pixel_grid(batch, height, width, lo, hi, rng=RNG):
 
 
 GRID_CASES = {
-    "inside": lambda: _off_pixel_grid(2, 12, 20, 0.0, 0.95),
+    "inside": lambda rng: _off_pixel_grid(2, 12, 20, 0.0, 0.95, rng),
     # out of frame by up to 2 images: partial taps, and every tap outside
-    "out_of_frame": lambda: _off_pixel_grid(2, 12, 20, -1.0, 2.0),
+    "out_of_frame": lambda rng: _off_pixel_grid(2, 12, 20, -1.0, 2.0, rng),
     # far outside, where the port clamps before the floor
-    "huge": lambda: np.where(
-        RNG.uniform(size=(2, 12, 20, 2)) < 0.3,
-        RNG.choice([-1e7, -40.0, 3.0, 1e9], (2, 12, 20, 2)),
-        _off_pixel_grid(2, 12, 20, 0.0, 0.95),
+    "huge": lambda rng: np.where(
+        rng.uniform(size=(2, 12, 20, 2)) < 0.3,
+        rng.choice([-1e7, -40.0, 3.0, 1e9], (2, 12, 20, 2)),
+        _off_pixel_grid(2, 12, 20, 0.0, 0.95, rng),
     ).astype(np.float32),
 }
 
@@ -127,9 +126,10 @@ GRID_CASES = {
 def test_grid_sample_grad_grid_matches_jax_vjp(case):
     # the plain version of A′ vs jax.vjp of the JAX gather warp w.r.t. the
     # grid: max abs err <= 1e-5 · max|d_grid|
-    img = RNG.uniform(0, 1, (2, 12, 20, 3)).astype(np.float32)
-    grid = GRID_CASES[case]()
-    g = RNG.normal(size=(2, 12, 20, 3)).astype(np.float32)
+    rng = np.random.default_rng(31)
+    img = rng.uniform(0, 1, (2, 12, 20, 3)).astype(np.float32)
+    grid = GRID_CASES[case](rng)
+    g = rng.normal(size=(2, 12, 20, 3)).astype(np.float32)
     _, vjp = jax.vjp(lambda gr: jax_resample.grid_sample(jnp.asarray(img), gr),
                      jnp.asarray(grid))
     (ref,) = vjp(jnp.asarray(g))
@@ -141,9 +141,10 @@ def test_grid_sample_grad_grid_matches_jax_vjp(case):
 def test_warp_function_passes_gradcheck():
     # the autograd Function on the CPU (kernel A's and A′'s plain versions)
     # against numerical differences of the plain forward, float64
-    img = torch.from_numpy(RNG.uniform(0, 1, (2, 3, 5, 7)))
+    rng = np.random.default_rng(31)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 3, 5, 7)))
     grid = torch.from_numpy(
-        _off_pixel_grid(2, 5, 7, -0.3, 1.2).astype(np.float64)
+        _off_pixel_grid(2, 5, 7, -0.3, 1.2, rng).astype(np.float64)
     ).requires_grad_()
     assert torch.autograd.gradcheck(kernels.warp_bilinear, (img, grid))
 
@@ -152,8 +153,9 @@ def test_warp_function_passes_gradcheck():
 def test_photometric_function_passes_gradcheck(ssim_weight):
     # kernel B's and C's plain versions behind the Function, both inputs
     # differentiated (no ties: independent uniform images)
-    x = torch.from_numpy(RNG.uniform(0, 1, (1, 2, 5, 6))).requires_grad_()
-    y = torch.from_numpy(RNG.uniform(0, 1, (1, 2, 5, 6))).requires_grad_()
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 2, 5, 6))).requires_grad_()
+    y = torch.from_numpy(rng.uniform(0, 1, (1, 2, 5, 6))).requires_grad_()
     assert torch.autograd.gradcheck(
         lambda a, b: kernels.photometric(a, b, ssim_weight), (x, y)
     )
@@ -168,9 +170,10 @@ def test_photometric_function_passes_gradcheck(ssim_weight):
 def test_photometric_map_bwd_matches_pallas(shape):
     # the plain version of C vs the JAX kernel in interpret mode (the SSIM
     # distance alone; the JAX kernel needs dims >= 2)
-    x = RNG.uniform(0, 1, shape).astype(np.float32)
-    y = RNG.uniform(0, 1, shape).astype(np.float32)
-    g = RNG.normal(size=shape).astype(np.float32)
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    y = rng.uniform(0, 1, shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
     ref_dx, ref_dy = ssim_bwd_pallas(jnp.asarray(x), jnp.asarray(y), jnp.asarray(g),
                                      interpret=True)
     dx, dy = ssim.photometric_map_bwd(_nchw(x), _nchw(y), _nchw(g), 1.0)
@@ -183,9 +186,10 @@ def test_photometric_map_bwd_matches_pallas(shape):
 def test_photometric_map_bwd_matches_jax_vjp(shape, ssim_weight):
     # vs jax.vjp of ssim_distance + the L1 term of the blend (jnp.abs'
     # rule), 1- and 2-pixel dimensions included
-    x = RNG.uniform(0, 1, shape).astype(np.float32)
-    y = RNG.uniform(0, 1, shape).astype(np.float32)
-    g = RNG.normal(size=shape).astype(np.float32)
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0, 1, shape).astype(np.float32)
+    y = rng.uniform(0, 1, shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
 
     def blend(a, b):
         out = jax_ssim(a, b)
@@ -209,8 +213,9 @@ def test_photometric_map_bwd_tie_rules():
     # the JAX kernel's rules: identical flat windows (raw == 0 exactly)
     # pass no SSIM gradient, and the L1 term at y == x takes jnp.abs'
     # branch: dx = -(1 - w)·g, dy = +(1 - w)·g
+    rng = np.random.default_rng(31)
     x = torch.full((1, 1, 6, 7), 0.5)
-    g = torch.from_numpy(RNG.normal(size=(1, 1, 6, 7)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(1, 1, 6, 7)).astype(np.float32))
     dx, dy = ssim.photometric_map_bwd(x, x.clone(), g, 1.0)
     assert float(dx.abs().max()) == 0.0 and float(dy.abs().max()) == 0.0
     dx, dy = ssim.photometric_map_bwd(x, x.clone(), g, 0.85)
@@ -228,18 +233,22 @@ def test_loss_gradients_match_jax():
     # (min, smoothness on disparity at 0.001, depth_norm, bidirectional)
     # vs jax.grad of the JAX total_loss with the exact gather warp: rel L2
     # <= 1e-4 per input
+    # seed 32: on seed 31's draw the tgt -> ref0 job's identity error wins
+    # the automask at every pixel, so both packages give disp_ref0 a
+    # gradient of exactly 0 (CHANGES.md)
+    rng = np.random.default_rng(32)
     batch, height, width = 2, 24, 40
     k = np.array([[40.0, 0, 20.0], [0, 40.0, 12.0], [0, 0, 1]], np.float32)
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
     base = np.stack([np.sin(xx * 0.3 + c) * np.cos(yy * 0.2 - c) for c in range(3)], -1)
     tgt, ref0, ref1 = (
-        (base + RNG.normal(0, 0.05, (batch, height, width, 3))).astype(np.float32)
+        (base + rng.normal(0, 0.05, (batch, height, width, 3))).astype(np.float32)
         for _ in range(3)
     )
-    disps = [RNG.uniform(0.05, 0.9, (batch, height, width, 1)).astype(np.float32)
+    disps = [rng.uniform(0.05, 0.9, (batch, height, width, 1)).astype(np.float32)
              for _ in range(2)]
-    poses = np.concatenate([RNG.normal(0, 0.01, (batch, 2, 3)),
-                            RNG.normal(0, 0.1, (batch, 2, 3))], -1).astype(np.float32)
+    poses = np.concatenate([rng.normal(0, 0.01, (batch, 2, 3)),
+                            rng.normal(0, 0.1, (batch, 2, 3))], -1).astype(np.float32)
     intr = np.broadcast_to(k, (batch, 3, 3)).copy()
 
     def jax_loss(d_tgt, d_ref0, pose):
@@ -424,10 +433,11 @@ def test_supervised_term_gradient_at_a_tie_matches_jax():
     # pred == gt exactly at one valid pixel: jnp.abs' rule gives +1 there
     # (torch.abs would give 0), one invalid pixel (gt 0) gives nothing;
     # d/d(disp) equal to jax.grad of JAX's expression (train/trainer.py)
+    rng = np.random.default_rng(31)
     from unsupervised_pseuso_lidar_tpu.geometry.warp import disp_to_depth as jax_disp_to_depth
 
-    disp = RNG.uniform(0.05, 0.9, (2, 1, 3, 4)).astype(np.float32)
-    gt = RNG.uniform(1.0, 50.0, (2, 3, 4)).astype(np.float32)
+    disp = rng.uniform(0.05, 0.9, (2, 1, 3, 4)).astype(np.float32)
+    gt = rng.uniform(1.0, 50.0, (2, 3, 4)).astype(np.float32)
     gt[0, 1, 2] = np.float32(1.0) / (np.float32(10.0) * disp[0, 0, 1, 2] + np.float32(0.01))
     gt[1, 0, 0] = 0.0
 

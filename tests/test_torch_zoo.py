@@ -43,7 +43,6 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
-RNG = np.random.default_rng(91)
 HW = (64, 96)
 # sigmoid disparities / depths of a forward: max abs error against JAX
 FORWARD_ATOL = 1e-4
@@ -111,7 +110,8 @@ def test_resize_nearest_matches_jax(src, out):
     # exact: the same fp32 index formula (a BTS 8x8 depth map to the
     # next level, KITTI's serving size, ratios that are not integers, and
     # an upsample)
-    img = RNG.normal(size=(2, *src, 3)).astype(np.float32)
+    rng = np.random.default_rng(91)
+    img = rng.normal(size=(2, *src, 3)).astype(np.float32)
     ref = np.asarray(jax_resample.resize_nearest(jnp.asarray(img), *out))
     got = resample.resize_nearest(nchw(img), *out)
     np.testing.assert_array_equal(nhwc(got), ref)
@@ -120,8 +120,9 @@ def test_resize_nearest_matches_jax(src, out):
 @pytest.mark.parametrize("align_corners", [False, True])
 def test_grid_sample_matches_jax(align_corners):
     # bilinear, zeros padding, samples in and out of frame; fp32 atol 1e-6
-    img = RNG.uniform(0, 1, (2, 9, 13, 3)).astype(np.float32)
-    grid = RNG.uniform(-1.3, 1.3, (2, 7, 5, 2)).astype(np.float32)
+    rng = np.random.default_rng(91)
+    img = rng.uniform(0, 1, (2, 9, 13, 3)).astype(np.float32)
+    grid = rng.uniform(-1.3, 1.3, (2, 7, 5, 2)).astype(np.float32)
     ref = jax_resample.grid_sample(jnp.asarray(img), jnp.asarray(grid),
                                    align_corners=align_corners)
     got = resample.grid_sample(nchw(img), torch.from_numpy(grid), align_corners=align_corners)
@@ -131,8 +132,9 @@ def test_grid_sample_matches_jax(align_corners):
 def test_affine_grid_matches_jax_and_torch():
     # JAX's formula (atol 1e-6), which is F.affine_grid(align_corners=
     # False)'s grid up to rounding (atol 1e-5)
+    rng = np.random.default_rng(91)
     theta = (np.array([1, 0, 0, 0, 1, 0], np.float32)
-             + RNG.normal(0, 0.2, (3, 6)).astype(np.float32)).reshape(3, 2, 3)
+             + rng.normal(0, 0.2, (3, 6)).astype(np.float32)).reshape(3, 2, 3)
     ref = np.asarray(jax_stn.affine_grid(jnp.asarray(theta), 12, 40))
     got = affine_grid(torch.from_numpy(theta), 12, 40)
     assert got.shape == (3, 12, 40, 2)
@@ -171,7 +173,8 @@ def _bridge(variables, mapping):
 def test_conv_transpose_matches_jax():
     # ConvTranspose2d(3, s2, p1, output_padding 1): output 2x the input;
     # fp32 atol 1e-5
-    x = RNG.normal(size=(2, 5, 7, 6)).astype(np.float32)
+    rng = np.random.default_rng(91)
+    x = rng.normal(size=(2, 5, 7, 6)).astype(np.float32)
     flax_layer = jax_layers.TorchConvTranspose(4)
     variables = random_variables(flax_layer, jnp.asarray(x))
     port = layers.conv_transpose(6, 4)
@@ -186,7 +189,8 @@ def test_conv_transpose_matches_jax():
 def test_downsample_conv_bn_matches_jax(train):
     # the norm after the ReLU; in train mode the batch's statistics, and
     # the running statistics after it (flax's biased variance) at rel 1e-5
-    x = RNG.normal(size=(3, 9, 12, 5)).astype(np.float32)
+    rng = np.random.default_rng(91)
+    x = rng.normal(size=(3, 9, 12, 5)).astype(np.float32)
     flax_layer = jax_layers.DownsampleConvBN(16, 5)
     variables = random_variables(flax_layer, jnp.asarray(x), train=False)
     port = layers.DownsampleConvBN(5, 16, 5)
@@ -214,7 +218,8 @@ def test_group_norm_blocks_match_jax(scale):
     # input scale 1e-3 the group variances are ~1e-6, where torch's
     # default 1e-5 would be off by a factor ~3 (rel 1e-4 of the largest
     # output)
-    x = (scale * RNG.normal(size=(2, 12, 16, 3))).astype(np.float32)
+    rng = np.random.default_rng(91)
+    x = (scale * rng.normal(size=(2, 12, 16, 3))).astype(np.float32)
     down = jax_layers.DownsampleConvGN(32)
     down_vars = random_variables(down, jnp.asarray(x))
     for conv in ("TorchConv_0", "TorchConv_1"):  # no bias: scale-free convs
@@ -292,7 +297,8 @@ def check_bridge(case, variables):
     assert_state_equal(model.state_dict(), state_dict_from_jax(params, stats, name))
 
 
-def check_forward(case, variables, hw, train, num_outputs, scale=1.0, stats_tol=STATS_RTOL):
+def check_forward(case, variables, hw, train, num_outputs, scale=1.0, stats_tol=STATS_RTOL,
+                  seed=91):
     """The port's forward against flax apply on a random batch at hw:
     every output at atol FORWARD_ATOL · scale; in train mode the BatchNorm
     running statistics after it at rel and abs stats_tol."""
@@ -300,7 +306,7 @@ def check_forward(case, variables, hw, train, num_outputs, scale=1.0, stats_tol=
     model = jax_build_model(name, **jax_kwargs)
     port = port_model(name, variables, image_shape=hw, **port_kwargs)
     port.train(train)
-    img = RNG.normal(size=(2, *hw, 3)).astype(np.float32)
+    img = np.random.default_rng(seed).normal(size=(2, *hw, 3)).astype(np.float32)
     mutated = {}
     if train:
         ref, mutated = jax.jit(partial(model.apply, train=True, mutable=["batch_stats"]))(

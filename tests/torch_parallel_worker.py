@@ -277,7 +277,7 @@ def band_upsample(mesh, inputs, shape):
     out = {}
     for scale, (coarse, g) in inputs.items():
         leaf = coarse[:, :, band(mesh, height, scale)].to(mesh.device).requires_grad_()
-        full = _full_res_depth(leaf, height, width, mesh)
+        full = _full_res_depth(leaf, height, width, mesh, scale)
         (full * g[:, band(mesh, height)].to(mesh.device)).sum().backward()
         out[scale] = (full.detach().cpu(), leaf.grad.cpu())
     return out

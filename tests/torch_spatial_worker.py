@@ -21,9 +21,10 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_l
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import normalize_depth, total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models import layers
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.bts import BtsModel
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh, shard_batch
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import band, check_height
 from unsupervised_pseuso_lidar_tpu_torch.train import config as config_module
 from unsupervised_pseuso_lidar_tpu_torch.utils import visualization
 from unsupervised_pseuso_lidar_tpu_torch.utils.logging import MetricLogger
@@ -246,11 +247,17 @@ def layout(mesh):
                                                            "image_shape": (64, 96)}),
                          ("DispResNet", {"all_scales": True}),
                          ("DispResNet", {"num_layers": 50, "all_scales": True}),
-                         ("BtsModel", {"num_features": 64})):
+                         ("BtsModel", {"num_features": 128})):
         try:
             bind_spatial([build_model(name, device="cpu", **kwargs)], mesh)
         except NotImplementedError as e:
             errors[name + str(kwargs)] = str(e)
+    # BtsModel binds, and whole_frames refuses a height that is no multiple
+    # of 32 for it (JAX's model cannot concatenate its skips there)
+    try:
+        check_height(mesh, 80, WIDTH, BtsModel.row_multiple)
+    except ValueError as e:
+        errors["bts_height_80"] = str(e)
     out["errors"] = errors
     return out
 

@@ -23,7 +23,7 @@ rows: the warp samples the whole source frames at the band's coordinates
 (kernel A on a band of grid rows), the targets are the band's rows, the
 SSIM windows cross the band's edges through a halo, a coarse scale's
 depth is upsampled on the band's slab, or whole where the scale is not
-banded (_full_res_depth), and every mean
+banded or the upsample is no integer factor (_full_res_depth), and every mean
 is the band's times parallel/spatial.band_weight: spatial × its share of
 the image's mean, the bands being of any height, so that the mean over
 the ranks, which the step takes, is the image's.
@@ -46,9 +46,10 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     band_weight,
-    banded_level,
     first_band,
+    gather_band,
     halo,
+    is_band,
     level_rows,
     row_sharded,
 )
@@ -62,31 +63,33 @@ def _full_res_depth(depth: torch.Tensor, height: int, width: int,
     """[B, 1, h, w] (or [B, h, w]) scale-s depth -> [B, H, W].
 
     Under a mesh with a "spatial" axis the result is this rank's band of
-    the image's rows. Where `scale` is banded (parallel/spatial.
-    banded_level) `depth` is this rank's band of the scale-s map: the
-    band with one coarse row of halo above and below (parallel/spatial.
-    halo, differentiable) is upsampled by the integer factor f = 2^s and
-    f rows are cropped at each end but at the image's border, where the
-    slab's own clamp is the image's. An integer-factor upsample with
-    half-pixel centres is shift-equivariant — the same source rows and
-    weights — so the band's rows are exactly the whole map's
-    (check_height makes H a multiple of f). Where it is not, `depth` is
-    the whole scale-s map (every rank's copy): it is upsampled whole and
-    the band's rows taken."""
+    the image's rows. Where `depth` is this rank's band of the scale-s
+    map (parallel/spatial.is_band) and H a multiple of f = 2^s, the band
+    with one coarse row of halo above and below (parallel/spatial.halo,
+    differentiable) is upsampled by the integer factor f and f rows are
+    cropped at each end but at the image's border, where the slab's own
+    clamp is the image's. An integer-factor upsample with half-pixel
+    centres is shift-equivariant — the same source rows and weights — so
+    the band's rows are exactly the whole map's. Where H is no multiple
+    of f the resize is no integer factor: the band is gathered with its
+    gradient (parallel/spatial.gather_band; the ranks' cotangents add),
+    resized whole and the band's rows taken. Where `depth` is the whole
+    map (every rank's copy: a level that is not banded, StnDispNet's
+    16·ceil(H/16) rows), it is resized whole and the band's rows taken."""
     if depth.ndim == 3:
         depth = depth[:, None]
     if not row_sharded(mesh):
         return resize_bilinear(depth, height, width)[:, 0]
     rows = band(mesh, height)
-    if not banded_level(mesh, height, scale):
+    if not is_band(depth, mesh, height, scale):
         return resize_bilinear(depth, height, width)[:, 0, rows]
+    factor = 2 ** scale
+    if height % factor:
+        whole = gather_band(depth, mesh, height, scale)
+        return resize_bilinear(whole, height, width)[:, 0, rows]
     count = rows.stop - rows.start
-    factor = count // depth.shape[2]
     if factor == 1:
         return resize_bilinear(depth, count, width)[:, 0]
-    if factor * depth.shape[2] != count or height % factor:
-        raise ValueError(f"a band of {depth.shape[2]} rows does not upsample to the "
-                         f"{count} rows of its band of a {height}-row image")
     slab = halo(depth, mesh, 1, 1, level_rows(mesh, height, scale))
     full = resize_bilinear(slab, slab.shape[2] * factor, width)
     top = 0 if first_band(mesh) else factor
@@ -122,6 +125,7 @@ def reprojection_loss(
     warp_impl: str = "gather",
     with_coverage: bool = False,
     mesh=None,
+    scales: Sequence[int] | None = None,
 ):
     """Bidirectional multi-scale reprojection loss.
 
@@ -137,6 +141,8 @@ def reprojection_loss(
         batch's under a `mesh`).
       mesh: the step's mesh or None; with a "spatial" axis the depths are
         this rank's band of rows (module docstring).
+      scales: each depth's scale (its map 2**scale times smaller than the
+        image; by default 0, 1, 2, … in order), read under a spatial mesh.
     Returns the scalar loss, or (loss, in-frame fraction of every job's
     samples) with with_coverage. Each scale's depth is upsampled to full
     resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
@@ -149,6 +155,7 @@ def reprojection_loss(
     batch, _, height, width = tgt.shape
     rows = band(mesh, height)
     num_scales = len(depths[0])
+    scales = range(num_scales) if scales is None else scales
     # the per-job transforms in fp64 (device-independent coordinates, see
     # warp_coords)
     t0 = pose_matrix(poses[:, 0].double())
@@ -157,7 +164,7 @@ def reprojection_loss(
 
     srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
     fwd_w = 1.0 / (2.0 * num_scales) / 2.0
-    for scale, scale_depth in enumerate(depths[0]):
+    for scale, scale_depth in zip(scales, depths[0]):
         depth_full = _full_res_depth(scale_depth, height, width, mesh, scale)
         for ref, transform in ((refs[0], t0), (refs[1], t1)):
             srcs.append(ref)
@@ -166,7 +173,7 @@ def reprojection_loss(
             depth_maps.append(depth_full)
             weights.append(fwd_w)
     bwd_w = 1.0 / (2.0 * num_scales)
-    for scale, scale_depth in enumerate(depths[1]):
+    for scale, scale_depth in zip(scales, depths[1]):
         srcs.append(tgt)
         tgts.append(refs[0][:, :, rows])
         transforms.append(t0_inv)
@@ -207,6 +214,7 @@ def min_reprojection_loss(
     depths_ref0: Sequence[torch.Tensor] | None = None,
     with_coverage: bool = False,
     mesh=None,
+    scales: Sequence[int] | None = None,
 ):
     """monodepth2-style per-pixel minimum over the two references, with
     the joint-min automask: per pixel min(min_r reproj_r, min_r ident_r ·
@@ -222,6 +230,8 @@ def min_reprojection_loss(
         backward leg (tgt warped into ref0's frame with the inverted pose,
         automasked against the same identity pair) averaged with the
         forward direction.
+      scales: each depth's scale (by default 0, 1, 2, … in order), read
+        under a spatial mesh.
     Returns (the scalar loss, mean over scales; automask_keep, the
     fraction of pixels whose warp error wins the joint min — the pixels
     that still carry photometric gradient — the two directions averaged,
@@ -269,11 +279,12 @@ def min_reprojection_loss(
 
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
     keeps, in_frame = [], []
-    for i, scale_depth in enumerate(depths):
-        depth_full = _full_res_depth(scale_depth, height, width, mesh, i)
+    scales = range(len(depths)) if scales is None else scales
+    for i, (scale, scale_depth) in enumerate(zip(scales, depths)):
+        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
-            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh, i))
+            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh, scale))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled,
                              row_start=rows.start, height=height)
         if with_coverage:

@@ -17,11 +17,7 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
     reprojection_loss,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
-    band,
-    banded_level,
-    row_sharded,
-)
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import is_band, row_sharded
 
 
 def normalize_depth(depth: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -66,6 +62,7 @@ def total_loss(
     min_bidirectional: bool = True,
     with_coverage: bool = False,
     mesh=None,
+    scales: Sequence[int] | None = None,
 ):
     """(reprojection_loss, smooth_weight · smoothness_loss, extra): extra
     holds {"automask_keep": fraction} in 'min' mode (min_reprojection_loss)
@@ -87,51 +84,51 @@ def total_loss(
         reduction here is a mean over equal blocks of images, which the
         step's all-reduce of the metrics and gradients makes global. With
         a "spatial" axis tgt and refs are the whole frames and each
-        disparity this rank's band of its scale's rows (scale i, finest
-        first; parallel/spatial.band), or the whole scale-i map where
-        scale i is not banded (parallel/spatial.banded_level: its terms
-        are then taken whole on every rank): the reductions that cross the
-        band's edges — SSIM windows, vertical smoothness differences,
-        depth_norm's per-image mean, a coarse scale's upsample — exchange
-        rows or sums with the other bands, and each mean is spatial × the
-        band's share of the image's (losses/reprojection.py,
-        smoothness.py, above).
+        disparity this rank's band of its scale's rows (parallel/
+        spatial.band), or the whole map where its scale is not banded or
+        the net's map is not the image's pyramid size (parallel/
+        spatial.is_band: its terms are then taken whole on every rank):
+        the reductions that cross the band's edges — SSIM windows,
+        vertical smoothness differences, depth_norm's per-image mean, a
+        coarse scale's upsample — exchange rows or sums with the other
+        bands, and each mean is spatial × the band's share of the
+        image's (losses/reprojection.py, smoothness.py, above).
+      scales: each disparity's scale, its map 2**scale times smaller than
+        the image (trainer.depth_scales: BtsModel's five outputs are all
+        at scale 0); by default 0, 1, 2, … in order. Read under a spatial
+        mesh only.
     """
     height = tgt.shape[2]
-    if row_sharded(mesh):
-        for frame in disparities:
-            for scale, d in enumerate(frame):
-                rows = band(mesh, height, scale)
-                if not banded_level(mesh, height, scale):
-                    rows = slice(0, -(-height // 2 ** scale))
-                if d.shape[2] != rows.stop - rows.start:
-                    raise ValueError(
-                        f"a scale-{scale} disparity of {d.shape[2]} rows under the spatial "
-                        f"mesh: this rank's part of it is rows {rows.start}:{rows.stop}")
+    scales = tuple(range(len(disparities[0]))) if scales is None else tuple(scales)
+    # a map of the wrong rows raises here, before any exchange
+    banded = [[is_band(d, mesh, height, scale) for scale, d in zip(scales, frame)]
+              for frame in disparities]
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
-        depths = [[normalize_depth(d, mesh if banded_level(mesh, height, scale) else None)
-                   for scale, d in enumerate(frame)] for frame in depths]
+        depths = [[normalize_depth(d, mesh if on_band else None)
+                   for on_band, d in zip(frame_banded, frame)]
+                  for frame_banded, frame in zip(banded, depths)]
     extra = {}
     if mode == "min":
         loss_reproj, extra["automask_keep"], *in_frame = min_reprojection_loss(
             tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
             ident_scale=ident_scale, no_ssim=no_ssim,
             depths_ref0=depths[1] if min_bidirectional else None,
-            with_coverage=with_coverage, mesh=mesh,
+            with_coverage=with_coverage, mesh=mesh, scales=scales,
         )
     else:
         result = reprojection_loss(tgt, refs, depths, poses, intrinsics, mode=mode,
                                    warp_impl=warp_impl, with_coverage=with_coverage,
-                                   mesh=mesh)
+                                   mesh=mesh, scales=scales)
         loss_reproj, *in_frame = result if with_coverage else (result,)
     if with_coverage:
         extra["warp_in_frame"] = in_frame[0]
     if smooth_on == "depth":
-        loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh, height=height)
+        loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh, height=height,
+                                  scales=scales)
     elif smooth_on == "disp":
         loss_smooth = smooth_loss(disparities[0], decay=smooth_decay, mesh=mesh,
-                                  height=height)
+                                  height=height, scales=scales)
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
     return loss_reproj, smooth_weight * loss_smooth, extra

@@ -104,12 +104,9 @@ def stn_flat_width(image_shape: Tuple[int, int]) -> int:
 
 class StnDispNet(Banded, nn.Module):
     """Returns [disp] ([B, 1, H', W'], H' = 16·⌈⌈⌈⌈H/2⌉/2⌉/2⌉/2⌉); under a
-    spatial mesh its band of the rows."""
-
-    # under a spatial mesh the height must be a multiple of this (the
-    # decoder's 16·ceil(H/16) rows would reach the loss as a non-integer
-    # resample of a band; parallel/spatial.check_height)
-    row_multiple = 2 ** DEPTH_LEVELS
+    spatial mesh its band of the rows, or where H' is not H the whole map
+    on every rank (the loss resizes it to the image's rows as a whole:
+    no integer factor)."""
 
     def __init__(self, use_stn: bool = False,
                  image_shape: Tuple[int, int] = REFERENCE_SHAPE):
@@ -171,7 +168,12 @@ class StnDispNet(Banded, nn.Module):
             out = getattr(self, f"conv{i + 1}")(out)
         for i in range(4):
             out = getattr(self, f"upconv_{i + 1}")(out)
-        return [self.predict(out)]
+        disp = self.predict(out)
+        if spatial.row_sharded(self.mesh) and height % 2 ** DEPTH_LEVELS:
+            # the last band runs to the decoder's last row
+            rows = 2 ** DEPTH_LEVELS * -(-height // 2 ** DEPTH_LEVELS)
+            disp = spatial.gather_band(disp, self.mesh, height, total=rows)
+        return [disp]
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX model's distributions: torch-default

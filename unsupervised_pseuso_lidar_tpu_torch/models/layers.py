@@ -14,15 +14,17 @@ The blocks are nn.Sequential in the reference's layout, so their
 state-dict keys are the reference's (conv1.0 / conv1.2 / conv1.3 for a
 DispNetS encoder block, upconv_1.0 / upconv_1.1 for a StnDispNet one).
 
-Row sharding (a mesh with a "spatial" axis, parallel/spatial.py): Conv2d,
-MaxPool2d, Conv3x3, ConvTranspose2d and GroupNorm are nn.Conv2d,
-nn.MaxPool2d, the reflect-padded conv, nn.ConvTranspose2d and
-nn.GroupNorm that, once `mesh` is set on them (trainer.bind_spatial),
-run on a band of the image's rows: the windows take the rows they read
-across the band's edges from the neighbouring bands (halo exchange) and
-pad only at the image's top and bottom — zeros for a conv, −inf for the
-max-pool, the reflection for Conv3x3, a zero row under the transposed
-conv — and GroupNorm takes each image's statistics over the data row.
+Row sharding (a mesh with a "spatial" axis, parallel/spatial.py): Conv2d
+(dilated too), MaxPool2d, AvgPool2d, Conv3x3, ConvTranspose2d and
+GroupNorm are nn.Conv2d, nn.MaxPool2d, nn.AvgPool2d, the reflect-padded
+conv, nn.ConvTranspose2d and nn.GroupNorm that, once `mesh` is set on
+them (trainer.bind_spatial), run on a band of the image's rows: the
+windows take the rows they read across the band's edges from the
+neighbouring bands (halo exchange) and pad only at the image's top and
+bottom — zeros for a conv, −inf for the max-pool, the reflection for
+Conv3x3, a zero row under the transposed conv; the 2x2 average pool
+reads none — and GroupNorm takes each image's statistics over the data
+row.
 Each knows its `level` (its input is 2**level times smaller than the
 image; set by its net) and the image's `height` (set by its net's
 forward, set_image_height) and applies the banded-level rule there
@@ -243,13 +245,15 @@ def _banded(x: torch.Tensor, mesh, kernel: int, stride: int, padding: int,
 
 class Conv2d(Banded, nn.Conv2d):
     """nn.Conv2d; under a row-sharding `mesh` its rows come with halos
-    (_banded, zero rows at the image's border), or where its output level
-    is not banded it runs on the whole map."""
+    (_banded, zero rows at the image's border; a window dilated by d reads
+    d·(k − 1) + 1 rows, so BTS's 3x3 ASPP convs take d rows each side), or
+    where its output level is not banded it runs on the whole map."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.on_bands(_out_level(self.level, self.stride[0])):
             return super().forward(whole(x, self.mesh, self.height, self.level))
-        x = _banded(x, self.mesh, self.kernel_size[0], self.stride[0], self.padding[0], 0.0,
+        reach = self.dilation[0] * (self.kernel_size[0] - 1) + 1
+        x = _banded(x, self.mesh, reach, self.stride[0], self.padding[0], 0.0,
                     self.band_rows())
         return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
                         self.dilation, self.groups)
@@ -266,6 +270,20 @@ class MaxPool2d(Banded, nn.MaxPool2d):
         x = _banded(x, self.mesh, self.kernel_size, self.stride, self.padding, -math.inf,
                     self.band_rows())
         return F.max_pool2d(x, self.kernel_size, self.stride, (0, self.padding))
+
+
+class AvgPool2d(Banded, nn.AvgPool2d):
+    """nn.AvgPool2d(2, 2) (JAX's nn.avg_pool, VALID: a last odd row is
+    dropped). Under a row-sharding `mesh` a band at a banded output level
+    starts at an even row, so its windows are the image's and need no
+    halo; where its output level is not banded it runs on the whole map."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.on_bands(_out_level(self.level, self.stride)):
+            return super().forward(whole(x, self.mesh, self.height, self.level))
+        x = _banded(x, self.mesh, self.kernel_size, self.stride, self.padding, 0.0,
+                    self.band_rows())
+        return F.avg_pool2d(x, self.kernel_size, self.stride, (0, self.padding))
 
 
 class ConvTranspose2d(Banded, nn.ConvTranspose2d):
@@ -331,11 +349,19 @@ class GroupNorm(Banded, nn.GroupNorm):
 
 
 def conv(in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-         bias: bool = True, level=None) -> Conv2d:
-    """Conv2d with torch's symmetric (k-1)//2 padding (JAX's TorchConv) at
-    `level` (Banded)."""
+         bias: bool = True, level=None, dilation: int = 1) -> Conv2d:
+    """Conv2d with torch's symmetric padding, dilation·(k-1)//2 (JAX's
+    TorchConv; with a dilation, flax's nn.Conv padded (d, d) as BTS's ASPP
+    builds it) at `level` (Banded)."""
     layer = Conv2d(in_channels, out_channels, kernel_size, stride,
-                   (kernel_size - 1) // 2, bias=bias)
+                   dilation * (kernel_size - 1) // 2, dilation=dilation, bias=bias)
+    layer.level = level
+    return layer
+
+
+def avg_pool(level=None) -> AvgPool2d:
+    """AvgPool2d(2, 2) at input `level` (Banded)."""
+    layer = AvgPool2d(2, 2)
     layer.level = level
     return layer
 

@@ -23,7 +23,11 @@ functions:
     band's first row is not a multiple of 2**level), and `cut_band` cuts
     the band back out at the first finer level that is; the layers apply
     the rule themselves (`on_bands`, `whole`, `placed`) at the level they
-    are given, for the image height the net's forward is given;
+    are given, for the image height the net's forward is given. A coarse
+    map whose resize to the image is no integer factor is gathered,
+    resized whole and cut back the same way (losses/reprojection.py,
+    StnDispNet's output), and `is_band` tells the loss which of its
+    inputs are bands and which whole maps;
   * `gather_rows` assembles whole images on every rank of a data row
     (data frames, no gradient): the warp's source frames, the pose net's
     input and the evaluation's and the pictures' depth maps
@@ -109,28 +113,25 @@ def band_weight(mesh: Optional[Mesh], height: int) -> float:
 
 
 def check_height(mesh: Optional[Mesh], height: int, width: int,
-                 scales=(0,), multiple: int = 1) -> None:
+                 multiple: int = 1) -> None:
     """Raise ValueError unless a depth net can shard an image of height x
-    width over the mesh's spatial axis with output `scales`: the height a
-    multiple of spatial (JAX's rule) and, with scales beyond 0, a
-    multiple of 2**max(scales), so that a coarse map's upsample to the
-    image is an integer factor (losses/reprojection upsamples it on a
-    band); and a multiple of the net's own `multiple` (StnDispNet's
-    decoder returns 16·ceil(H/16) rows, which the loss resamples to the
-    image as a whole). Bands of any height are taken otherwise: a level
-    whose bands hold no whole row is computed on the gathered map
-    (banded_level). The same answer on every rank."""
+    width over the mesh's spatial axis: the height a multiple of spatial
+    (JAX's rule) and of the net's own `multiple` (BtsModel's 32, below
+    which JAX's model cannot concatenate its skips either). Bands of any
+    height are taken otherwise: a level whose bands hold no whole row is
+    computed on the gathered map (banded_level), and a coarse map whose
+    upsample to the image is no integer factor is resized whole (the
+    loss's _full_res_depth, StnDispNet's 16·ceil(H/16) rows). The same
+    answer on every rank."""
     if not row_sharded(mesh):
         return
     spatial = mesh.spatial
     where = f"a {height}x{width} image does not shard over spatial={spatial}"
     if height % spatial:
         raise ValueError(f"{where}: the height must be a multiple of spatial")
-    top = max(2 ** max(scales), multiple)
-    if height % top:
-        raise ValueError(f"{where} at scales {tuple(scales)}: the height must be a "
-                         f"multiple of {top} (a non-integer resample of a band is not "
-                         f"ported, ROADMAP.md)")
+    if height % multiple:
+        raise ValueError(f"{where}: the depth net needs a height that is a multiple of "
+                         f"{multiple}")
 
 
 def on_bands(mesh: Optional[Mesh], height: Optional[int], level: Optional[int]) -> bool:
@@ -167,6 +168,30 @@ def placed(x: torch.Tensor, mesh: Optional[Mesh], height: Optional[int],
     if not on_bands(mesh, height, level) or on_bands(mesh, height, level + 1):
         return x
     return cut_band(x, mesh, height, level)
+
+
+def is_band(x: torch.Tensor, mesh: Optional[Mesh], height: int, level: int,
+            dim: int = 2) -> bool:
+    """Whether x, a depth net's level-`level` output for an image `height`
+    rows tall, is this rank's band of the map's rows (band(mesh, height,
+    level)) rather than the whole map, every rank's copy: a band where the
+    level is banded and x holds the band's rows; the whole map where the
+    level is not banded, or where the net's map is not the image's
+    pyramid size (StnDispNet's 16·ceil(H/16) rows, gathered by the net).
+    A band of a banded level holds fewer rows than the whole map (each
+    band holds one at least). False without a spatial axis; ValueError
+    for a map that is neither."""
+    if not row_sharded(mesh):
+        return False
+    count = x.shape[dim]
+    rows = band(mesh, height, level)
+    if banded_level(mesh, height, level) and count == rows.stop - rows.start:
+        return True
+    if count >= -(-height // 2 ** level):
+        return False
+    raise ValueError(f"a level-{level} map of {count} rows under the spatial mesh: this "
+                     f"rank's band of it is rows {rows.start}:{rows.stop} of a "
+                     f"{-(-height // 2 ** level)}-row map")
 
 
 def first_band(mesh: Mesh) -> bool:
@@ -321,17 +346,22 @@ class _GatherBand(torch.autograd.Function):
 
 
 def gather_band(x: torch.Tensor, mesh: Mesh, height: int, level: int = 0,
-                dim: int = 2) -> torch.Tensor:
+                dim: int = 2, total: Optional[int] = None) -> torch.Tensor:
     """This rank's band of a level-`level` map of an image `height` rows
     tall (band(mesh, height, level), a banded level) -> the whole map
-    (ceil(height / 2**level) rows along `dim`), the same on every rank of
-    the data row; differentiable (_GatherBand)."""
+    (ceil(height / 2**level) rows along `dim`, or `total` rows where the
+    net's map runs past the image's last row, its last band to the map's
+    end as cut_band leaves it), the same on every rank of the data row;
+    differentiable (_GatherBand)."""
     dim = dim % x.ndim
     rows = band(mesh, height, level)
+    total = -(-height // 2 ** level) if total is None else total
+    if last_band(mesh):
+        rows = slice(rows.start, total)
     if x.shape[dim] != rows.stop - rows.start:
         raise ValueError(f"{x.shape[dim]} rows at dim {dim}: band {rows.start}:{rows.stop} of "
                          f"the level-{level} map of a {height}-row image was expected")
-    return _GatherBand.apply(x, mesh, dim, rows, -(-height // 2 ** level))
+    return _GatherBand.apply(x, mesh, dim, rows, total)
 
 
 def cut_band(x: torch.Tensor, mesh: Mesh, height: int, level: int = 0,

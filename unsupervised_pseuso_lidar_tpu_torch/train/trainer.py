@@ -12,7 +12,7 @@ result is the JAX step's on the global batch: BatchNorm statistics, the
 where they are taken, the parameter gradients are averaged once a step
 before the optimizer, and the metrics are global means on every rank.
 With a "spatial" axis a rank's block is a band of its images' rows:
-the depth net (DispResNet, DispNetS or StnDispNet) runs on the band with
+the depth net (DispResNet, DispNetS, StnDispNet or BtsModel) runs on the band with
 halo-exchanging layers (bind_spatial), the pose net on the whole frames,
 which the step gathers from the bands of its data row, and the loss on
 the band (losses/total.py).
@@ -52,6 +52,7 @@ from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import (
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import pose_errors
 from unsupervised_pseuso_lidar_tpu_torch.geometry.warp import disp_to_depth, inverse_warp
 from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
+from unsupervised_pseuso_lidar_tpu_torch.models.depth.bts import BtsModel
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.dispnet import DispNetS
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.resnet_dispnet import DispResNet
 from unsupervised_pseuso_lidar_tpu_torch.models.depth.stn_dispnet import StnDispNet
@@ -74,6 +75,7 @@ from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     check_height,
     gather_rows,
     image_height,
+    is_band,
     row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
@@ -122,23 +124,31 @@ def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor],
     whole frames, gathered from the bands of the data row (the warp's
     sources and the pose net's input; parallel/spatial.gather_rows, in
     the batch's dtype). Raises ValueError, on every rank, for a height
-    `depth_model` cannot shard at its output scales (check_height with
-    depth_scales and its own row_multiple). The batch itself otherwise."""
+    `depth_model` cannot shard (check_height with its row_multiple:
+    BtsModel's 32). The batch itself otherwise."""
     if not row_sharded(mesh):
         return batch
     tgt = batch["tgt"]
     height = image_height(mesh, tgt.shape[2], tgt.device)
-    check_height(mesh, height, tgt.shape[3], depth_scales(depth_model),
-                 getattr(depth_model, "row_multiple", 1))
+    check_height(mesh, height, tgt.shape[3], getattr(depth_model, "row_multiple", 1))
     return dict(batch, tgt=gather_rows(tgt, mesh, 2, height),
                 ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3, height))
 
 
 def depth_scales(model: Optional[nn.Module]) -> Tuple[int, ...]:
-    """The output scales of a depth net: its `scales` (DispResNet's one or
-    four, DispNetS's four), (0,) for a net that does not say
-    (StnDispNet, BtsModel)."""
+    """The scale of each output of a depth net (its map 2**scale times
+    smaller than the image): its `scales` (DispResNet's one or four,
+    DispNetS's four, BtsModel's five full-resolution maps), (0,) for a
+    net that does not say (StnDispNet)."""
     return tuple(getattr(model, "scales", (0,)))
+
+
+def whole_rows(x: torch.Tensor, mesh: Optional[Mesh], height: int) -> torch.Tensor:
+    """A full-resolution map [B, R, W] of a depth net's output -> the
+    whole map: gathered from the bands where it is this rank's band
+    (gather_rows, no gradient), itself where the net returned it whole
+    (StnDispNet's 16·ceil(H/16) rows)."""
+    return gather_rows(x, mesh, 1, height) if is_band(x, mesh, height, 0, 1) else x
 
 
 def normalize_uint8_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -318,7 +328,7 @@ def bind_batch_norm(models, mesh: Optional[Mesh]) -> None:
 # the nets that run under a spatial mesh: the depth nets on bands, the
 # pose nets on the whole frames (their 7 stride-2 convs leave fewer rows
 # than ranks)
-SPATIAL_NETS = (DispResNet, DispNetS, StnDispNet, PoseNet, PoseFc)
+SPATIAL_NETS = (DispResNet, DispNetS, StnDispNet, BtsModel, PoseNet, PoseFc)
 
 
 def bind_spatial(models, mesh: Optional[Mesh]) -> None:
@@ -329,16 +339,16 @@ def bind_spatial(models, mesh: Optional[Mesh]) -> None:
     levels whose bands hold no whole row — and unbind them otherwise.
 
     Under a spatial mesh the depth net must be DispResNet (any depth, one
-    output scale or all_scales), DispNetS or StnDispNet (with or without
-    its STN), and the pose net PoseNet or PoseFc; any other model
-    (BtsModel) raises NotImplementedError, naming it (ROADMAP.md)."""
+    output scale or all_scales), DispNetS, StnDispNet (with or without
+    its STN) or BtsModel, and the pose net PoseNet or PoseFc; any other
+    model (PoseDecoder, which the step cannot call) raises
+    NotImplementedError, naming it."""
     sharded = row_sharded(mesh)
     for model in models:
         if sharded and not isinstance(model, SPATIAL_NETS):
             raise NotImplementedError(
-                f"{type(model).__name__} under a spatial mesh is not ported (ROADMAP.md, "
-                "'Open under a spatial mesh'): only DispResNet, DispNetS or StnDispNet "
-                "with PoseNet or PoseFc")
+                f"{type(model).__name__} under a spatial mesh: the step takes DispResNet, "
+                "DispNetS, StnDispNet or BtsModel with PoseNet or PoseFc")
         for m in model.modules():
             if isinstance(m, Banded):
                 m.mesh = mesh if sharded else None
@@ -512,6 +522,7 @@ class TrainStep:
             ident_scale=self._ident_scale(), no_ssim=self.no_ssim,
             min_bidirectional=self.min_bidirectional,
             with_coverage=self.with_coverage, mesh=self.mesh,
+            scales=depth_scales(state.depth_model),
         )
         loss = reproj + smooth
         if self.supervised_weight and "groundtruth" in batch:
@@ -716,7 +727,7 @@ class EvalStep:
         reproj, smooth, _ = total_loss(
             inputs["tgt"], inputs["refs"], inputs["disparities"],
             inputs["poses"], inputs["intrinsics"], mode=self.loss_mode,
-            depth_norm=self.depth_norm, mesh=self.mesh,
+            depth_norm=self.depth_norm, mesh=self.mesh, scales=depth_scales(self.depth_model),
         )
         return reproj + smooth
 
@@ -746,7 +757,7 @@ class EvalStep:
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         if row_sharded(self.mesh):
             height = inputs["tgt"].shape[2]
-            depth_pred = gather_rows(depth_pred, self.mesh, 1, height)
+            depth_pred = whole_rows(depth_pred, self.mesh, height)
             if "groundtruth" in inputs:
                 inputs["groundtruth"] = gather_rows(inputs["groundtruth"], self.mesh, 1,
                                                     height)
@@ -936,7 +947,7 @@ class Trainer:
             )
         depth = disp_to_depth(disps_tgt[0][:1, 0].float())
         if sharded:
-            depth = gather_rows(depth, self.mesh, 1, height)
+            depth = whole_rows(depth, self.mesh, height)
             if self.mesh.rank != 0:
                 return None
         warped = inverse_warp(batch["ref_imgs"][:1, 0], depth, poses[:1, 0].float(),
