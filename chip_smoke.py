@@ -14,7 +14,8 @@ then drives the port's entry points with seeded random weights:
   serve         DepthToPointCloudPipeline.run over 20 synthetic frames
   validation    3 steps of the eval step (make_eval_step), whose photometric
                 objective launches kernel A once and kernel B twice a step
-  train         Trainer.run_epoch over 3 steps (after 1 warm-up step), each
+  train         Trainer.run_epoch over 3 steps (after 2 warm-up steps: the
+                eager first call of the batch shape, then the capture), each
                 launching A and its grid gradient A' once, B twice and the
                 SSIM backward C once
   train_basic   the training CLI (cli/train.py main) on configs/basic_config.yaml
@@ -148,6 +149,30 @@ then drives the port's entry points with seeded random weights:
                 autograd graph holds at the loss beside the one process's
                 (ranks time-sharing one card)
 
+  graph         the step as one program: TrainStep, make_multi_step and
+                EvalStep captured as CUDA graphs (train/graph.py; on by
+                default on the card without a mesh, so every phase above and
+                below that trains or validates without a mesh runs them).
+                On tpu_v5e (640x192, batch 12, bf16) and basic_config
+                (1280x384, batch 4, fp32), with cuDNN deterministic: the
+                captured Trainer against one with graph=False from the
+                same seed, a warm-up step each, then 3 steps (the first
+                captures, the others replay): the first step's loss and
+                parameter gradients equal, the later losses and the
+                parameters, Adam moments and BatchNorm statistics after
+                the third at rel L2 <= 1e-6; a returned metrics dict not
+                overwritten by the next step; the eval step (Eigen
+                protocol, pose metrics) captured against eager on the same
+                modules, metrics and depth_pred equal. Then per config,
+                and basic_config with cuDNN's TF32 on: the captured and
+                the eager step's host ms a step, CUDA-event ms a step,
+                op_breakdown's device ms, host window and busy share
+                over 3 steps, graph launches a step, capture seconds, the
+                graph pool's bytes and each path's peak memory. Then
+                make_multi_step(num_steps=3) on tpu_v5e: one replay makes
+                3 updates, its state equal to 3 captured single steps',
+                and the times of one replay against 3 single replays
+
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
 calls, divided by 20, the median of 5 such runs (`ms`);
@@ -257,6 +282,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     depth_scales,
     forward_batch,
     make_eval_step,
+    make_multi_step,
     normalize_uint8_batch,
 )
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import card, device_time_ms
@@ -382,6 +408,17 @@ SPATIAL_BF16_LOSS_RTOL = 1e-2
 SPATIAL_PICTURE_RTOL = 1e-5
 # the real 2011_09_26 IMU -> velodyne transform
 PROFILE_STEPS, PROFILE_WARMUP = 3, 2
+# the graph phase: steps compared captured vs eager, steps timed by the
+# host clock, make_multi_step's K, and the bound of a captured step's
+# state against the eager one's (0.0 expected: the same kernels in the
+# same order)
+GRAPH_STEPS, GRAPH_TIMED_STEPS, GRAPH_MULTI = 3, 10, 3
+GRAPH_REL_L2 = 1e-6
+# TrainStep's arguments, to build make_multi_step like a Trainer's step
+STEP_ARGS = ("loss_mode", "semi_sup_pose", "smooth_weight", "smooth_on", "depth_norm",
+             "automask_warmup", "no_ssim", "min_bidirectional", "supervised_weight",
+             "accum_steps", "remat", "color_jitter", "hflip", "aug_seed", "precision",
+             "with_coverage")
 # each kernel's family in the profiler's trace (utils/trace._op_family)
 PROFILED_FAMILY = {"warp_bilinear_fwd": "warp_bilinear_fwd_kernel",
                    "warp_bilinear_bwd": "warp_bilinear_bwd_grid_kernel",
@@ -397,6 +434,35 @@ IMU_TO_VELO = ("R: 9.999976e-01 7.553071e-04 -2.035826e-03 -7.854027e-04 "
 
 def emit(record):
     print(json.dumps(record), flush=True)
+
+
+def pool_segments():
+    """{memory pool id: bytes the card's caching allocator holds for it},
+    from its segments in torch.cuda.memory_snapshot(); (0, 0) is the
+    default pool, the others CUDA graphs' private pools."""
+    held = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        held[pool] = held.get(pool, 0) + seg["total_size"]
+    return held
+
+
+def pool_bytes(pool):
+    """The bytes held for the CUDA graph memory pool `pool`."""
+    return pool_segments().get(tuple(pool), 0)
+
+
+def release_memory():
+    """Collect garbage, then empty the card's allocator cache: a Trainer
+    can sit in a reference cycle, and the memory pool of its CUDA graphs
+    is freed only when the graphs are. Names on stderr the graph pools
+    still held after it (graphs still alive)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.is_available():
+        held = {str(k): v for k, v in pool_segments().items() if k != (0, 0)}
+        if held:
+            print(f"[memory] graph pools still held: {held}", file=sys.stderr, flush=True)
 
 
 def time_ms_per_call(fn, reps=20, warmup=3):
@@ -547,7 +613,8 @@ def main(device="cuda:0"):
           "launches": serve_launches})
 
     # 6. validation: the main path; launches counted over exactly these steps
-    step(batches[1])  # warm-up
+    for _ in range(2):  # warm-up: the eager first call, then the capture
+        step(batches[1])
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     losses = []
@@ -585,6 +652,9 @@ def main(device="cuda:0"):
     # and validation with the Eigen protocol and pose metrics
     with tempfile.TemporaryDirectory() as tmp:
         trainer, basic_launches = train_basic_phase(device, tmp)
+        # the phases below validate only: the train step's graph pool goes
+        trainer.train_step.graphs.reset()
+        release_memory()
         records_1280, details_1280 = kernel_checks(
             trainer.eval_step.loss_inputs(
                 next(SyntheticTripletDataset(1, trainer.config.action.batch_size,
@@ -596,29 +666,33 @@ def main(device="cuda:0"):
         emit({"phase": "kernels_1280", "kernels": details_1280})
         eval_metrics_phase(trainer, device)
         del trainer
-    torch.cuda.empty_cache()
+    release_memory()
 
     # 13. the 'mean' and 'ssim' objectives on configs/synthetic.yaml
     train_mean_phase(device)
+    release_memory()
+    # 13b. the step as one program: captured against eager, and its times
+    graph_phase(device)
+    release_memory()
 
     # 14. the KITTI path: splits, training, evaluation and odometry on a
     # KITTI-shaped drive through the CLIs; 15. the serving CLIs on its frames
     with tempfile.TemporaryDirectory() as tmp:
         kitti_launches, drive_dir, kitti = kitti_phase(device, tmp)
-        torch.cuda.empty_cache()
+        release_memory()
         serve_cli_phase(device, tmp, drive_dir)
-        torch.cuda.empty_cache()
+        release_memory()
         # 16. where a training step's time goes, by torch.profiler
         profiled = profile_phase(device, tmp, kitti, records_1280)
-        torch.cuda.empty_cache()
+        release_memory()
         # 17. the rest of the model zoo: BtsModel serving at the ROS node's
         # shape, the multi-scale and transformer depth nets' training steps
         models_phase(device, tmp, drive_dir)
-    torch.cuda.empty_cache()
+    release_memory()
     # 18. data parallelism: the step under a mesh, world 1 under NCCL and 2
     # gloo ranks sharing the card
     rank_launches = parallel_phase(device)
-    torch.cuda.empty_cache()
+    release_memory()
     # 19. the "spatial" mesh axis: image rows sharded over gloo ranks
     spatial_launches = spatial_phase(device)
     for name, record in records_1280.items():
@@ -629,7 +703,7 @@ def main(device="cuda:0"):
         for name, record in recs.items():
             record["profiled_ms_per_step"] = profiled[config_name][name]["ms_per_step"]
             record["profiled_launches"] = profiled[config_name][name]["launches"]
-    torch.cuda.empty_cache()
+    release_memory()
 
     emit({"kernels": list(records.values()) + list(records_1280.values())})
     print(card(), flush=True)
@@ -872,7 +946,7 @@ def div3_phase(device, chunk=1 << 27):
         mismatches += count
         nans += int(both_nan.sum())
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release_memory()
     emit({"phase": "div3", "patterns": 1 << 32, "mismatches": mismatches,
           "first_mismatch_bits": first_bad, "nan_patterns": nans,
           "seconds": time.perf_counter() - t0})
@@ -932,7 +1006,7 @@ def train_phase(config, device, batch_size, height, width):
                       device=device)
     params = dict(trainer.state.depth_model.named_parameters(prefix="depth"))
     params.update(trainer.state.pose_model.named_parameters(prefix="pose"))
-    trainer.run_epoch(batches[:1])  # warm-up (cuDNN algorithm choice)
+    trainer.run_epoch(batches[:1] * 2)  # warm-up: cuDNN's algorithm choice, the capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: p.detach().clone() for k, p in params.items()}
@@ -1043,6 +1117,8 @@ def train_basic_phase(device, tmp):
     launches = dict(kernels.launch_counts)
     cli_steps = BASIC_EPOCHS * BASIC_BATCHES
     files = sorted(os.listdir(cli_trainer.checkpoints.directory))
+    cli_graphs = cli_trainer.train_step.graphs
+    cli_captured = {"graphs": len(cli_graphs.graphs), "replays": cli_graphs.replays}
 
     raw["action"].update(from_scratch=False, eval_protocol="eigen", eval_pose=True)
     with open(config_path, "w") as f:
@@ -1059,13 +1135,16 @@ def train_basic_phase(device, tmp):
                 "adam_tensors": sum(k.startswith("adam.") for k in b)}
     check(sorted(a) == sorted(b), "the restored state has other tensors")
     del cli_trainer, a, b
+    release_memory()
 
     batches = list(SyntheticTripletDataset(1 + TRAIN_STEPS, batch_size, height, width,
                                            seed=SEED + 3, uint8_images=True).batches())
-    trainer.run_epoch(batches[:1])  # warm-up
+    trainer.run_epoch(batches[:1] * 2)  # warm-up: the eager first step, the capture
     torch.cuda.reset_peak_memory_stats()
     metrics, host_ms, event_ms, step_launches = timed_epoch(trainer, batches[1:])
     grad_rel = loss_grad_rel(trainer, batches[1])
+    captured = {"graphs": len(trainer.train_step.graphs.graphs),
+                "replays": trainer.train_step.graphs.replays}
     emit({
         "phase": "train_basic", "config": "configs/basic_config.yaml",
         "models": [config.model.depth.name, config.model.pose.name],
@@ -1073,6 +1152,7 @@ def train_basic_phase(device, tmp):
         "precision": config.action.precision, "loss_mode": config.action.loss_mode,
         "cli_epochs": BASIC_EPOCHS, "cli_steps": cli_steps, "cli_seconds": cli_s,
         "cli_launches": launches, "checkpoints": files, "restored": restored,
+        "cli_train_graphs": cli_captured, "resumed_train_graphs": captured,
         "steps": TRAIN_STEPS, "ms_per_step_host": host_ms,
         "ms_per_step_cuda_events": event_ms, "final_metrics": metrics,
         "launches": step_launches, "loss_grad_rel_l2_cuda_vs_cpu": grad_rel,
@@ -1086,6 +1166,10 @@ def train_basic_phase(device, tmp):
     check(step_launches == {k: TRAIN_STEPS * v for k, v in per_step_launches.items()},
           f"resumed launches {step_launches} for {TRAIN_STEPS} steps")
     check(not differ, f"restore differs on {differ[:10]}")
+    # the CLI's steps after its first ran captured: one graph, replayed
+    check(cli_captured == {"graphs": 1, "replays": cli_steps - 1},
+          f"the CLI's train graphs {cli_captured}")
+    check(captured == {"graphs": 1, "replays": 1 + TRAIN_STEPS}, f"resumed graphs {captured}")
     check(restored["epoch"] == BASIC_EPOCHS and restored["step"] == cli_steps,
           f"resumed at {restored}")
     check(all(np.isfinite(v) for v in metrics.values()), f"train metrics {metrics}")
@@ -1103,7 +1187,7 @@ def eval_metrics_phase(trainer, device, steps=3):
     batches = list(SyntheticTripletDataset(1 + steps, config.action.batch_size,
                                            *config.image_shape, seed=SEED + 11,
                                            uint8_images=True).batches())
-    trainer.validate(batches[:1])  # warm-up
+    trainer.validate(batches[:1] * 2)  # warm-up: the eager first call, the capture
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1150,7 +1234,7 @@ def train_mean_phase(device):
                                        seed=SEED + 5, uint8_images=True)
         batches = list(data.batches())
         trainer = Trainer(config, data, device=device)
-        trainer.run_epoch(batches[:1])  # warm-up
+        trainer.run_epoch(batches[:1] * 2)  # warm-up: the eager first step, the capture
         metrics, host_ms, event_ms, launches = timed_epoch(trainer, batches[1:])
         grad_rel = loss_grad_rel(trainer, batches[1])
         expected = {k: steps * v for k, v in expected_launches(mode).items()}
@@ -1165,6 +1249,7 @@ def train_mean_phase(device):
              f"{mode}: loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}"),
         ]
         del trainer
+        release_memory()
     emit(out)
     for ok, what in checks:
         check(ok, what)
@@ -1278,6 +1363,7 @@ def kitti_phase(device, tmp):
     records = [json.loads(line) for line in log.splitlines() if line.startswith("{")]
     losses = [r["loss"] for r in records if "loss" in r]
     files = sorted(os.listdir(trainer.checkpoints.directory))
+    graphs = trainer.train_step.graphs
     per_step, per_val = expected_launches("min"), {"warp_bilinear_fwd": 1, "warp_bilinear_bwd": 0,
                                                     "ssim_fwd": 2, "ssim_bwd": 0}
     expected = {k: steps * per_step[k] + val_batches * per_val[k] for k in per_step}
@@ -1285,11 +1371,14 @@ def kitti_phase(device, tmp):
                     "image": list(config.image_shape), "steps": steps,
                     "val_batches": val_batches, "cli_seconds": cli_s, "losses": losses,
                     "last_record": records[-1] if records else None, "launches": launches,
-                    "expected_launches": expected, "checkpoints": files}
+                    "expected_launches": expected, "checkpoints": files,
+                    "train_graphs": len(graphs.graphs), "train_replays": graphs.replays}
     checks += [
         (launches == expected, f"kitti CLI launches {launches}, expected {expected}"),
         (len(losses) == steps + 1 and np.isfinite(losses).all(), f"kitti losses {losses}"),
         (files == ["epoch_00000.pth"], f"kitti checkpoints {files}"),
+        (len(graphs.graphs) == 1 and graphs.replays == steps - 1,
+         f"kitti: {len(graphs.graphs)} train graphs, {graphs.replays} replays in {steps} steps"),
     ]
 
     # the same trainer over two more passes of the drive in one loader
@@ -1319,6 +1408,10 @@ def kitti_phase(device, tmp):
     torch.cuda.synchronize()
     out["timed_seconds"] = time.perf_counter() - t0
     trainer.train_step = step_fn
+    # the step's graphs are not needed past here: their pool (~36 GB at
+    # 1280x384 with TF32 off) is freed before the next Trainer steps
+    step_fn.graphs.reset()
+    release_memory()
     waits = [w * 1e3 for w in trainer.batch_waits]
     out["steps_timed"] = len(ends)
     out["ms_per_step"] = ends[0].elapsed_time(ends[-1]) / (len(ends) - 1)
@@ -1380,7 +1473,7 @@ def kitti_phase(device, tmp):
                (max(grad_rel.values()) <= GRAD_REL_L2,
                 f"augmented loss gradients cuda vs cpu: rel L2 {grad_rel} > {GRAD_REL_L2}")]
     del trainer, on_card, on_cpu, inputs
-    torch.cuda.empty_cache()
+    release_memory()
 
     # 5. cli.evaluate from the epoch-0 checkpoint: the Eigen protocol and
     # pose metrics on the annotated split, velodyne ground truth on the
@@ -1454,6 +1547,7 @@ def kitti_phase(device, tmp):
                 f"metrics on the same tensors cuda vs cpu: {same_rel} > {METRIC_RTOL}"),
                (len(same_card) == len(METRICS) + 4, f"same-tensor metrics {sorted(same_card)}")]
     del restored, step, inputs
+    release_memory()
 
     # 6. the velodyne rasterizer on one full scan at the training size
     height, width = config.image_shape
@@ -1641,7 +1735,7 @@ def serve_cli_phase(device, tmp, drive_dir):
                (depth_rel <= SERVE_RTOL, f"inference depth vs in-process: rel {depth_rel}"),
                (len(inf_cloud) > 0 and np.isfinite(inf_cloud).all(), "inference cloud")]
     del state, pipeline
-    torch.cuda.empty_cache()
+    release_memory()
 
     # 5. cli.export on basic_config (1280x384, fp32) fused with the
     # projector, batch-polymorphic, --verify; then run_exported at batch 1
@@ -1694,7 +1788,7 @@ def serve_cli_phase(device, tmp, drive_dir):
                             for r in runs.values()), f"run_exported vs live: {runs}"),
     ]
     del state, live, program
-    torch.cuda.empty_cache()
+    release_memory()
 
     launches = dict(kernels.launch_counts)
     out["launches"] = launches
@@ -1740,7 +1834,7 @@ def bts_serving_check(device, tmp, drive_dir):
     export_reference_checkpoint(seeded.depth_model, seeded.pose_model, weights)
     del seeded
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release_memory()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
 
@@ -1841,7 +1935,7 @@ def bts_serving_check(device, tmp, drive_dir):
     checks.append((max(out["forward_rel_l2_cuda_vs_cpu"].values()) <= BTS_REL_L2,
                    f"BTS forward cuda vs cpu: {out['forward_rel_l2_cuda_vs_cpu']}"))
     del state, model, cpu_model, fused, pipeline
-    torch.cuda.empty_cache()
+    release_memory()
     out["cpu_forward_seconds"] = time.perf_counter() - t0
 
     out["launches"] = dict(kernels.launch_counts)
@@ -1873,7 +1967,7 @@ def zoo_train_check(device, tmp, name, kwargs, scales):
     config.action.log_freq = 1
     trainer = Trainer(config, data, log_fn=lambda m, step: losses.append(m["loss"]),
                       device=device)
-    trainer.run_epoch(batches[:1])  # warm-up (cuDNN algorithm choice)
+    trainer.run_epoch(batches[:1] * 2)  # warm-up: cuDNN's algorithm choice, the capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses.clear()
@@ -1923,7 +2017,7 @@ def models_phase(device, tmp, drive_dir):
             checks.append((out["pose_decoder"]["max_abs_err_cuda_vs_cpu"] <= POSE_DECODER_ATOL,
                            f"PoseDecoder cuda vs cpu: {out['pose_decoder']}"))
         del trainer
-        torch.cuda.empty_cache()
+        release_memory()
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     for ok, what in checks:
@@ -1977,13 +2071,14 @@ def breakdown_record(result, loss_mode, steps, kernel_records=None):
     record = {
         "steps": steps, "families": len(result),
         "top_families_ms_per_step": dict(list(result.items())[:20]),
-        "device_ms_per_step": result.total_ms, "host_ms_per_step": result.host_ms,
+        "device_ms_per_step": result.total_ms, "device_busy_ms_per_step": result.busy_ms,
+        "host_ms_per_step": result.host_ms,
         "device_events_per_step": sum(result.counts.values()) / steps,
         "busy_share": result.busy, "conv_families_ms_per_step": sum(conv.values()),
         "conv_families": sorted(conv), "kernels": {},
     }
-    checks = [(result.on_device and 0 < result.total_ms <= result.host_ms,
-               f"device {result.total_ms} ms/step vs host window {result.host_ms}")]
+    checks = [(result.on_device and 0 < result.busy_ms <= result.host_ms,
+               f"device busy {result.busy_ms} ms/step vs host window {result.host_ms}")]
     for name, family in PROFILED_FAMILY.items():
         k = {"family": family, "ms_per_step": result.get(family),
              "launches": result.counts.get(family), "expected": steps * per_step[name]}
@@ -2033,8 +2128,8 @@ def profile_phase(device, tmp, kitti, records_1280):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     out["basic_config_tf32"] = {k: tf32[k] for k in (
-        "device_ms_per_step", "host_ms_per_step", "device_events_per_step", "busy_share",
-        "ms_per_step_cuda_events",
+        "device_ms_per_step", "device_busy_ms_per_step", "host_ms_per_step",
+        "device_events_per_step", "busy_share", "ms_per_step_cuda_events",
         "conv_families_ms_per_step", "conv_families", "top_families_ms_per_step")}
 
     # 2. Trainer.log_warps on one basic_config batch: kernel A once
@@ -2054,7 +2149,7 @@ def profile_phase(device, tmp, kitti, records_1280):
                       "ssim_bwd": 0}, f"log_warps launches {launches}"),
     ]
     del trainer, batch
-    torch.cuda.empty_cache()
+    release_memory()
 
     # 3. tpu_v5e (bf16 models)
     config = load_config(CONFIG)
@@ -2067,7 +2162,7 @@ def profile_phase(device, tmp, kitti, records_1280):
         lambda: trainer.train_step(batch))
     checks += more
     del trainer, batch
-    torch.cuda.empty_cache()
+    release_memory()
 
     # 4. cli.train --op-breakdown --profile on the kitti drive (1 epoch):
     # the fit's trace, and the breakdown of the KITTI step (jitter, flips)
@@ -2112,12 +2207,267 @@ def profile_phase(device, tmp, kitti, records_1280):
         ("[trace] device time by op family" in log, "cli.train printed no breakdown"),
     ]
     del trainer
-    torch.cuda.empty_cache()
+    release_memory()
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     for ok, what in checks:
         check(ok, what)
     return {name: out[name]["kernels"] for name in ("basic_config", "tpu_v5e")}
+
+
+def _graph_state(trainer):
+    """A Trainer's parameters, parameter gradients, BatchNorm running
+    statistics and Adam moments, by name."""
+    out = _named(trainer, "params")
+    out.update({f"grad.{k}": v for k, v in _named(trainer, "grads").items()})
+    out.update({f"stat.{k}": v for k, v in _named(trainer, "stats").items()})
+    for i, slots in trainer.state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v.cpu() for k, v in slots.items()
+                    if k in ("exp_avg", "exp_avg_sq")})
+    return out
+
+
+def _worst_rel(a, b, prefixes=None):
+    """(worst rel L2, its key, max abs difference) of two _graph_state
+    dicts over the keys with one of `prefixes` (all keys by default)."""
+    worst, key, diff = 0.0, None, 0.0
+    for k, v in b.items():
+        if prefixes is not None and not k.startswith(prefixes):
+            continue
+        d = float((a[k].double() - v.double()).abs().max()) if v.numel() else 0.0
+        norm = float(torch.linalg.vector_norm(v.double()))
+        rel = (float(torch.linalg.vector_norm(a[k].double() - v.double())) / norm if norm
+               else d)
+        diff = max(diff, d)
+        if rel > worst or key is None:
+            worst, key = rel, k
+    return worst, key, diff
+
+
+def graph_compare(config, batches, device):
+    """The captured Trainer against one with graph=False from the same
+    seed (cuDNN deterministic, set by the caller), on `batches`: the
+    eager trainer first (its state after each step kept on the host, then
+    the trainer freed: at basic_config one captured step's graph pool and
+    an eager step's cache do not fit the card beside another trainer),
+    then the captured one, whose first call of the signature runs eagerly,
+    its second captures and the others replay. Then the eval step on the
+    captured trainer's modules (its train graphs freed first), captured
+    against eager. -> (record, checks)."""
+    eager = Trainer(config, device=device, graph=False)
+    want = []
+    for batch in batches:
+        metrics = eager.train_step(batch)
+        want.append((float(metrics["loss"]), _graph_state(eager)))
+    del eager, metrics
+    release_memory()
+    captured = Trainer(config, device=device)
+    losses, kept = [], None
+    for i, batch in enumerate(batches):
+        got = captured.train_step(batch)
+        losses.append((float(got["loss"]), want[i][0]))
+        if i == 0:
+            warm = _worst_rel(_graph_state(captured), want[0][1])
+        if i == 1:
+            first = {"loss_abs_diff": abs(losses[1][0] - losses[1][1]),
+                     "grad_max_abs_diff": _worst_rel(_graph_state(captured), want[1][1],
+                                                     ("grad.",))[2]}
+            kept, kept_values = got, {k: v.clone() for k, v in got.items()}
+    after = _worst_rel(_graph_state(captured), want[-1][1],
+                       ("depth.", "pose.", "stat.", "adam."))
+    later_loss_rel = max(abs(g - w) / abs(w) for g, w in losses[2:])
+    graphs = captured.train_step.graphs
+    record = {"warmup_state_worst_rel_l2": warm[0], "first_captured_step": first,
+              "losses_captured_vs_eager": losses, "later_losses_max_rel": later_loss_rel,
+              "state_after_worst_rel_l2": after[0], "state_after_worst_key": after[1],
+              "state_after_max_abs_diff": after[2], "graphs": len(graphs.graphs),
+              "replays": graphs.replays,
+              "train_pool_bytes_deterministic": pool_bytes(graphs.pool)}
+    checks = [
+        (warm[0] == 0.0, f"graph: the eager first steps differ: {warm}"),
+        (first["loss_abs_diff"] == 0.0 and first["grad_max_abs_diff"] == 0.0,
+         f"graph: the first captured step differs from the eager one: {first}"),
+        (later_loss_rel <= GRAPH_REL_L2 and after[0] <= GRAPH_REL_L2,
+         f"graph: captured vs eager after {len(losses)} steps: {record}"),
+        (len(graphs.graphs) == 1 and graphs.replays == len(batches) - 1,
+         f"graph: {len(graphs.graphs)} graphs, {graphs.replays} replays"),
+        (all(torch.equal(kept[k], v) for k, v in kept_values.items()),
+         "graph: a later step overwrote the metrics a step returned"),
+    ]
+
+    graphs.reset()
+    release_memory()
+    eval_kwargs = dict(loss_mode=config.action.loss_mode, depth_norm=config.action.depth_norm,
+                       precision=config.action.precision, eval_protocol="eigen",
+                       pose_metrics=True, device=device)
+    state = captured.state
+    eval_captured = make_eval_step(state.depth_model, state.pose_model, **eval_kwargs)
+    eval_eager = make_eval_step(state.depth_model, state.pose_model, graph=False,
+                                **eval_kwargs)
+    diffs = []
+    for batch in batches:
+        (got, got_depth), (want_metrics, want_depth) = eval_captured(batch), eval_eager(batch)
+        diffs.append(max([float((got[k] - want_metrics[k]).abs()) for k in want_metrics]
+                         + [float((got_depth - want_depth).abs().max())]))
+    record["eval_max_abs_diff"] = diffs
+    record["eval_replays"] = eval_captured.graphs.replays
+    record["eval_pool_bytes_deterministic"] = pool_bytes(eval_captured.graphs.pool)
+    checks += [(max(diffs) == 0.0, f"graph: captured eval step differs: {diffs}"),
+               (eval_captured.graphs.replays == len(batches) - 1,
+                f"graph: eval replays {eval_captured.graphs.replays}")]
+    return record, checks
+
+
+def graph_timing(config, device, batch, graph):
+    """A Trainer's train step (captured when `graph` is None, eager when
+    False) on one device batch, after 2 warm-up calls: host ms a step
+    (GRAPH_TIMED_STEPS steps, host clock to a synchronize), CUDA-event ms
+    a step, op_breakdown over PROFILE_STEPS steps (device ms, host window,
+    busy share), graph launches a step, capture seconds, the graph pool's
+    bytes and the peak memory of a step."""
+    trainer = Trainer(config, device=device, graph=graph)
+    step = lambda: trainer.train_step(batch)  # noqa: E731
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    graphs = trainer.train_step.graphs
+    replays = graphs.replays if graphs else 0
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED_STEPS
+    launches = ((graphs.replays - replays) / GRAPH_TIMED_STEPS) if graphs else None
+    event_ms = event_ms_per_step(step)
+    result = op_breakdown(step, steps=PROFILE_STEPS, warmup=1, verbose=False)
+    record = {"ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
+              "profiled_device_ms_per_step": result.total_ms,
+              "profiled_device_busy_ms_per_step": result.busy_ms,
+              "profiled_host_window_ms_per_step": result.host_ms,
+              "busy_share": result.busy,
+              "profiled_device_events_per_step": sum(result.counts.values()) / PROFILE_STEPS,
+              "graph_launches_per_step": launches,
+              "capture_seconds": ([g.seconds for g in graphs.graphs.values()] if graphs
+                                  else None),
+              "pool_bytes": pool_bytes(graphs.pool) if graphs else None,
+              "peak_allocated_bytes": peak}
+    del trainer, step
+    release_memory()
+    return record
+
+
+def graph_multi_step(device):
+    """make_multi_step(num_steps=GRAPH_MULTI) on tpu_v5e against the
+    captured single step from the same seed (cuDNN deterministic, set by
+    the caller): 3 rounds of GRAPH_MULTI steps (the multi-step's first call
+    runs eagerly, its second captures, its third replays), the states
+    compared after each; then one replay of the multi-step against
+    GRAPH_MULTI single replays, by host clock and CUDA events.
+    -> (record, checks)."""
+    config = load_config(CONFIG)
+    batch_size, (height, width) = config.action.batch_size, config.image_shape
+    batches = list(SyntheticTripletDataset(4 * GRAPH_MULTI, batch_size, height, width,
+                                           seed=SEED + 53, uint8_images=True).batches())
+    single, owner = Trainer(config, device=device), Trainer(config, device=device)
+    multi = make_multi_step(owner.state, GRAPH_MULTI, device=device,
+                            **{k: getattr(owner.train_step, k) for k in STEP_ARGS})
+
+    def stacked(chunk):
+        return {k: np.stack([b[k] for b in chunk]) for k in chunk[0]}
+
+    rounds = []
+    for r in range(3):
+        chunk = batches[r * GRAPH_MULTI:(r + 1) * GRAPH_MULTI]
+        for batch in chunk:
+            want = single.train_step(batch)
+        got = multi(stacked(chunk))
+        rel, key, diff = _worst_rel(_graph_state(owner), _graph_state(single),
+                                    ("depth.", "pose.", "stat.", "adam."))
+        rounds.append({"state_worst_rel_l2": rel, "worst_key": key, "max_abs_diff": diff,
+                       "loss": float(got["loss"]), "loss_single": float(want["loss"])})
+    graphs = multi.train_step.graphs
+    record = {"num_steps": GRAPH_MULTI, "rounds": rounds, "graphs": len(graphs.graphs),
+              "replays": graphs.replays, "single_replays": single.train_step.graphs.replays,
+              "capture_seconds": [g.seconds for g in graphs.graphs.values()],
+              "pool_bytes": pool_bytes(graphs.pool), "step": owner.state.step}
+    checks = [
+        (all(r["state_worst_rel_l2"] <= GRAPH_REL_L2 and r["loss"] == r["loss_single"]
+             for r in rounds), f"graph: multi-step vs single steps: {rounds}"),
+        (len(graphs.graphs) == 1 and graphs.replays == 2
+         and owner.state.step == single.state.step == 3 * GRAPH_MULTI,
+         f"graph: multi-step {len(graphs.graphs)} graphs, {graphs.replays} replays, "
+         f"step {owner.state.step}"),
+    ]
+
+    chunk = batches[3 * GRAPH_MULTI:]
+    inputs = stacked(chunk)
+    for label, run in (("single_replays", lambda: [single.train_step(b) for b in chunk]),
+                       ("one_multi_replay", lambda: multi(inputs))):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        record[label] = {"host_ms": (time.perf_counter() - t0) * 1e3,
+                         "cuda_event_ms": start.elapsed_time(end)}
+    checks.append((graphs.replays == 3, f"graph: multi-step replays {graphs.replays}"))
+    del single, owner, multi
+    release_memory()
+    return record, checks
+
+
+def graph_phase(device):
+    """The step as one program (see the module docstring's `graph`).
+    Prints the phase's record, then checks it."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "graph", "card": card()}, []
+    cases = (("tpu_v5e", CONFIG, False), ("basic_config", BASIC_CONFIG, False),
+             ("basic_config_tf32", BASIC_CONFIG, True))
+    for name, path, tf32 in cases:
+        config = load_config(path)
+        batch_size, (height, width) = config.action.batch_size, config.image_shape
+        record = {"batch": batch_size, "height": height, "width": width,
+                  "precision": config.action.precision, "cudnn_allow_tf32": tf32}
+        batches = list(SyntheticTripletDataset(2 + GRAPH_STEPS, batch_size, height, width,
+                                               seed=SEED + 51, uint8_images=True).batches())
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            if not tf32:
+                torch.backends.cudnn.deterministic = True
+                try:
+                    record["captured_vs_eager"], more = graph_compare(
+                        config, batches[:1 + GRAPH_STEPS], device)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                checks += more
+                release_memory()
+            batch = {k: torch.as_tensor(v).to(device) for k, v in batches[-1].items()}
+            for label, graph in (("captured", None), ("eager", False)):
+                record[label] = graph_timing(config, device, batch, graph)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        cap, eag = record["captured"], record["eager"]
+        record["host_ms_ratio_captured_to_eager"] = (cap["ms_per_step_host"]
+                                                     / eag["ms_per_step_host"])
+        checks.append((cap["graph_launches_per_step"] == 1.0,
+                       f"graph: {name} graph launches a step {cap['graph_launches_per_step']}"))
+        out[name] = record
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["multi_step"], more = graph_multi_step(device)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    checks += more
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
 
 
 def _named(trainer, what):
@@ -2167,12 +2517,13 @@ def parallel_cases(basic_config, mean_config):
 
 
 def parallel_trainer(config, device, mesh=None):
-    """A Trainer (under `mesh`) from the seed, PoseFc's head given a seeded
-    translation bias: its zero-initialized last layer makes the warp the
+    """A Trainer (under `mesh`) from the seed, eager (graph=False: the
+    one-process steps the meshed ones are held to run as the meshed ones
+    do), PoseFc's head given a seeded translation bias: its zero-initialized last layer makes the warp the
     identity, which puts every warp sample ON a pixel, where the bilinear
     gradient jumps, so that a 1-ulp difference of the depth flips it (the
     reason tests/test_torch_train.py gives its pose head a bias)."""
-    trainer = Trainer(config, device=device, mesh=mesh)
+    trainer = Trainer(config, device=device, mesh=mesh, graph=False)
     pose = trainer.state.pose_model
     if type(pose).__name__ == "PoseFc":
         bias = torch.randn(pose.fc_loc[-1].bias.shape,
@@ -2280,7 +2631,7 @@ def parallel_phase(device):
         del plain, meshed
     finally:
         dist.destroy_process_group()
-    torch.cuda.empty_cache()
+    release_memory()
 
     # PARALLEL_RANKS gloo ranks spawned on this card, against the
     # one-process steps on the whole batches (taken while they run)
@@ -2578,6 +2929,7 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
     one rank's cache can starve another's allocation."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # as in the parent (spatial_phase)
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_per_process_memory_fraction(memory_fraction, device)
@@ -2594,7 +2946,7 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
             del trainer
             gc.collect()
             if device.type == "cuda":
-                torch.cuda.empty_cache()
+                release_memory()
         if fit_config is not None:
             out["fit"] = spatial_fit(mesh, device, fit_dir, fit_config)
         out["memory_cap_bytes"] = (memory_fraction * torch.cuda.mem_get_info(device)[1]
@@ -2664,7 +3016,20 @@ def _spawn_spatial_group(world, spatial, cases, starts, fit_config, device):
 def spatial_phase(device, groups=None):
     """The "spatial" mesh axis on the card (see the module docstring), over
     `groups` (spatial_groups' by default). Prints the phase's record, then
-    checks it; returns each rank's launches over basic_config's steps."""
+    checks it; returns each rank's launches over basic_config's steps.
+    Every step of the phase, here and on the ranks (spatial_rank), runs
+    with cuDNN deterministic: a step then repeats bit for bit, so the
+    comparison of a steep gradient (StnDispNet's STN at step 2 of `stn_2`)
+    reads the same in every run instead of moving with the order of
+    cuDNN's atomic adds."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _spatial_phase(device, groups)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _spatial_phase(device, groups):
     t_phase = time.perf_counter()
     out, checks = {"phase": "spatial", "card": card()}, []
     rank_launches = None
@@ -2682,8 +3047,7 @@ def spatial_phase(device, groups=None):
                 trainer = parallel_trainer(config, device)
                 one_process[key] = spatial_steps(trainer, batches, device)
                 del trainer
-                gc.collect()
-                torch.cuda.empty_cache()
+                release_memory()
             refs[name] = one_process[key]
             starts[name] = [ref["start"] for ref in refs[name]]
         t0 = time.perf_counter()

@@ -14,6 +14,8 @@ the wrappers' checks, and the division helper of B and C on a binade and
 the subnormals.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -438,7 +440,7 @@ def test_op_breakdown_of_a_training_step_sees_the_four_kernels(cuda, tmp_path):
     batch = {k: torch.as_tensor(v).to(cuda) for k, v in next(iter(data.batches())).items()}
     result = op_breakdown(lambda: trainer.train_step(batch), steps=1, warmup=1,
                           verbose=False)
-    assert result.on_device and 0 < result.total_ms <= result.host_ms
+    assert result.on_device and 0 < result.busy_ms <= result.host_ms
     for family, count in (("warp_bilinear_fwd_kernel", 1), ("warp_bilinear_bwd_grid_kernel", 1),
                           ("ssim_fwd_kernel", 2), ("ssim_bwd_kernel", 1)):
         assert result.counts.get(family) == count, (family, result.counts.get(family))
@@ -605,3 +607,167 @@ def test_two_gloo_ranks_sharing_the_card_match_the_one_process_step(cuda, no_tf3
     for key, value in ref["stats"].items():
         np.testing.assert_allclose(ranks[0]["stats"][key].numpy(), value.numpy(),
                                    rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+# --------------------------------------------------------------------------
+# the step as one program: TrainStep, make_multi_step and EvalStep as CUDA
+# graphs (train/graph.py)
+# --------------------------------------------------------------------------
+
+
+def _graph_trainer(cuda, graph, **action):
+    from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
+
+    config = load_config("configs/tpu_v5e.yaml")
+    aug = config.datasets.augmentation
+    aug.image_height, aug.image_width = 128, 256
+    config.action.batch_size = 4
+    for key, value in action.items():
+        if key in ("color_jitter", "hflip"):
+            setattr(aug, key, value)
+        else:
+            setattr(config.action, key, value)
+    return Trainer(config, device=cuda, graph=graph)
+
+
+def _graph_batches(count, seed):
+    from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
+
+    return list(SyntheticTripletDataset(count, 4, 128, 256, seed=seed,
+                                        uint8_images=True).batches())
+
+
+def _trainer_tensors(trainer):
+    state = trainer.state
+    out = {}
+    for net, model in (("depth", state.depth_model), ("pose", state.pose_model)):
+        out.update({f"{net}.{k}": v for k, v in model.state_dict().items()})
+        out.update({f"{net}.{k}.grad": p.grad for k, p in model.named_parameters()
+                    if p.grad is not None})
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"adam.{i}.{k}": v for k, v in slots.items()})
+    return out
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+
+@pytest.mark.parametrize("action", [
+    {"loss_mode": "min"},
+    {"loss_mode": "min", "precision": "fp32", "color_jitter": True, "hflip": True,
+     "automask_warmup": 2},
+    {"loss_mode": "ssim", "precision": "fp32", "accum_steps": 2},
+    {"loss_mode": "min", "precision": "fp32", "remat": True},
+], ids=["bf16_min", "augment_warmup", "ssim_accum2", "remat"])
+def test_captured_train_step_matches_the_eager_step(cuda, deterministic, action):
+    # a captured Trainer and an eager one from one seed, 4 steps (the
+    # captured one's first runs eagerly, its second captures, the others
+    # replay): metrics, parameters, gradients, BatchNorm statistics and
+    # Adam's slots equal bit for bit after every step; one graph, replayed
+    # 3 times, each replay counting one step's kernel launches
+    captured, eager = _graph_trainer(cuda, None, **action), _graph_trainer(cuda, False, **action)
+    assert captured.train_step.graphs is not None and eager.train_step.graphs is None
+    for i, batch in enumerate(_graph_batches(4, seed=21)):
+        kernels.reset_launch_counts()
+        got = captured.train_step(batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        kernels.reset_launch_counts()
+        want = eager.train_step(batch)
+        torch.cuda.synchronize()
+        assert launches == kernels.launch_counts, (i, launches)
+        assert all(torch.equal(got[k], want[k]) for k in want), i
+        a, b = _trainer_tensors(captured), _trainer_tensors(eager)
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        assert not differ, (i, differ[:5])
+    graphs = captured.train_step.graphs
+    assert len(graphs.graphs) == 1 and graphs.replays == 3
+
+
+def test_captured_step_returns_metrics_no_later_step_overwrites(cuda):
+    trainer = _graph_trainer(cuda, None)
+    batches = _graph_batches(4, seed=22)
+    returned = [trainer.train_step(b) for b in batches]
+    values = [{k: v.clone() for k, v in m.items()} for m in returned]
+    for b in batches:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    for got, kept in zip(returned, values):
+        assert all(torch.equal(got[k], kept[k]) for k in kept)
+    assert len({float(m["loss"]) for m in values}) == len(values)
+
+
+def test_captured_eval_step_matches_the_eager_step(cuda):
+    # the eval step (Eigen protocol, pose metrics) captured and eager on
+    # the same modules: every metric and depth_pred bit for bit; a later
+    # call does not overwrite what an earlier one returned
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_eval_step
+
+    trainer = _graph_trainer(cuda, None)
+    kwargs = dict(loss_mode="min", precision="bf16", eval_protocol="eigen", pose_metrics=True,
+                  device=cuda)
+    state = trainer.state
+    captured = make_eval_step(state.depth_model, state.pose_model, **kwargs)
+    eager = make_eval_step(state.depth_model, state.pose_model, graph=False, **kwargs)
+    outputs = []
+    for batch in _graph_batches(4, seed=23):
+        (got, depth), (want, want_depth) = captured(batch), eager(batch)
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert torch.equal(depth, want_depth)
+        outputs.append((got, depth, {k: v.clone() for k, v in got.items()}, depth.clone()))
+    for got, depth, kept, kept_depth in outputs:
+        assert all(torch.equal(got[k], kept[k]) for k in kept)
+        assert torch.equal(depth, kept_depth)
+    assert captured.graphs.replays == 3
+
+
+def test_multi_step_is_one_replay_of_three_steps(cuda, deterministic):
+    # make_multi_step(num_steps=3) against 3 captured single steps from
+    # one seed, 3 rounds (eager, capture, replay): the same state bit for
+    # bit; one graph, each replay one launch for 3 updates
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import make_multi_step
+
+    action = {"loss_mode": "min", "automask_warmup": 4, "color_jitter": True, "hflip": True}
+    single, owner = _graph_trainer(cuda, None, **action), _graph_trainer(cuda, None, **action)
+    names = ("loss_mode", "smooth_weight", "smooth_on", "depth_norm", "automask_warmup",
+             "color_jitter", "hflip", "aug_seed", "precision", "with_coverage")
+    multi = make_multi_step(owner.state, 3, device=cuda,
+                            **{k: getattr(owner.train_step, k) for k in names})
+    batches = _graph_batches(9, seed=24)
+    for r in range(3):
+        chunk = batches[3 * r:3 * r + 3]
+        for b in chunk:
+            want = single.train_step(b)
+        got = multi({k: np.stack([b[k] for b in chunk]) for k in chunk[0]})
+        assert all(torch.equal(got[k], want[k]) for k in want), r
+        a, b = _trainer_tensors(owner), _trainer_tensors(single)
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        assert not differ, (r, differ[:5])
+    graphs = multi.train_step.graphs
+    assert len(graphs.graphs) == 1 and graphs.replays == 2
+    assert owner.state.step == single.state.step == 9
+
+
+def test_a_loaded_optimizer_state_drops_the_graphs(cuda, deterministic):
+    # a checkpoint loaded into the optimizer replaces the tensors the graph
+    # read: the next step runs eagerly, the one after captures anew, and
+    # the steps equal an eager trainer's from the same loaded state
+    captured, eager = _graph_trainer(cuda, None), _graph_trainer(cuda, False)
+    batches = _graph_batches(6, seed=25)
+    for b in batches[:3]:
+        captured.train_step(b)
+        eager.train_step(b)
+    saved = eager.state.optimizer.state_dict()
+    for trainer in (captured, eager):
+        # a copy each: load_state_dict keeps the given tensors where it can
+        trainer.state.optimizer.load_state_dict(copy.deepcopy(saved))
+    for b in batches[3:]:
+        got, want = captured.train_step(b), eager.train_step(b)
+        assert torch.equal(got["loss"], want["loss"])
+    # replays: 2 before the load (steps 2 and 3), 2 after (steps 5 and 6)
+    graphs = captured.train_step.graphs
+    assert len(graphs.graphs) == 1 and graphs.replays == 4

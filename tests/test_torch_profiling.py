@@ -224,7 +224,27 @@ def test_device_events_are_summed_once_from_every_thread(tmp_path):
                                        "warp_bilinear_fwd_kernel": 0.05,
                                        "Memcpy HtoD": 0.015, "Memset": 0.01})
     assert got.total_ms == pytest.approx(0.175) and got.busy == pytest.approx(0.175)
+    assert got.busy_ms == pytest.approx(0.175)
     assert got.counts["warp_bilinear_fwd_kernel"] == 1
+
+
+def test_busy_share_counts_overlapping_device_events_once(tmp_path):
+    # a CUDA graph may run kernels side by side: total_ms sums the events,
+    # busy_ms takes the union of their intervals (0-100, 50-150, 300-350:
+    # 200 us busy of 250 us summed), and the busy share is busy_ms's
+    path = _write_trace(tmp_path / "graph.pt.trace.json", [
+        {"ph": "X", "cat": "kernel", "name": "a_kernel", "pid": 0, "tid": 7,
+         "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "b_kernel", "pid": 0, "tid": 8,
+         "ts": 50, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "c_kernel", "pid": 0, "tid": 7,
+         "ts": 60, "dur": 20},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD (Device -> Device)",
+         "pid": 0, "tid": 7, "ts": 300, "dur": 50},
+    ])
+    got = breakdown_from_trace(path, steps=1, host_ms=0.5, on_cuda=True)
+    assert got.total_ms == pytest.approx(0.27)
+    assert got.busy_ms == pytest.approx(0.2) and got.busy == pytest.approx(0.4)
 
 
 def test_host_self_time_subtracts_children():

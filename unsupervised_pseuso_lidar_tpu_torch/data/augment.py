@@ -26,6 +26,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant
+
 # the JAX package's ranges: brightness offsets in [-0.2, 0.2), contrast
 # scales in [0.8, 1.2), a flip with probability 0.5
 BRIGHTNESS, CONTRAST, FLIP_PROB = 0.2, 0.2, 0.5
@@ -102,7 +104,7 @@ def augment_batch(
             out["groundtruth"] = torch.where(flips[:, None, None], gt.flip(-1), gt)
         if "oxts" in batch:
             oxts = batch["oxts"]
-            mirror = torch.tensor(_OXTS_MIRROR, dtype=oxts.dtype, device=device)
+            mirror = constant(_OXTS_MIRROR, oxts.dtype, device)
             out["oxts"] = torch.where(flips[:, None, None], oxts * mirror, oxts)
     if jitter:
         tgt, refs = color_jitter(tgt, refs, params.add.to(device), params.scale.to(device))

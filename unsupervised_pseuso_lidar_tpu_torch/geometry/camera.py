@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant
+
 
 def pixel_grid(height: int, width: int, dtype=torch.float32,
                device: str | torch.device = "cpu") -> torch.Tensor:
@@ -54,7 +56,7 @@ def project(
     cam = (torch.einsum("bik,bhwk->bhwi", proj[:, :, :3], points)
            + proj[:, None, None, :, 3])
     xy = cam[..., :2] / (cam[..., 2:3] + eps)
-    scale = torch.tensor([width - 1, height - 1], dtype=dtype, device=points.device)
+    scale = constant((width - 1, height - 1), dtype, points.device)
     return (xy / scale - 0.5) * 2.0
 
 

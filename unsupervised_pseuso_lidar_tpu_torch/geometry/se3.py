@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant
+
 
 def is_rotation_matrix(rot, tol: float = 1e-6) -> torch.Tensor:
     """||R.T R - I||_F < tol per matrix: a bool for [3, 3], [B] bools for
@@ -122,9 +124,8 @@ def invert_pose(transform: torch.Tensor) -> torch.Tensor:
     rot_t = transform[..., :3, :3].transpose(-1, -2)
     t_inv = -(rot_t @ transform[..., :3, 3:])
     top = torch.cat([rot_t, t_inv], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=transform.dtype, device=transform.device
-    ).expand(*transform.shape[:-2], 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), transform.dtype, transform.device).expand(
+        *transform.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -76,7 +76,9 @@ def warp_coords(
     dtype = depth.dtype
     k = intrinsics.double()
     proj = k @ transform[:, :3, :].double()  # [B,3,4]
-    m = (proj[:, :, :3] @ torch.linalg.inv(k)).to(dtype)  # K T[:3,:3] K^-1
+    # inv_ex: inv's result without its error check, which waits for the
+    # device (a CUDA graph of the step cannot hold that)
+    m = (proj[:, :, :3] @ torch.linalg.inv_ex(k).inverse).to(dtype)  # K T[:3,:3] K^-1
     t = proj[:, :, 3].to(dtype)  # K T[:3,3]
     u = torch.arange(width, dtype=dtype, device=depth.device)[None, None, :]
     v = torch.arange(row_start, row_start + rows, dtype=dtype,

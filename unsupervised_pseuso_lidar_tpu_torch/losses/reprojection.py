@@ -53,6 +53,7 @@ from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     level_rows,
     row_sharded,
 )
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_, div
 
 REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
@@ -195,8 +196,8 @@ def reprojection_loss(
     else:
         err = photometric_loss(warped, target, no_ssim=False, mesh=mesh, height=height)
     per_job = err.reshape(jobs, -1).mean(dim=1)
-    loss = _share(torch.sum(per_job * torch.tensor(weights, dtype=per_job.dtype,
-                                                   device=per_job.device)), mesh, height)
+    loss = _share(torch.sum(per_job * constant(tuple(weights), per_job.dtype, per_job.device)),
+                  mesh, height)
     if with_coverage:
         return loss, _share(in_frame_fraction(coords, height), mesh, height)
     return loss

@@ -5,7 +5,10 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version (the
 only reason it ever does); given CUDA tensors it checks them, allocates
 the output, launches the kernel on the current stream and raises if the
 launch failed. ``launch_counts`` counts launches only — a run can read it
-to show that its path went through the kernels.
+to show that its path went through the kernels. A wrapper called while a
+CUDA graph is captured launches nothing: ``captured_launches`` takes
+back what the capture counted, and ``add_launches`` adds it for each
+replay of the graph (train/graph.py).
 
 The wrappers are raw launches: they build no autograd graph, so they
 refuse inputs that require grad while grad mode is on. The differentiable
@@ -15,7 +18,8 @@ ops are ``warp_bilinear`` (kernel A forward, A′ backward) and
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 import torch
 
@@ -38,6 +42,29 @@ launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields a dict that holds, on exit,
+    the launches the wrappers counted inside, and takes them back out of
+    launch_counts (a capture launches nothing; each replay does, and adds
+    them with add_launches)."""
+    before = dict(launch_counts)
+    made: Dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        for name in KERNELS:
+            made[name] = launch_counts[name] - before[name]
+            launch_counts[name] = before[name]
+
+
+def add_launches(made: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph: `made`, from
+    captured_launches."""
+    for name, count in made.items():
+        launch_counts[name] += count
 
 
 def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:

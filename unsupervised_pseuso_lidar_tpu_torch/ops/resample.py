@@ -19,14 +19,38 @@ import torch
 import torch.nn.functional as F
 
 
+class _ReflectPad1(torch.autograd.Function):
+    """F.pad(x, (1, 1, 1, 1), mode="reflect") of a map with H, W >= 2,
+    whose backward folds the padded rows, then the padded columns, back
+    onto the rows and columns they copy, in that fixed order: torch's own
+    backward adds them with atomics on CUDA, in an order that changes from
+    run to run, so two runs of a step (a captured and an eager one) would
+    part in the last bits of a border pixel's gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g[:, :, 1:-1].clone()  # padded row 0 copies row 1, row H+1 row H-2
+        rows[:, :, 1] += g[:, :, 0]
+        rows[:, :, -2] += g[:, :, -1]
+        out = rows[:, :, :, 1:-1].clone()
+        out[:, :, :, 1] += rows[:, :, :, 0]
+        out[:, :, :, -2] += rows[:, :, :, -1]
+        return out
+
+
 def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
-    """Reflection-pad H and W of an NCHW map by 1.
+    """Reflection-pad H and W of an NCHW map by 1 (_ReflectPad1: its
+    gradient has the same bits in every run).
 
     Size-1 dims replicate their single row/column (numpy reflect-mode
     behaviour, like the JAX version; torch's reflection pad would refuse
     them — the decoder's deepest map is 1 pixel tall at small inputs)."""
     if x.shape[2] > 1 and x.shape[3] > 1:
-        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+        return _ReflectPad1.apply(x)
     h_lo = x[:, :, 1:2] if x.shape[2] > 1 else x[:, :, :1]
     h_hi = x[:, :, -2:-1] if x.shape[2] > 1 else x[:, :, -1:]
     x = torch.cat([h_lo, x, h_hi], dim=2)

@@ -114,9 +114,29 @@ class CheckpointManager:
         state.depth_model.load_state_dict(checkpoint["dpth_mdl_state_dict"])
         state.pose_model.load_state_dict(checkpoint["pose_mdl_state_dict"])
         state.optimizer.load_state_dict(checkpoint["optimizer_state_dict"])
+        place_optimizer(state.optimizer)
         state.scheduler.load_state_dict(checkpoint["scheduler_state_dict"])
         state.step = int(checkpoint["step"])
         return int(checkpoint["epoch"])
+
+
+def place_optimizer(optimizer: torch.optim.Optimizer) -> None:
+    """Make each param group of `optimizer` capturable where its
+    parameters lie on a CUDA device, and not elsewhere, its step counts
+    0-dim fp32 tensors beside the parameters when capturable (what torch's
+    Adam reads then). Capturable Adam keeps its step on the card and takes
+    its bias corrections there in fp32, as optax does; the eager step on
+    the card runs it too, so a step captured in a CUDA graph and an eager
+    one do the same arithmetic. Called when the optimizer is made and after
+    a checkpoint, which may come from another device, is loaded into it."""
+    for group in optimizer.param_groups:
+        capturable = any(p.is_cuda for p in group["params"])
+        group["capturable"] = capturable
+        for p in group["params"]:
+            slots = optimizer.state.get(p, {})
+            if "step" in slots:
+                slots["step"] = torch.as_tensor(slots["step"], dtype=torch.float32).to(
+                    p.device if capturable else "cpu")
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,190 @@
+"""The step as one program on the card: CUDA graphs of a step's body.
+
+Counterpart of the JAX package's jitted steps (train/trainer.py
+_jit_with_mesh :404-416, make_train_step :419, make_multi_step :447,
+make_eval_step :480). XLA compiles a step into one program that the
+device runs whole; on the card the counterpart is a CUDA graph, the
+step's kernels captured once and replayed with one launch. TrainStep,
+make_multi_step and EvalStep (train/trainer.py) run their bodies through
+StepGraphs on a CUDA device without a mesh (graph_enabled).
+
+A body is a function of a flat dict of tensors: the batch's arrays and the
+step's host values as tensors (the automask warm-up scale, the learning
+rates, the augmentation draws). It reads every one of them on the device,
+copies nothing from the host and waits for nothing, so all of its launches
+can be captured. StepGraphs keys a body by the signature of its inputs
+(keys, shapes, dtypes) and by the backend flags that choose its kernels
+(cuDNN's and cuBLAS's TF32, cuDNN's deterministic and benchmark modes:
+a graph keeps the kernels it captured), as jit keys a program:
+
+- the first call of a signature runs the body eagerly, on a side stream,
+  and is the real step: cuDNN's algorithm search and the first step's
+  transient memory happen here, outside the graph's pool;
+- the second copies its inputs into static buffers, captures the body
+  into a graph and replays it;
+- every later call copies its inputs into those buffers (host to device,
+  or device to device for a batch prefetched to the card) and replays.
+
+The outputs are cloned after each replay, so what one call returned is not
+overwritten by the next. A graph's kernel launches are counted on each
+replay (ops/cuda/kernels.captured_launches, add_launches). There is no
+fallback: a capture or a replay that fails raises.
+
+With capture=False (the CPU) the same protocol runs the body on the
+static buffers instead of capturing it: what the CPU tests hold against
+the eager step, bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
+
+Body = Callable[[Dict[str, torch.Tensor]], Any]
+
+
+def graph_enabled(graph: Optional[bool], device: torch.device, mesh=None) -> bool:
+    """A step's `graph` argument -> whether it runs as CUDA graphs. None:
+    where capture applies, a CUDA device without a mesh. False: eagerly.
+    True: captured, and a ValueError saying why where capture does not
+    apply — on the CPU, and under a mesh, whose collectives (gloo runs
+    them on the host) a graph cannot hold."""
+    if graph is None:
+        return device.type == "cuda" and mesh is None
+    if graph and device.type != "cuda":
+        raise ValueError(
+            f"graph=True needs a CUDA device: a CUDA graph captures the card's "
+            f"kernels, and this step runs on {device}")
+    if graph and mesh is not None:
+        raise ValueError(
+            "graph=True under a mesh: the mesh's collectives cannot be captured "
+            "in a CUDA graph (gloo runs them on the host); pass graph=None or False")
+    return bool(graph)
+
+
+@functools.lru_cache(maxsize=None)
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one stream of `device` on which every step's first, eager call
+    runs and every graph is captured. One for all: cuBLAS keeps a
+    workspace for each stream it has run on for the life of the process,
+    and a stream a step would leave one behind each, pinning the cached
+    memory segment it was carved from."""
+    return torch.cuda.Stream(device)
+
+
+def _map(fn, tree):
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return tree
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _map(out.append, tree)
+    return out
+
+
+@dataclass
+class Captured:
+    """One signature's graph: its static input buffers, the outputs its
+    replay writes, the kernel launches of one replay and the seconds the
+    capture took. graph is None with capture=False."""
+
+    graph: Optional[torch.cuda.CUDAGraph]
+    static: Dict[str, torch.Tensor]
+    outputs: Any
+    launches: Dict[str, int]
+    seconds: float
+
+
+class StepGraphs:
+    """body(inputs) as CUDA graphs, one per signature of `inputs` (module
+    docstring). `pool` is the graphs' private memory pool
+    (torch.cuda.graph_pool_handle()): steps that never run at the same
+    time share one (a Trainer's train and eval steps); None makes one at
+    the first capture."""
+
+    def __init__(self, device: torch.device, pool=None, capture: bool = True):
+        self.device = torch.device(device)
+        self.capture = capture
+        self.pool = pool
+        self.graphs: Dict[tuple, Captured] = {}
+        self.replays = 0  # graph launches so far
+        self._warm: set = set()
+
+    def reset(self) -> None:
+        """Drop every graph: the next call of each signature runs eagerly
+        again, the one after captures anew."""
+        self.graphs.clear()
+        self._warm.clear()
+
+    def __call__(self, body: Body, inputs: Dict[str, Any]) -> Any:
+        inputs = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+                  for k, v in inputs.items()}
+        backends = torch.backends
+        key = (getattr(body, "__qualname__", None), backends.cudnn.allow_tf32,
+               backends.cuda.matmul.allow_tf32, backends.cudnn.deterministic,
+               backends.cudnn.benchmark,
+               *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        if key not in self._warm:
+            outputs = self._eager(body, inputs)
+            self._warm.add(key)
+            return outputs
+        captured = self.graphs.get(key)
+        if captured is None:
+            captured = self.graphs[key] = self._capture(body, inputs)
+        else:
+            for k, v in inputs.items():
+                captured.static[k].copy_(v, non_blocking=True)
+        if captured.graph is None:
+            return body(captured.static)
+        captured.graph.replay()
+        self.replays += 1
+        kernels.add_launches(captured.launches)
+        return _map(torch.clone, captured.outputs)
+
+    def _eager(self, body: Body, inputs: Dict[str, torch.Tensor]) -> Any:
+        if not self.capture:
+            return body(inputs)
+        side = side_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            outputs = body(inputs)
+        current.wait_stream(side)
+        for t in inputs.values():
+            if t.is_cuda:  # the caller may free it once the call returns
+                t.record_stream(side)
+        for t in _leaves(outputs):
+            t.record_stream(current)
+        return outputs
+
+    def _capture(self, body: Body, inputs: Dict[str, torch.Tensor]) -> Captured:
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+                  for k, v in inputs.items()}
+        for k, v in inputs.items():
+            static[k].copy_(v, non_blocking=True)
+        if not self.capture:
+            return Captured(None, static, None, {}, 0.0)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread_local: a loader thread's pinned allocations may go on
+        # while this thread captures
+        with kernels.captured_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side_stream(self.device),
+                                  capture_error_mode="thread_local"):
+                outputs = body(static)
+        return Captured(graph, static, outputs, launches, time.perf_counter() - t0)

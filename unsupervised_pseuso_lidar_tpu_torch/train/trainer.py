@@ -4,7 +4,11 @@ Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 (make_lr_schedule :58, make_optimizer :66, create_train_state :99,
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
 :231-401, make_eval_step :480, Trainer :561, _warn_if_collapsed :683,
-log_warps :742, fit :783, make_multi_step :447). Under a mesh
+log_warps :742, fit :783, make_multi_step :447). On a CUDA device without
+a mesh the train step, its K-step form and the eval step run as CUDA
+graphs (train/graph.py), the counterpart of JAX's jitted steps; `graph=`
+of the step constructors and of Trainer turns that off (False) or
+insists on it (True). Under a mesh
 (parallel/mesh.py; `mesh=` of TrainStep, EvalStep, make_multi_step and
 Trainer) each rank runs the step on its block of the global batch and the
 result is the JAX step's on the global batch: BatchNorm statistics, the
@@ -26,11 +30,13 @@ the device as NCHW tensors.
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import itertools
 import os
 import signal
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -66,7 +72,6 @@ from unsupervised_pseuso_lidar_tpu_torch.models.pose.posenet import PoseNet
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import (
     Mesh,
-    ShardedBatch,
     shard_batch,
     shard_train_state,
 )
@@ -82,9 +87,11 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     CheckpointManager,
     load_pretrained_depth,
     load_pretrained_pose,
+    place_optimizer,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
-from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant, resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     IMAGENET_MEAN,
@@ -108,12 +115,13 @@ def batch_to_device(
     out = {
         "tgt": tgt.permute(0, 3, 1, 2).contiguous(),
         "ref_imgs": refs.permute(0, 1, 4, 2, 3).contiguous(),
-        "intrinsics": to(batch["intrinsics"]).to(device, torch.float32),
+        "intrinsics": to(batch["intrinsics"]).to(device, torch.float32, non_blocking=True),
     }
     if "oxts" in batch:
-        out["oxts"] = to(batch["oxts"]).to(device, torch.float32)
+        out["oxts"] = to(batch["oxts"]).to(device, torch.float32, non_blocking=True)
     if keep_groundtruth and "groundtruth" in batch:
-        out["groundtruth"] = to(batch["groundtruth"]).to(device, torch.float32)
+        out["groundtruth"] = to(batch["groundtruth"]).to(device, torch.float32,
+                                                         non_blocking=True)
     return out
 
 
@@ -157,8 +165,8 @@ def normalize_uint8_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Ten
     if batch["tgt"].dtype != torch.uint8:
         return batch
     device = batch["tgt"].device
-    mean = torch.as_tensor(IMAGENET_MEAN, device=device)[:, None, None]
-    std = torch.as_tensor(IMAGENET_STD, device=device)[:, None, None]
+    mean = constant(tuple(IMAGENET_MEAN.tolist()), torch.float32, device)[:, None, None]
+    std = constant(tuple(IMAGENET_STD.tolist()), torch.float32, device)[:, None, None]
 
     def norm(x):
         return (x.float() / 255.0 - mean) / std
@@ -241,7 +249,9 @@ def make_optimizer(
     config: Config, depth_model: nn.Module, pose_model: nn.Module
 ) -> torch.optim.Adam:
     """Adam (β 0.9/0.999, eps 1e-8: optax.adam's defaults) over both nets;
-    one param group per net when depth_lr != pose_lr."""
+    one param group per net when depth_lr != pose_lr. Capturable on a
+    CUDA device (checkpoint.place_optimizer), as a CUDA graph of the step
+    needs."""
     opt = config.action.optimizer
     depth_params = list(depth_model.parameters())
     pose_params = list(pose_model.parameters())
@@ -250,7 +260,25 @@ def make_optimizer(
     else:
         groups = [{"params": depth_params, "lr": opt.depth_lr},
                   {"params": pose_params, "lr": opt.pose_lr}]
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    optimizer = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    place_optimizer(optimizer)
+    return optimizer
+
+
+@contextlib.contextmanager
+def learning_rates(optimizer: torch.optim.Optimizer, lr: torch.Tensor):
+    """Within: each param group's lr is its entry of `lr` [groups], a
+    tensor that a CUDA graph of optimizer.step() reads at each replay. The
+    groups keep their floats outside, which the scheduler steps on the
+    host; the train step writes them into the tensor for each step."""
+    floats = [group["lr"] for group in optimizer.param_groups]
+    for group, value in zip(optimizer.param_groups, lr.unbind()):
+        group["lr"] = value
+    try:
+        yield
+    finally:
+        for group, value in zip(optimizer.param_groups, floats):
+            group["lr"] = value
 
 
 def create_train_state(
@@ -401,6 +429,13 @@ def global_means(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor],
             for i, k in enumerate(keys)}
 
 
+# the keys of a step's inputs that hold the batch (batch_to_device reads
+# them), and those that hold the train step's host values as tensors
+# (TrainStep.host_values)
+BATCH_KEYS = ("tgt", "ref_imgs", "intrinsics", "oxts", "groundtruth")
+HOST_KEYS = ("ident_scale", "lr", "aug_add", "aug_scale", "aug_flip")
+
+
 class TrainStep:
     """step(batch) -> metrics {loss, mul_app_loss, smoothness_loss[,
     automask_keep][, warp_in_frame][, supervised_loss]} as 0-dim tensors
@@ -412,10 +447,11 @@ class TrainStep:
     The body of the JAX make_train_step_body: uint8 images normalized on
     the device; with color_jitter / hflip, the augmentations of
     data/augment.py on the normalized batch, their parameters drawn from
-    (aug_seed, step) at the micro-batch's size (a CPU generator, then moved
-    to the device) and applied alike to every micro-batch; with
+    (aug_seed, step) at the micro-batch's size (a CPU generator) and
+    applied alike to every micro-batch; with
     semi_sup_pose, the batch's OXTS poses in place of the pose net's; the
-    models in train mode under bf16 autocast when
+    models in train mode under bf16 autocast (its weight cache off, as a
+    CUDA graph needs) when
     precision is 'bf16'; disparities and poses cast to fp32 and the loss
     computed OUTSIDE the autocast region (autocast would otherwise run
     warp_coords' 3x3 products in bf16); the automask warm-up scale; the
@@ -423,6 +459,20 @@ class TrainStep:
     micro-batches (gradients summed, then averaged; BatchNorm statistics
     carried from one micro-batch to the next); then Adam and the schedule.
     The parameter gradients stay in .grad until the next step.
+
+    The host computes the step's scalars (host_values: the warm-up scale,
+    the learning rates, the augmentation draws) and hands them to the
+    body as tensors with the batch; the body reads everything on the
+    device. On a CUDA device without a mesh (`graph` None, the default)
+    the body runs as CUDA graphs, one per input signature
+    (train/graph.py): the first call of a batch shape is the eager step,
+    the second captures it, later calls copy the batch and the host
+    values into the graph's buffers and replay it; the gradients are then
+    zeroed in place, not dropped, since a graph writes the same buffers at
+    each replay. A captured step gives the eager step's bits. graph=False
+    runs eagerly; graph=True on the CPU or under a mesh raises. Loading a
+    checkpoint into the optimizer, or dropping a gradient, drops the
+    graphs: they read those tensors where they were captured.
 
     Under a data `mesh` (parallel/mesh.py) the step takes the global batch
     (or this rank's rows of it, a ShardedBatch from shard_batch or
@@ -471,6 +521,8 @@ class TrainStep:
         with_coverage: bool = False,
         mesh: Optional[Mesh] = None,
         device: str | torch.device = "cuda",
+        graph: Optional[bool] = None,
+        pool=None,
     ):
         _check_precision(precision)
         if accum_steps < 1:
@@ -496,17 +548,21 @@ class TrainStep:
         self.aug_seed = aug_seed
         self.precision = precision
         self.with_coverage = with_coverage
+        self.graphs = (StepGraphs(self.device, pool)
+                       if graph_enabled(graph, self.device, mesh) else None)
+        self._captured_state: List = []
 
-    def _ident_scale(self) -> float:
+    def _ident_scale(self, step: int) -> float:
         if not (self.automask_warmup and self.loss_mode == "min"):
             return 1.0
-        return automask_ident_scale(self.state.step, self.automask_warmup)
+        return automask_ident_scale(step, self.automask_warmup)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]):
-        """(loss, reproj, smooth, extra) of one normalized (micro-)batch."""
+        """(loss, reproj, smooth, extra) of one normalized (micro-)batch,
+        which carries the step's automask scale as "ident_scale"."""
         state = self.state
         with torch.autocast(self.device.type, torch.bfloat16,
-                            enabled=self.precision == "bf16"):
+                            enabled=self.precision == "bf16", cache_enabled=False):
             disps_tgt, disps_ref0, poses = forward_batch(
                 state.depth_model, state.pose_model, batch, train=True,
                 semi_sup_pose=self.semi_sup_pose,
@@ -519,7 +575,7 @@ class TrainStep:
             [disps_tgt, disps_ref0], poses.float(), batch["intrinsics"],
             mode=self.loss_mode, smooth_weight=self.smooth_weight,
             smooth_on=self.smooth_on, depth_norm=self.depth_norm,
-            ident_scale=self._ident_scale(), no_ssim=self.no_ssim,
+            ident_scale=batch["ident_scale"], no_ssim=self.no_ssim,
             min_bidirectional=self.min_bidirectional,
             with_coverage=self.with_coverage, mesh=self.mesh,
             scales=depth_scales(state.depth_model),
@@ -547,7 +603,7 @@ class TrainStep:
         with set_checkpoint_early_stop(False):
             return checkpoint(loss, batch, use_reentrant=False, preserve_rng_state=False)
 
-    def _aug_params(self, micro_size: int) -> Optional[AugmentParams]:
+    def _aug_params(self, micro_size: int, step: int) -> Optional[AugmentParams]:
         """As in JAX, every micro-batch is augmented with the same draws:
         those of (aug_seed, step) at the GLOBAL micro-batch's size, of
         which this rank takes its images' rows — by its DATA index, so the
@@ -555,24 +611,56 @@ class TrainStep:
         if not (self.color_jitter or self.hflip):
             return None
         size = 1 if self.mesh is None else self.mesh.data_size
-        params = draw_params(micro_size * size, self.aug_seed, self.state.step)
+        params = draw_params(micro_size * size, self.aug_seed, step)
         if size == 1:
             return params
         index = self.mesh.data_rank
         rows = slice(index * micro_size, (index + 1) * micro_size)
         return AugmentParams(params.add[rows], params.scale[rows], params.flip[rows])
 
-    def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        state = self.state
-        if self.mesh is not None:
-            batch = shard_batch(self.mesh, batch, self.accum_steps)
-        batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
-            batch, self.device, keep_groundtruth=bool(self.supervised_weight)
-        ), state.depth_model))
-        if batch["tgt"].shape[0] % self.accum_steps:
+    def host_values(self, step: int, micro_size: int) -> Dict[str, torch.Tensor]:
+        """The scalars of optimizer step `step` that the host computes, as
+        CPU tensors: ident_scale, the automask warm-up scale (0-dim fp32,
+        automask_ident_scale's bits; 1 without the warm-up); lr, each param
+        group's learning rate as the scheduler has it now ([groups]; fp32 on
+        the card, where capturable Adam reads it as optax does, fp64 on the
+        CPU, the float's own bits); and with jitter or flips the draws of
+        `step` for micro-batches of `micro_size` images (aug_add,
+        aug_scale, aug_flip)."""
+        lr_dtype = torch.float32 if self.device.type == "cuda" else torch.float64
+        out = {"ident_scale": torch.tensor(self._ident_scale(step), dtype=torch.float32),
+               "lr": torch.tensor([group["lr"] for group in self.state.optimizer.param_groups],
+                                  dtype=lr_dtype)}
+        aug = self._aug_params(micro_size, step)
+        if aug is not None:
+            out.update(aug_add=aug.add, aug_scale=aug.scale, aug_flip=aug.flip)
+        return out
+
+    def inputs(self, batch: Dict, step: int) -> Dict:
+        """The body's inputs for `batch` (this rank's rows under a mesh) at
+        optimizer step `step`: the batch's arrays that the step reads and
+        host_values."""
+        size = len(batch["tgt"])
+        if size % self.accum_steps:
             raise ValueError("the batch size must be a multiple of accum_steps")
-        aug = self._aug_params(batch["tgt"].shape[0] // self.accum_steps)
-        state.optimizer.zero_grad(set_to_none=True)
+        keys = [k for k in BATCH_KEYS if k in batch
+                and (k != "groundtruth" or self.supervised_weight)]
+        return {**{k: batch[k] for k in keys},
+                **self.host_values(step, size // self.accum_steps)}
+
+    def body(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One optimizer step on `inputs` (from inputs(); host or device
+        tensors), without the host's part (the schedule, state.step): what
+        a CUDA graph of the step captures."""
+        state = self.state
+        host = {k: inputs[k].to(self.device, non_blocking=True)
+                for k in HOST_KEYS if k in inputs}
+        batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
+            inputs, self.device, keep_groundtruth=bool(self.supervised_weight)
+        ), state.depth_model))
+        aug = (AugmentParams(host["aug_add"], host["aug_scale"], host["aug_flip"])
+               if "aug_add" in host else None)
+        state.optimizer.zero_grad(set_to_none=self.graphs is None)
         # micro-batch i is rows [i·mb, (i+1)·mb), the JAX reshape's order
         chunks = {k: v.chunk(self.accum_steps) for k, v in batch.items()}
         sums: Dict[str, torch.Tensor] = {}
@@ -581,6 +669,7 @@ class TrainStep:
             if aug is not None:
                 micro = augment_batch(micro, aug, jitter=self.color_jitter,
                                       flip=self.hflip)
+            micro["ident_scale"] = host["ident_scale"]
             if self.remat:
                 loss, reproj, smooth, extra = self._rematerialized_loss(micro)
             else:
@@ -598,29 +687,74 @@ class TrainStep:
                     p.grad.mul_(scale)
         if self.mesh is not None:
             all_reduce_gradients(self.mesh, params)
-        state.optimizer.step()
+        with learning_rates(state.optimizer, host["lr"]):
+            state.optimizer.step()
+        return global_means(self.mesh, {k: v * scale for k, v in sums.items()})
+
+    def run(self, body: Callable, inputs: Dict) -> Dict[str, torch.Tensor]:
+        """body(inputs), through the step's CUDA graphs when it has them.
+        The graphs hold the optimizer's state and the gradients where they
+        were captured: a state loaded in their place drops them."""
+        if self.graphs is None:
+            return body(inputs)
+        held = self._graph_state()
+        if (len(held) != len(self._captured_state)
+                or any(a is not b for a, b in zip(held, self._captured_state))):
+            self.graphs.reset()
+        out = self.graphs(body, inputs)
+        self._captured_state = self._graph_state()
+        return out
+
+    def _graph_state(self) -> List:
+        optimizer = self.state.optimizer
+        return [optimizer.state, optimizer.param_groups,
+                *(p.grad for group in optimizer.param_groups for p in group["params"])]
+
+    def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        state = self.state
+        if self.mesh is not None:
+            batch = shard_batch(self.mesh, batch, self.accum_steps)
+        metrics = self.run(self.body, self.inputs(batch, state.step))
         state.scheduler.step()
         state.step += 1
-        return global_means(self.mesh, {k: v * scale for k, v in sums.items()})
+        return metrics
 
 
 def make_train_step(state: TrainState, device: str | torch.device = "cuda",
-                    mesh: Optional[Mesh] = None, **step_kwargs) -> TrainStep:
-    """Build the train step over `state` (see TrainStep for step_kwargs),
-    under a data mesh when `mesh` is given."""
-    return TrainStep(state, device=device, mesh=mesh, **step_kwargs)
+                    mesh: Optional[Mesh] = None, graph: Optional[bool] = None,
+                    pool=None, **step_kwargs) -> TrainStep:
+    """Build the train step over `state` (see TrainStep for step_kwargs
+    and `graph`), under a data mesh when `mesh` is given; `pool` is the
+    CUDA graphs' memory pool (train/graph.StepGraphs)."""
+    return TrainStep(state, device=device, mesh=mesh, graph=graph, pool=pool,
+                     **step_kwargs)
 
 
 def make_multi_step(state: TrainState, num_steps: int, mesh: Optional[Mesh] = None,
-                    device: str | torch.device = "cuda", **step_kwargs):
+                    device: str | torch.device = "cuda", graph: Optional[bool] = None,
+                    pool=None, **step_kwargs):
     """multi(batches) -> the LAST step's metrics, after `num_steps` full
     optimizer steps in order: batches is one batch dict whose arrays have
     a leading [num_steps] axis ([num_steps, B, ...]), step i taking
-    batches[k][i]. Under a mesh the batch axis (axis 1) is sharded. A
-    plain loop over TrainStep: no host sync between the steps; the JAX
-    counterpart scans the steps inside one program (capturing this loop
-    in a CUDA graph is not done)."""
-    step = make_train_step(state, device=device, mesh=mesh, **step_kwargs)
+    batches[k][i]. Under a mesh the batch axis (axis 1) is sharded.
+
+    The counterpart of the JAX make_multi_step, which scans the steps
+    inside one program: the host computes every step's scalars first
+    (TrainStep.host_values, stacked [num_steps, ...]: step i's warm-up
+    scale, learning rate and draws in slot i; the schedule stepped
+    num_steps times), and one body runs the num_steps train-step bodies in
+    order, step i reading slot i. On a CUDA device without a mesh that
+    body is ONE CUDA graph (`graph` as in TrainStep): one replay, one
+    launch, makes num_steps updates. multi.train_step is the TrainStep
+    whose body it runs (its graphs: multi.train_step.graphs)."""
+    step = make_train_step(state, device=device, mesh=mesh, graph=graph, pool=pool,
+                           **step_kwargs)
+
+    def steps(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        metrics = None
+        for i in range(num_steps):
+            metrics = step.body({k: v[i] for k, v in inputs.items()})
+        return metrics
 
     def multi(batches: Dict) -> Dict[str, torch.Tensor]:
         if mesh is not None:
@@ -628,14 +762,22 @@ def make_multi_step(state: TrainState, num_steps: int, mesh: Optional[Mesh] = No
         sizes = {len(v) for v in batches.values()}
         if sizes != {num_steps}:
             raise ValueError(f"batches of leading size {sizes}, expected {num_steps}")
-        metrics = None
-        for i in range(num_steps):
-            batch = {k: v[i] for k, v in batches.items()}
-            if mesh is not None:
-                batch = ShardedBatch(batch, step.accum_steps)
-            metrics = step(batch)
+        slots = []
+        with warnings.catch_warnings():
+            # the schedule runs ahead of the optimizer here, by design: the
+            # host reads each step's learning rate before the steps run
+            warnings.filterwarnings("ignore", "Detected call of `lr_scheduler")
+            for i in range(num_steps):
+                slots.append(step.inputs({k: v[i] for k, v in batches.items()},
+                                         state.step + i))
+                state.scheduler.step()
+        inputs = {k: (torch.stack([s[k] for s in slots]) if k in HOST_KEYS else batches[k])
+                  for k in slots[0]}
+        metrics = step.run(steps, inputs)
+        state.step += num_steps
         return metrics
 
+    multi.train_step = step
     return multi
 
 
@@ -672,14 +814,22 @@ class EvalStep:
     the band, as in the train step, and depth_pred and the ground truth
     are gathered to whole images for the depth metrics (median scaling
     and the Eigen crop are per whole image): every rank of a data row
-    then holds its images' whole depth_pred."""
+    then holds its images' whole depth_pred.
+
+    On a CUDA device without a mesh (`graph` None, the default) the step
+    runs as CUDA graphs, one per batch signature, as TrainStep does
+    (train/graph.py): the first call of a signature is eager, the second
+    captures, later calls replay; the metrics and depth_pred returned are
+    copies of the graph's. graph=False runs eagerly; graph=True on the CPU
+    or under a mesh raises."""
 
     def __init__(self, depth_model: nn.Module, pose_model: nn.Module,
                  loss_mode: str = "mean", depth_norm: bool = False,
                  precision: str = "fp32", median_scale: bool = False,
                  eval_protocol: str = "none", pose_metrics: bool = False,
                  semi_sup_pose: bool = False, mesh: Optional[Mesh] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", graph: Optional[bool] = None,
+                 pool=None):
         _check_precision(precision)
         if eval_protocol not in ("none", "eigen"):
             raise ValueError(f"Unknown eval_protocol: {eval_protocol!r}")
@@ -695,6 +845,8 @@ class EvalStep:
         self.median_scale = median_scale or self.eigen
         self.pose_metrics = pose_metrics
         self.semi_sup_pose = semi_sup_pose
+        self.graphs = (StepGraphs(self.device, pool)
+                       if graph_enabled(graph, self.device, mesh) else None)
 
     @torch.no_grad()
     def loss_inputs(self, batch: Dict) -> Dict:
@@ -705,7 +857,7 @@ class EvalStep:
             self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True),
             self.depth_model))
         with torch.autocast(self.device.type, torch.bfloat16,
-                            enabled=self.precision == "bf16"):
+                            enabled=self.precision == "bf16", cache_enabled=False):
             disps_tgt, disps_ref0, poses = forward_batch(
                 self.depth_model, self.pose_model, batch, train=False,
                 semi_sup_pose=self.semi_sup_pose,
@@ -753,6 +905,15 @@ class EvalStep:
     def __call__(self, batch: Dict):
         if self.mesh is not None:
             batch = shard_batch(self.mesh, batch)
+        batch = {k: batch[k] for k in BATCH_KEYS if k in batch}
+        if self.graphs is None:
+            return self.body(batch)
+        return self.graphs(self.body, batch)
+
+    @torch.no_grad()
+    def body(self, batch: Dict):
+        """(metrics, depth_pred) of a batch (this rank's rows under a
+        mesh): what a CUDA graph of the step captures."""
         inputs = self.loss_inputs(batch)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         if row_sharded(self.mesh):
@@ -777,13 +938,15 @@ def make_eval_step(depth_model: nn.Module, pose_model: nn.Module,
                    precision: str = "fp32", median_scale: bool = False,
                    eval_protocol: str = "none", pose_metrics: bool = False,
                    semi_sup_pose: bool = False, mesh: Optional[Mesh] = None,
-                   device: str | torch.device = "cuda") -> EvalStep:
-    """Build the validation step (see EvalStep)."""
+                   device: str | torch.device = "cuda", graph: Optional[bool] = None,
+                   pool=None) -> EvalStep:
+    """Build the validation step (see EvalStep for `graph`; `pool` is the
+    CUDA graphs' memory pool, train/graph.StepGraphs)."""
     return EvalStep(depth_model, pose_model, loss_mode=loss_mode,
                     depth_norm=depth_norm, precision=precision,
                     median_scale=median_scale, eval_protocol=eval_protocol,
                     pose_metrics=pose_metrics, semi_sup_pose=semi_sup_pose,
-                    mesh=mesh, device=device)
+                    mesh=mesh, device=device, graph=graph, pool=pool)
 
 
 # --------------------------------------------------------------------------
@@ -808,7 +971,11 @@ class Trainer:
     checkpoint), and only rank 0 logs (log_fn, wandb pictures and
     histograms) and writes checkpoints; the other ranks wait for it at
     the end of each epoch. Under a "spatial" axis the other ranks of its
-    data row join it in the pictures' banded forward (fit, log_warps)."""
+    data row join it in the pictures' banded forward (fit, log_warps).
+
+    `graph` is the steps' (TrainStep): on a CUDA device without a mesh
+    they run as CUDA graphs by default, the train and eval graphs in one
+    memory pool (they never run at the same time)."""
 
     def __init__(
         self,
@@ -817,6 +984,7 @@ class Trainer:
         log_fn: Optional[Callable[[Dict[str, float], int], None]] = None,
         device: str | torch.device = "cuda",
         mesh: Optional[Mesh] = None,
+        graph: Optional[bool] = None,
     ):
         act = config.action
         self.config = config
@@ -836,8 +1004,11 @@ class Trainer:
         if mesh is not None:
             shard_train_state(mesh, self.state)
         aug = config.datasets.augmentation
+        pool = (torch.cuda.graph_pool_handle()
+                if graph_enabled(graph, self.device, mesh) else None)
         self.train_step = make_train_step(
-            self.state, device=self.device, mesh=mesh, loss_mode=act.loss_mode,
+            self.state, device=self.device, mesh=mesh, graph=graph, pool=pool,
+            loss_mode=act.loss_mode,
             semi_sup_pose=act.semi_sup_pose, smooth_weight=act.smooth_weight,
             smooth_on=act.smooth_on, depth_norm=act.depth_norm,
             automask_warmup=act.automask_warmup, no_ssim=act.no_ssim,
@@ -855,6 +1026,7 @@ class Trainer:
             precision=act.precision, median_scale=act.eval_median_scale,
             eval_protocol=act.eval_protocol, pose_metrics=act.eval_pose,
             semi_sup_pose=act.semi_sup_pose, mesh=mesh, device=self.device,
+            graph=graph, pool=pool,
         )
         self.checkpoints = CheckpointManager(
             os.path.join(act.checkpoint_dir, config.model.name)
@@ -940,7 +1112,7 @@ class Trainer:
             self.mesh, batch_to_device(batch, self.device), self.state.depth_model))
         height = batch["tgt"].shape[2]
         with torch.autocast(self.device.type, torch.bfloat16,
-                            enabled=act.precision == "bf16"):
+                            enabled=act.precision == "bf16", cache_enabled=False):
             disps_tgt, _, poses = forward_batch(
                 self.state.depth_model, self.state.pose_model, batch, train=False,
                 semi_sup_pose=act.semi_sup_pose, rows=band(self.mesh, height),

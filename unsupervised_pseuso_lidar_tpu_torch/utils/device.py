@@ -3,11 +3,13 @@
 Entry points default to the CUDA card. Without one they raise instead of
 running on the CPU: a CPU run is explicit (``device="cpu"``), never a
 silent fallback. ``device_time_ms`` and ``card`` are what chip_smoke.py
-and ops/cuda/tune.py measure and label their numbers with.
+and ops/cuda/tune.py measure and label their numbers with. ``constant``
+holds the small tensors a step reads on the device, made once.
 """
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 
@@ -24,6 +26,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """torch.tensor(values, dtype, device), made on the first call for
+    (values, dtype, device) and the same tensor on every later one: a step
+    that reads it copies nothing from the host, which a CUDA graph could
+    not capture. `values` is a (nested) tuple of numbers. Callers read it
+    and never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def device_time_ms(fn, calls: int = 20, runs: int = 5, warmup: int = 3) -> float:

@@ -112,6 +112,18 @@ def _host_self_times(events: Sequence[dict]) -> List[Tuple[str, float]]:
     return out
 
 
+def _device_busy_us(events: Sequence[dict]) -> float:
+    """µs covered by at least one device event: the union of their
+    [ts, ts + dur) intervals."""
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                              for e in events if e.get("cat") in DEVICE_CATEGORIES):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def _trace_rows(path: str, collapse: bool = True) -> Tuple[Rows, bool]:
     """(rows sorted by time, whether they are device events)."""
     events = _trace_events(path)
@@ -147,18 +159,23 @@ class Breakdown(dict):
     """{op family: ms a call} of a traced window, and its totals:
     `counts` (events a family over the window), `steps`, `total_ms` (device
     ms a call on a CUDA run, host self ms on the CPU), `host_ms` (host
-    clock a call over the window, synchronized at its end), `busy`
-    (total_ms / host_ms: on a CUDA run the device's busy share; 1 - busy
-    is its idle share) and `on_device`."""
+    clock a call over the window, synchronized at its end), `busy_ms` (ms a
+    call in which the device ran at least one event: the union of their
+    intervals, less than total_ms where events overlap, as the kernels of
+    a CUDA graph may; total_ms when not given), `busy` (busy_ms / host_ms:
+    on a CUDA run the device's busy share; 1 - busy is its idle share) and
+    `on_device`."""
 
-    def __init__(self, rows: Rows, steps: int, host_ms: float, on_device: bool):
+    def __init__(self, rows: Rows, steps: int, host_ms: float, on_device: bool,
+                 busy_ms: float | None = None):
         super().__init__((fam, ms / steps) for fam, ms, _ in rows)
         self.counts = {fam: count for fam, _, count in rows}
         self.steps = steps
         self.host_ms = host_ms
         self.on_device = on_device
         self.total_ms = sum(self.values())
-        self.busy = self.total_ms / host_ms if host_ms > 0 else float("nan")
+        self.busy_ms = self.total_ms if busy_ms is None else busy_ms
+        self.busy = self.busy_ms / host_ms if host_ms > 0 else float("nan")
 
 
 def breakdown_from_trace(path: str, steps: int, host_ms: float,
@@ -172,7 +189,8 @@ def breakdown_from_trace(path: str, steps: int, host_ms: float,
             "event (kernel, memcpy or memset): torch.profiler got no CUPTI "
             "activity from the card, so it cannot attribute device time"
         )
-    return Breakdown(rows, steps, host_ms, on_device)
+    busy_ms = _device_busy_us(_trace_events(path)) / 1e3 / steps if on_device else None
+    return Breakdown(rows, steps, host_ms, on_device, busy_ms)
 
 
 def print_breakdown(result: Breakdown, top: int = 20) -> None:
@@ -182,7 +200,8 @@ def print_breakdown(result: Breakdown, top: int = 20) -> None:
         print(f"  {ms:9.3f} ms/step  x{result.counts[fam]:5d}  {fam}")
     share = "busy share" if result.on_device else "share"
     print(f"[trace] {what} {result.total_ms:.3f} ms/step in a "
-          f"{result.host_ms:.3f} ms/step host window: {share} {result.busy:.3f}",
+          f"{result.host_ms:.3f} ms/step host window: {share} {result.busy:.3f}"
+          + (f" ({result.busy_ms:.3f} ms/step busy)" if result.on_device else ""),
           flush=True)
 
 
