@@ -11,7 +11,10 @@ the shapes of the production configuration (configs/tpu_v5e.yaml:
 DispResNet-18 + PoseNet, 640x192, batch 12, bf16 models, fp32 loss),
 then drives the port's entry points with seeded random weights:
 
-  serve         DepthToPointCloudPipeline.run over 20 synthetic frames
+  serve         DepthToPointCloudPipeline.run over 20 synthetic frames (the
+                pipeline's depth -> cloud program a CUDA graph: a warm-up
+                frame runs eagerly, the first of the 20 captures, the rest
+                replay)
   validation    3 steps of the eval step (make_eval_step), whose photometric
                 objective launches kernel A once and kernel B twice a step
   train         Trainer.run_epoch over 3 steps (after 2 warm-up steps: the
@@ -41,7 +44,9 @@ then drives the port's entry points with seeded random weights:
                 gradients of an augmented batch card vs CPU, cli.evaluate
                 (eigen + pose metrics; velodyne ground truth) card vs
                 --device cpu, the velodyne rasterizer card vs CPU,
-                cli.odometry with its ground-truth file; and the
+                cli.odometry with its ground-truth file (its trajectory
+                equal to an eager run's, on the whole drive and on 22
+                windows, the last batch padded); and the
                 steady-state ms a training step over two more passes of
                 the drive (the loader's first fill apart), the loader's ms
                 a batch (decode cache cold and warm) and the loop's wait
@@ -53,11 +58,28 @@ then drives the port's entry points with seeded random weights:
                 pipeline) and with two (the drive twice), frames/s of each;
                 the latency a frame at the reference's 10 Hz (FileImageSource
                 + run, latest-wins queue), from the source yielding a frame
-                to its result; cli.export of configs/basic_config.yaml
+                to its result, after two unpaced warm-up frames (the eager
+                first call, the capture; their ms apart as `warmup_ms`); cli.export of configs/basic_config.yaml
                 (1280x384) fused with the projector, batch-polymorphic, with
                 --verify, then run_exported at batch 1 and 2 against the live
                 module; cli.inference with a .bin cloud. A, A', B and C are
-                launched no time: the serving path holds no kernel of ops/cuda
+                launched no time: the serving path holds no kernel of ops/cuda.
+                cli.pipeline and the in-process pipeline replay CUDA graphs;
+                cli.inference and cli.export run eagerly
+  serve_graph   serving as one program: DepthToPointCloudPipeline captured
+                (the default on the card) against graph=False on the same
+                seeded weights and the kitti drive's frames, cuDNN
+                deterministic, for tpu_v5e (DispResNet-18, bf16, 640x192,
+                batch 1), basic_config (fp32, 1280x384, batch 1, and a
+                2-camera rig through process_batch) and BtsModel (512
+                features, fp32, 352x1216, its metric depth): depth, points
+                and valid compared uncompacted (0.0 expected), ms a frame
+                over 20 frames after the warm-up and capture by the host
+                clock and CUDA events, op_breakdown's busy share over 3
+                calls, graph launches a frame, capture seconds, the graph
+                pool's bytes beside the eager pipeline's peak; then the
+                pose-only eval step (make_pose_eval_step) captured against
+                eager on the drive's batches, every metric equal
   profile       torch.profiler on the card (utils/trace.op_breakdown): the
                 device time of a training step by op family, 3 steps after 2
                 of warm-up, on basic_config (TF32 off as everywhere here, then
@@ -227,6 +249,7 @@ from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
     synthetic_triplet_batch,
 )
 from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import METRICS, eigen_crop_mask
+from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.eval.trajectory import kitti_odometry_lines
 from unsupervised_pseuso_lidar_tpu_torch.geometry.calibration import Calibration
 from unsupervised_pseuso_lidar_tpu_torch.geometry.oxts import (
@@ -414,6 +437,11 @@ PROFILE_STEPS, PROFILE_WARMUP = 3, 2
 # same order)
 GRAPH_STEPS, GRAPH_TIMED_STEPS, GRAPH_MULTI = 3, 10, 3
 GRAPH_REL_L2 = 1e-6
+# the serve_graph phase: frames (or rig steps) timed after the eager first
+# call and the capture; and the kitti phase's cli.odometry cut to a number
+# of windows its batch of 4 does not divide (the last batch padded)
+SERVE_GRAPH_FRAMES = 20
+ODOMETRY_PADDED_WINDOWS = 22
 # TrainStep's arguments, to build make_multi_step like a Trainer's step
 STEP_ARGS = ("loss_mode", "semi_sup_pose", "smooth_weight", "smooth_on", "depth_norm",
              "automask_warmup", "no_ssim", "min_bidirectional", "supervised_weight",
@@ -610,7 +638,7 @@ def main(device="cuda:0"):
           "mean_points_per_frame": float(np.mean([r.points.shape[0] for r in results])),
           "projector_points_max_abs_err_vs_cpu": points_err,
           "projector_mask_mismatch_vs_cpu": mask_mismatch,
-          "launches": serve_launches})
+          "graph_replays": pipeline.graphs.replays, "launches": serve_launches})
 
     # 6. validation: the main path; launches counted over exactly these steps
     for _ in range(2):  # warm-up: the eager first call, then the capture
@@ -681,6 +709,9 @@ def main(device="cuda:0"):
         kitti_launches, drive_dir, kitti = kitti_phase(device, tmp)
         release_memory()
         serve_cli_phase(device, tmp, drive_dir)
+        release_memory()
+        # 15b. serving as one program: captured pipelines against eager
+        serve_graph_phase(device, tmp, drive_dir)
         release_memory()
         # 16. where a training step's time goes, by torch.profiler
         profiled = profile_phase(device, tmp, kitti, records_1280)
@@ -1572,13 +1603,30 @@ def kitti_phase(device, tmp):
     checks += [(differ <= 2, f"velo2img card vs CPU: {differ} pixels differ"),
                (value_rel <= VELO_RTOL, f"velo2img values: rel {value_rel}")]
 
-    # 7. cli.odometry over the drive, and its ground truth against a
-    # float64 recomputation from the OXTS files
+    # 7. cli.odometry over the drive (its pose forward a CUDA graph), and
+    # its ground truth against a float64 recomputation from the OXTS
+    # files; the trajectory against an eager run of the same checkpoint,
+    # on the whole drive and cut to ODOMETRY_PADDED_WINDOWS windows (a
+    # last batch padded), cuDNN deterministic
     poses_out, gt_out = os.path.join(tmp, "poses.txt"), os.path.join(tmp, "gt_poses.txt")
-    t0 = time.perf_counter()
-    odo, _ = _quiet(odometry_cli.main, ["--config", config_path, "--out", poses_out,
-                                        "--gt-out", gt_out])
-    odo_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        odo, _ = _quiet(odometry_cli.main, ["--config", config_path, "--out", poses_out,
+                                            "--gt-out", gt_out])
+        odo_s = time.perf_counter() - t0
+        same = {}
+        for windows in (0, ODOMETRY_PADDED_WINDOWS):  # 0: every window
+            texts = []
+            for graph in (None, False):
+                path = os.path.join(tmp, f"poses_{graph}_{windows}.txt")
+                _quiet(odometry_cli.main, ["--config", config_path, "--out", path,
+                                           "--max-windows", str(windows)], graph)
+                with open(path) as f:
+                    texts.append(f.read())
+            same[windows or "all"] = texts[0] == texts[1]
+    finally:
+        torch.backends.cudnn.deterministic = False
     with open(poses_out) as f:
         pred_lines = f.read().splitlines()
     with open(gt_out) as f:
@@ -1592,8 +1640,9 @@ def kitti_phase(device, tmp):
         np.stack([c @ t0_inv @ t @ np.linalg.inv(c) for t in world]))
     out["odometry"] = {"lines": len(pred_lines), "gt_lines": len(gt_lines),
                        "gt_equals_recomputation": gt_lines == recomputed,
-                       "metrics": odo, "seconds": odo_s}
+                       "metrics": odo, "seconds": odo_s, "captured_equals_eager": same}
     checks += [
+        (all(same.values()), f"odometry captured vs eager trajectories: {same}"),
         (len(pred_lines) == len(gt_lines) == KITTI_FRAMES, f"odometry lines {out['odometry']}"),
         (gt_lines == recomputed, "the odometry GT file differs from the float64 recomputation"),
         (all(np.isfinite(odo[k]) for k in odo if k.startswith("pose_")), f"odometry {odo}"),
@@ -1619,7 +1668,17 @@ def kitti_phase(device, tmp):
 def paced_latency(pipeline, image_dir, height, width):
     """`pipeline` over the drive's frames at the reference's SERVE_RATE_HZ
     (FileImageSource + run, latest-wins queue of 1): the latency a frame,
-    from the source yielding it to its result, in ms."""
+    from the source yielding it to its result, in ms. Two frames go
+    through it first, unpaced (`warmup_ms`): a pipeline's first call of
+    a shape runs eagerly and its second captures the CUDA graph, which a
+    live stream would pay on its second frame (and the frames queued
+    behind it)."""
+    first = next(iter(FileImageSource(image_dir, size_hw=(height, width))))
+    warmup = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pipeline.process(first)
+        warmup.append((time.perf_counter() - t0) * 1e3)
     yielded, latencies = {}, []
 
     def stamped(frames):
@@ -1633,6 +1692,8 @@ def paced_latency(pipeline, image_dir, height, width):
     paced = FileImageSource(image_dir, rate_hz=SERVE_RATE_HZ, size_hw=(height, width))
     processed = pipeline.run(stamped(paced), on_result, queue_size=1)
     return {"rate_hz": SERVE_RATE_HZ, "queue_size": 1, "frames": processed,
+            "warmup_ms": warmup,
+            "graph_replays": pipeline.graphs.replays if pipeline.graphs else None,
             "latency_ms_median": float(np.median(latencies)),
             "latency_ms_max": float(np.max(latencies)), "latency_ms": latencies}
 
@@ -1796,6 +1857,159 @@ def serve_cli_phase(device, tmp, drive_dir):
     emit(out)
     checks.append((launches == dict.fromkeys(kernels.KERNELS, 0),
                    f"serve launches {launches}: the serving path holds no kernel"))
+    for ok, what in checks:
+        check(ok, what)
+
+
+def serve_graph_case(device, model, calib_dir, frames, streams, precision, metric_output):
+    """One serving case of the serve_graph phase: the captured pipeline
+    against an eager one on the same model and frames (cuDNN deterministic,
+    set by the caller). Each pipeline's first call runs eagerly, the
+    captured one's second captures; then SERVE_GRAPH_FRAMES frames (rig
+    steps of `streams` cameras) each: the outputs compared uncompacted
+    (depth, points, the share of mismatched valid), ms a frame by the host
+    clock and by CUDA events, op_breakdown over 3 calls (busy share), graph
+    launches a call, capture seconds, the graph pool's bytes and the eager
+    pipeline's peak allocated bytes; and `infer` alone (the outputs on the
+    host, not compacted), ms a frame by the host clock. -> (record,
+    checks)."""
+    def pipeline(graph):
+        return DepthToPointCloudPipeline(
+            make_depth_fn(model, metric_output=metric_output, precision=precision),
+            PseudoLiDAR(calib_dir, device=device), device=device, graph=graph)
+
+    captured, eager = pipeline(None), pipeline(False)
+    steps = [np.stack([frames[(i + s) % len(frames)] for s in range(streams)])
+             for i in range(2 + SERVE_GRAPH_FRAMES)]
+    depth_err = points_err = mismatch = 0.0
+    for imgs in steps:
+        got, want = captured.infer(imgs), eager.infer(imgs)
+        depth_err = max(depth_err, float(np.abs(got[0] - want[0]).max()))
+        points_err = max(points_err, float(np.abs(got[1] - want[1]).max()))
+        mismatch = max(mismatch, float(np.mean(got[2] != want[2])))
+    graphs = captured.graphs
+    record = {"streams": streams, "height": frames[0].shape[0], "width": frames[0].shape[1],
+              "precision": precision, "metric_output": metric_output,
+              "depth_max_abs_err": depth_err, "points_max_abs_err": points_err,
+              "valid_mismatch_share": mismatch, "graphs": len(graphs.graphs),
+              "capture_seconds": [g.seconds for g in graphs.graphs.values()],
+              "pool_bytes": pool_bytes(graphs.pool),
+              "valid_points_per_frame": float(got[2].sum()) / streams}
+
+    def serve(pipe, imgs):  # one camera's process, a rig's process_batch
+        return pipe.process(imgs[0]) if streams == 1 else pipe.process_batch(imgs)
+
+    for label, pipe in (("captured", captured), ("eager", eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        replays = graphs.replays
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for imgs in steps[2:]:
+            serve(pipe, imgs)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / SERVE_GRAPH_FRAMES
+        peak = torch.cuda.max_memory_allocated()
+        launches = (graphs.replays - replays) / SERVE_GRAPH_FRAMES
+        t0 = time.perf_counter()
+        for imgs in steps[2:]:
+            pipe.infer(imgs)
+        infer_ms = (time.perf_counter() - t0) * 1e3 / SERVE_GRAPH_FRAMES
+        result = op_breakdown(serve, pipe, steps[0], steps=PROFILE_STEPS, warmup=1,
+                              verbose=False)
+        record[label] = {"ms_per_frame_host": host_ms,
+                         "ms_per_frame_cuda_events": start.elapsed_time(end) / SERVE_GRAPH_FRAMES,
+                         "ms_per_frame_infer_host": infer_ms,
+                         "top_families_ms_per_frame": dict(list(result.items())[:6]),
+                         "profiled_device_ms_per_frame": result.total_ms,
+                         "profiled_device_busy_ms_per_frame": result.busy_ms,
+                         "profiled_host_window_ms_per_frame": result.host_ms,
+                         "busy_share": result.busy,
+                         "profiled_device_events_per_frame":
+                             sum(result.counts.values()) / PROFILE_STEPS,
+                         "peak_allocated_bytes": peak}
+        if label == "captured":
+            record[label]["graph_launches_per_frame"] = launches
+    record["host_ms_ratio_captured_to_eager"] = (record["captured"]["ms_per_frame_host"]
+                                                 / record["eager"]["ms_per_frame_host"])
+    checks = [
+        (depth_err == points_err == mismatch == 0.0,
+         f"serve_graph: captured vs eager depth {depth_err}, points {points_err}, "
+         f"valid mismatch {mismatch}"),
+        (record["captured"]["graph_launches_per_frame"] == 1.0 and len(graphs.graphs) == 1,
+         f"serve_graph: {len(graphs.graphs)} graphs, "
+         f"{record['captured']['graph_launches_per_frame']} launches a frame"),
+    ]
+    del captured, eager
+    release_memory()
+    return record, checks
+
+
+def serve_graph_phase(device, tmp, drive_dir):
+    """Serving as one program (see the module docstring's `serve_graph`).
+    Prints the phase's record, then checks it."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "serve_graph", "card": card(), "frames": SERVE_GRAPH_FRAMES}, []
+    image_dir = os.path.join(drive_dir, "image_02", "data")
+    calib_dir = os.path.dirname(drive_dir)
+    kernels.reset_launch_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        cases = (("tpu_v5e", CONFIG, 1), ("basic_config", BASIC_CONFIG, 1),
+                 ("basic_config_rig2", BASIC_CONFIG, 2), ("bts", None, 1))
+        for name, path, streams in cases:
+            gen = torch.Generator().manual_seed(SEED + 61)
+            if path is None:  # BtsModel's metric depth, as cli.pipeline serves it
+                (height, width), precision, metric = BTS_SHAPE, "fp32", True
+                model_name, kwargs = BTS_CASE["depth"]
+                model = build_model(model_name, gen, device=device, **kwargs)
+            else:
+                config = load_config(path)
+                (height, width), precision, metric = (config.image_shape,
+                                                      config.action.precision, False)
+                model = create_train_state(config, gen, device=device).depth_model
+            frames = list(FileImageSource(image_dir, size_hw=(height, width)))
+            out[name], more = serve_graph_case(device, model, calib_dir, frames, streams,
+                                               precision, metric)
+            out[name]["config"] = os.path.relpath(path, ROOT) if path else "BtsModel 512"
+            checks += more
+            del model
+            release_memory()
+
+        # the pose-only eval step on the kitti drive's batches, captured
+        # against eager: the PoseFc the kitti phase trained (a fresh one's
+        # zero last layer gives every input the same poses)
+        config = load_config(os.path.join(tmp, "kitti_config.yaml"))
+        config.action.from_scratch = False
+        pose = Trainer(config, device=device, graph=False).state.pose_model
+        dataset = UnSupKittiDataset(config)
+        batches = list(dataset.batches(list(range(len(dataset))), config.action.batch_size,
+                                       KITTI_WORKERS, with_groundtruth=False))
+        step, eager = make_pose_eval_step(pose, device=device), make_pose_eval_step(
+            pose, device=device, graph=False)
+        diffs = []
+        for batch in batches:
+            got, want = step(batch), eager(batch)
+            diffs.append(max(float((got[k] - want[k]).abs()) for k in want))
+        out["pose_eval"] = {"model": config.model.pose.name, "batches": len(batches),
+                            "batch": config.action.batch_size, "max_abs_diff": diffs,
+                            "metrics": {k: float(v) for k, v in got.items()},
+                            "replays": step.graphs.replays,
+                            "capture_seconds": [g.seconds for g in step.graphs.graphs.values()]}
+        checks += [(max(diffs) == 0.0, f"serve_graph: captured pose eval step differs: {diffs}"),
+                   (step.graphs.replays == len(batches) - 1,
+                    f"serve_graph: pose eval replays {step.graphs.replays}")]
+        del pose, step, eager
+    finally:
+        torch.backends.cudnn.deterministic = False
+    release_memory()
+    out["launches"] = dict(kernels.launch_counts)
+    checks.append((out["launches"] == dict.fromkeys(kernels.KERNELS, 0),
+                   f"serve_graph launches {out['launches']}: serving holds no kernel"))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
     for ok, what in checks:
         check(ok, what)
 

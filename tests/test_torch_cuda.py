@@ -771,3 +771,117 @@ def test_a_loaded_optimizer_state_drops_the_graphs(cuda, deterministic):
     # replays: 2 before the load (steps 2 and 3), 2 after (steps 5 and 6)
     graphs = captured.train_step.graphs
     assert len(graphs.graphs) == 1 and graphs.replays == 4
+
+
+# --------------------------------------------------------------------------
+# serving as one program: DepthToPointCloudPipeline and the pose-only eval
+# step as CUDA graphs
+# --------------------------------------------------------------------------
+
+
+def _serve_pipelines(cuda, tmp_path, precision):
+    """A seeded DispResNet-18 and two pipelines serving it at 64x96: the
+    captured one (the default on the card) and an eager one."""
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import make_depth_fn
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
+        DepthToPointCloudPipeline,
+    )
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
+
+    depth = build_model("DispResNet", torch.Generator().manual_seed(2), device=cuda)
+    calib = _small_calib(tmp_path / "calib")
+
+    def pipeline(graph):
+        return DepthToPointCloudPipeline(make_depth_fn(depth, precision=precision),
+                                         PseudoLiDAR(calib, device=cuda), device=cuda,
+                                         graph=graph)
+
+    return depth, pipeline(None), pipeline(False)
+
+
+def _serve(pipeline, frames, index):
+    """process() of one frame, process_batch() of a rig's frames."""
+    if len(frames) == 1:
+        return [pipeline.process(frames[0], index)]
+    return pipeline.process_batch(frames, index)
+
+
+@pytest.mark.parametrize("streams,precision", [(1, "fp32"), (2, "fp32"), (1, "bf16")],
+                         ids=["batch1", "rig2", "batch1_bf16"])
+def test_captured_pipeline_matches_the_eager_one(cuda, deterministic, tmp_path, streams,
+                                                 precision):
+    # 4 frames (or rig steps) of one batch shape: the first eager, the
+    # second captures, the others replay; depth and clouds equal the eager
+    # pipeline's bit for bit, one graph launch a call once captured, and no
+    # kernel of ops/cuda on the serving path
+    _, captured, eager = _serve_pipelines(cuda, tmp_path, precision)
+    assert captured.graphs is not None and eager.graphs is None
+    frames = np.random.default_rng(streams).normal(
+        size=(4, streams, 64, 96, 3)).astype(np.float32)
+    kernels.reset_launch_counts()
+    for i, rig in enumerate(frames):
+        replays = captured.graphs.replays
+        got, want = _serve(captured, rig, i), _serve(eager, rig, i)
+        assert captured.graphs.replays == replays + (i > 0)
+        for a, b in zip(got, want):
+            assert (a.frame_index, a.stream_index) == (b.frame_index, b.stream_index)
+            assert np.array_equal(a.depth, b.depth)
+            assert a.points.shape == b.points.shape and np.array_equal(a.points, b.points)
+            assert a.points.shape[0] > 0
+    assert len(captured.graphs.graphs) == 1 and captured.graphs.replays == 3
+    assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_captured_pipeline_serves_weights_loaded_in_place(cuda, deterministic, tmp_path):
+    # weights copied into the live parameters after the capture are what
+    # the next replay serves; a replaced parameter makes the next call
+    # raise until reset(), which captures anew
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+
+    depth, captured, eager = _serve_pipelines(cuda, tmp_path, "fp32")
+    frames = np.random.default_rng(7).normal(size=(3, 64, 96, 3)).astype(np.float32)
+    for i in range(2):
+        captured.process(frames[i], i)
+    other = build_model("DispResNet", torch.Generator().manual_seed(3), device=cuda)
+    depth.load_state_dict(other.state_dict())
+    replays = captured.graphs.replays
+    got, want = captured.process(frames[2], 2), eager.process(frames[2], 2)
+    assert captured.graphs.replays == replays + 1
+    assert np.array_equal(got.depth, want.depth) and np.array_equal(got.points, want.points)
+    depth.load_state_dict(build_model("DispResNet", torch.Generator().manual_seed(2),
+                                      device=cuda).state_dict())
+    assert not np.array_equal(captured.process(frames[2]).depth, got.depth)
+    conv = next(m for m in depth.modules() if isinstance(m, torch.nn.Conv2d))
+    conv.weight = torch.nn.Parameter(conv.weight.detach().clone())
+    with pytest.raises(RuntimeError, match="replaced or moved"):
+        captured.process(frames[0])
+    captured.reset()
+    for i in range(3):
+        got, want = captured.process(frames[i], i), eager.process(frames[i], i)
+        assert np.array_equal(got.depth, want.depth)
+    assert len(captured.graphs.graphs) == 1
+
+
+def test_captured_pose_eval_step_matches_the_eager_one(cuda, deterministic):
+    # the pose-only step's body (normalize, PoseNet, pose_errors) captured
+    # against the eager step over 4 host batches: every metric bit for bit,
+    # the returned metrics not overwritten by a later replay
+    from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+
+    pose = build_model("PoseNet", torch.Generator().manual_seed(4), device=cuda)
+    captured = make_pose_eval_step(pose, device=cuda)
+    eager = make_pose_eval_step(pose, device=cuda, graph=False)
+    assert captured.graphs is not None and eager.graphs is None
+    rng = np.random.default_rng(8)
+    kept = []
+    for batch in _graph_batches(4, seed=26):
+        batch["oxts"] = (rng.normal(size=(4, 2, 6)) * np.array([0.005] * 3 + [0.03] * 3)
+                         ).astype(np.float32)
+        got, want = captured(batch), eager(batch)
+        assert sorted(got) == sorted(want) == ["ate", "ate_unscaled", "rot_err_deg", "scale"]
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        kept.append((got, {k: v.clone() for k, v in got.items()}))
+    assert all(torch.equal(got[k], values[k]) for got, values in kept for k in values)
+    assert len(captured.graphs.graphs) == 1 and captured.graphs.replays == 3

@@ -6,7 +6,10 @@ Counterpart of unsupervised_pseuso_lidar_tpu/cli/inference.py (main
 optionally saved, and optionally a pseudo-LiDAR cloud. As in JAX, the
 depth is the model's first output through disp_to_depth for every model,
 BtsModel too (whose first output is its 8x8 LPG depth / 80, not a
-disparity; cli.pipeline and cli.export serve its metric depth).
+disparity; cli.pipeline and cli.export serve its metric depth). The
+forward runs eagerly: the entry point makes one call a process, and a
+CUDA graph's first call of a shape is eager by design, so a capture
+would never be replayed (JAX's one jitted call compiles for that call).
 
   python -m unsupervised_pseuso_lidar_tpu_torch.cli.inference \\
       --config configs/basic_config.yaml --image frame.png \\

@@ -15,8 +15,12 @@ against its OXTS odometry.
       --config configs/basic_config.yaml --out poses.txt \\
       [--gt-out gt_poses.txt] [--max-windows N] [--device cpu]
 
-The windows go through the pose net `action.batch_size` at a time; the
-last batch of a drive is not padded (nothing is compiled per shape).
+The windows go through the pose net `action.batch_size` at a time. On
+the card the pose forward runs as a CUDA graph (train/graph.StepGraphs),
+the counterpart of JAX's jitted `predict`: as JAX does, a drive's last
+batch is padded to the full batch by repeating its last window, and the
+results trimmed, so a drive replays one graph. `main(argv, graph=False)`
+runs the forward eagerly (the --device cpu path always does).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import json
 import os
 
 
-def main(argv=None):
+def main(argv=None, graph=None):
     parser = argparse.ArgumentParser(description="Pose-net odometry export")
     parser.add_argument("--config", default="configs/basic_config.yaml")
     parser.add_argument("--checkpoint", default=None,
@@ -54,6 +58,7 @@ def main(argv=None):
         load_oxts_packets_and_poses,
     )
     from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
+    from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
         Trainer,
         batch_to_device,
@@ -62,6 +67,7 @@ def main(argv=None):
     from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    captured = graph_enabled(graph, device)
     config = load_config(args.config)
     config.action.from_scratch = False  # restore the latest checkpoint
     if args.checkpoint:
@@ -82,17 +88,25 @@ def main(argv=None):
         drive = os.path.dirname(os.path.dirname(os.path.dirname(sample.tgt)))
         by_drive.setdefault(drive, []).append(i)
     batch_size = config.action.batch_size
+    graphs = StepGraphs(device, modules=[pose_model]) if captured else None
 
     @torch.no_grad()
+    def predict(batch):
+        return pose_forward(pose_model, normalize_uint8_batch(batch))
+
     def predict_drive(indices):
         rel_pred, rel_gt = [], []
         for start in range(0, len(indices), batch_size):
-            batch = collate([dataset.load_sample(i, with_groundtruth=False)
-                             for i in indices[start : start + batch_size]])
-            poses = pose_forward(pose_model,
-                                 normalize_uint8_batch(batch_to_device(batch, device)))
-            rel_pred.append(poses.float().cpu().numpy())  # [b, 2, 6]
-            rel_gt.append(batch["oxts"])
+            chunk = indices[start : start + batch_size]
+            # the last chunk padded to the full batch with its last window:
+            # one batch shape, so one graph a drive
+            padded = list(chunk) + [chunk[-1]] * (batch_size - len(chunk))
+            batch = collate([dataset.load_sample(i, with_groundtruth=False) for i in padded])
+            moved = batch_to_device(batch, device)
+            inputs = {k: moved[k] for k in ("tgt", "ref_imgs")}
+            poses = predict(inputs) if graphs is None else graphs(predict, inputs)
+            rel_pred.append(poses.float().cpu().numpy()[: len(chunk)])  # [b, 2, 6]
+            rel_gt.append(batch["oxts"][: len(chunk)])
         return np.concatenate(rel_pred, axis=0), np.concatenate(rel_gt, axis=0)
 
     def exact_gt_trajectory(indices):

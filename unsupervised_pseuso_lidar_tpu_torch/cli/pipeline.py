@@ -3,7 +3,10 @@
 Counterpart of unsupervised_pseuso_lidar_tpu/cli/pipeline.py (main
 :33-195): replay KITTI image directories (one per camera of a rig), run
 the depth model and the projector on each frame (a rig step as one
-batch), optionally save each cloud, and print one JSON line of stats.
+batch), optionally save each cloud, and print one JSON line of stats. On
+the card the depth -> cloud program runs as CUDA graphs, one launch a
+frame or rig step (pseudolidar/pipeline.py), as JAX's runs jitted; with
+--device cpu it runs eagerly. There is no flag for it: JAX has none.
 
   python -m unsupervised_pseuso_lidar_tpu_torch.cli.pipeline \\
       --images KITTI/2011_09_26/..._sync/image_02/data [more dirs] \\

@@ -1,19 +1,21 @@
 """Pose / ego-motion evaluation: snippet ATE and geodesic rotation error.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/eval/pose.py (_to_matrices
-:45, pose_errors :59, pose_forward :109, make_pose_eval_step :123). Per 3-frame snippet the
-predicted translations are scale-aligned to the ground truth by the least-
-squares factor s = <t_gt, t_pred> / <t_pred, t_pred> (monocular training
-has a global scale ambiguity), and the RMSE over the snippet's transforms
-is averaged over the batch; `ate_unscaled` skips the alignment. The
-rotation error is the angle of R_pred R_gt^T in degrees. Both the pose
-nets and the batches' `oxts` use the warp's convention (axis-angle,
-tgt -> ref); 'euler' reads a side as Euler angles (R = Rx Ry Rz).
+:45, pose_errors :59, pose_forward :109, make_pose_eval_step :123, whose
+jitted step is PoseEvalStep's CUDA graphs on the card). Per 3-frame
+snippet the predicted translations are scale-aligned to the ground truth
+by the least-squares factor s = <t_gt, t_pred> / <t_pred, t_pred>
+(monocular training has a global scale ambiguity), and the RMSE over the
+snippet's transforms is averaged over the batch; `ate_unscaled` skips the
+alignment. The rotation error is the angle of R_pred R_gt^T in degrees.
+Both the pose nets and the batches' `oxts` use the warp's convention
+(axis-angle, tgt -> ref); 'euler' reads a side as Euler angles (R = Rx Ry
+Rz).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -76,30 +78,54 @@ def pose_forward(pose_model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch
     return pose_model(batch["tgt"], refs)
 
 
+class PoseEvalStep:
+    """step(batch) -> pose_errors of the pose net (eval mode) against the
+    batch's `oxts` (see make_pose_eval_step). The host batch is moved to
+    the device (trainer.batch_to_device), then `body` normalizes it, runs
+    the pose net and takes the errors: on a CUDA device that body runs as
+    CUDA graphs (train/graph.StepGraphs, one a batch signature), the
+    counterpart of JAX's jitted step; `graphs` is None where it runs
+    eagerly."""
+
+    def __init__(self, pose_model: nn.Module, semi_sup_pose: bool = False,
+                 device: str | torch.device = "cuda", graph: Optional[bool] = None):
+        from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+        from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.pose_model = pose_model
+        self.semi_sup_pose = semi_sup_pose
+        self.graphs = (StepGraphs(self.device, modules=[pose_model])
+                       if graph_enabled(graph, self.device) else None)
+
+    @torch.no_grad()
+    def body(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        from unsupervised_pseuso_lidar_tpu_torch.train.trainer import normalize_uint8_batch
+
+        batch = normalize_uint8_batch(batch)
+        if self.semi_sup_pose:
+            poses = batch["oxts"]
+        else:
+            poses = pose_forward(self.pose_model, batch)
+        return pose_errors(poses, batch["oxts"])
+
+    def __call__(self, batch) -> Dict[str, torch.Tensor]:
+        from unsupervised_pseuso_lidar_tpu_torch.train.trainer import batch_to_device
+
+        batch = batch_to_device(batch, self.device)
+        self.pose_model.eval()
+        return self.body(batch) if self.graphs is None else self.graphs(self.body, batch)
+
+
 def make_pose_eval_step(pose_model: nn.Module, semi_sup_pose: bool = False,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda",
+                        graph: Optional[bool] = None) -> PoseEvalStep:
     """step(batch) -> pose_errors of the pose net (eval mode) against the
     batch's `oxts`, for host batches of the training schema (uint8 or
     normalized NHWC images). The pose-only surface: the validation step
     computes the same metrics from the pose forward its loss ran. With
     semi_sup_pose the "prediction" is the oxts itself, so every error is
-    0 by construction."""
-    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
-        batch_to_device,
-        normalize_uint8_batch,
-    )
-    from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
-
-    device = resolve_device(device)
-
-    @torch.no_grad()
-    def step(batch) -> Dict[str, torch.Tensor]:
-        batch = normalize_uint8_batch(batch_to_device(batch, device))
-        if semi_sup_pose:
-            poses = batch["oxts"]
-        else:
-            pose_model.eval()
-            poses = pose_forward(pose_model, batch)
-        return pose_errors(poses, batch["oxts"])
-
-    return step
+    0 by construction. `graph` as the other steps take it
+    (train/graph.graph_enabled): None captures on a CUDA device, False
+    runs eagerly, True on the CPU raises."""
+    return PoseEvalStep(pose_model, semi_sup_pose, device, graph)

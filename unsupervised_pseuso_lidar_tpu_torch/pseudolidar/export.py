@@ -21,8 +21,8 @@ without the model's classes or a checkpoint format.
   there and the projector's pixel grid is built on the depth's device. The
   sidecar records that device; run_exported runs the program there and
   refuses any other.
-- precision 'bf16' runs the depth model under bf16 autocast, captured in
-  the graph; the weights stay fp32.
+- precision 'bf16' runs the depth model under bf16 autocast (its weight
+  cache off), captured in the graph; the weights stay fp32.
 
 Artifact layout: `<path>` is the `.pt2` archive; `<path>.json` is a
 sidecar (input and output shapes and dtypes, device, torch version, size,
@@ -71,8 +71,10 @@ class DepthProgram(nn.Module):
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         x = img.permute(0, 3, 1, 2).contiguous()
+        # no weight cache: it is freed on leaving the region, which a CUDA
+        # graph of the forward would read after (pseudolidar/pipeline.py)
         with torch.autocast(x.device.type, torch.bfloat16,
-                            enabled=self.precision == "bf16"):
+                            enabled=self.precision == "bf16", cache_enabled=False):
             outputs = self.model(x)
         if self.metric_output:
             return outputs[-1][:, 0].float()

@@ -7,6 +7,13 @@ Counterpart of unsupervised_pseuso_lidar_tpu/pseudolidar/pipeline.py
 projector run as one module (pseudolidar/export.make_depth_cloud_fn) on
 the pipeline's device, and results come back as numpy.
 
+JAX jits that module (`self._fused = jax.jit(fused)`); on the card the
+port runs it as CUDA graphs (train/graph.StepGraphs), one a batch shape:
+a one-camera stream and a rig each replay one graph a frame or rig step.
+A frame is copied into the graph's static input, the graph is replayed
+with one launch, and its outputs are copied to the host. graph=False
+runs the module eagerly, one launch an op.
+
 The streaming loop is the reference ROS graph's in one process: a feed
 thread pushes the source's frames through a bounded latest-wins queue (at
 queue_size 1, the ROS nodes' queue_size=1: a stale frame is dropped when a
@@ -28,6 +35,7 @@ import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import make_depth_cloud_fn
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
+from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import load_image
 
@@ -75,10 +83,21 @@ class DepthToPointCloudPipeline:
       depth_fn: [B, H, W, 3] tensor on `device` -> [B, H, W] depth (e.g.
         export.make_depth_fn, or a loaded exported program's module()).
       projector: a PseudoLiDAR bound to the same device.
+      graph: None runs the program as CUDA graphs where capture applies
+        (a CUDA device), else eagerly; False eagerly; True as graphs,
+        and a ValueError on the CPU (train/graph.graph_enabled). Per batch
+        shape the first call runs eagerly, the second captures, the rest
+        replay; the graphs have a memory pool of their own. A capture or
+        replay that fails raises: nothing falls back to eager.
+
+    The graphs read the depth model's weights where they lie: weights
+    copied in place (load_serving_weights, load_state_dict) are served by
+    the next frame; a parameter replaced by another tensor makes the next
+    call raise until reset() drops the graphs.
     """
 
     def __init__(self, depth_fn: Callable, projector: PseudoLiDAR,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", graph: Optional[bool] = None):
         self.device = resolve_device(device)
         if projector.device != self.device:
             raise ValueError(
@@ -86,22 +105,38 @@ class DepthToPointCloudPipeline:
             )
         self.projector = projector
         self._fused = make_depth_cloud_fn(depth_fn, projector)
+        self.graphs = (StepGraphs(self.device, modules=[self._fused])
+                       if graph_enabled(graph, self.device) else None)
+
+    def reset(self) -> None:
+        """Drop the graphs: the next frame of each batch shape runs eagerly
+        again, the one after captures anew (StepGraphs.reset)."""
+        if self.graphs is not None:
+            self.graphs.reset()
 
     @torch.no_grad()
-    def _run(self, imgs: np.ndarray):
-        x = torch.as_tensor(imgs, dtype=torch.float32).to(self.device)
-        depth, points, valid = self._fused(x)
-        return depth.cpu().numpy(), points.cpu().numpy(), valid.cpu().numpy()
+    def _body(self, inputs):
+        """(depth, points, valid) of a [B, H, W, 3] float32 batch: what a
+        graph of the pipeline captures."""
+        return self._fused(inputs["img"].to(self.device))
+
+    def infer(self, imgs: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """[B, H, W, 3] frames -> the program's (depth [B, H, W], points
+        [B, H·W, 4], valid [B, H·W]) on the host, the clouds not compacted:
+        one graph replay on the card once the batch shape is captured."""
+        inputs = {"img": torch.as_tensor(imgs, dtype=torch.float32)}
+        outputs = self._body(inputs) if self.graphs is None else self.graphs(self._body, inputs)
+        return tuple(t.cpu().numpy() for t in outputs)
 
     def process(self, img: np.ndarray, frame_index: int = 0) -> PipelineResult:
         """One [H, W, 3] frame -> depth + compacted cloud."""
-        depth, points, valid = self._run(img[None])
+        depth, points, valid = self.infer(img[None])
         return PipelineResult(frame_index, depth[0], points[0][valid[0]])
 
     def process_batch(self, imgs: np.ndarray, frame_index: int = 0):
         """Multi-camera step: [S, H, W, 3] synchronized frames in one
         forward -> one PipelineResult per stream."""
-        depth, points, valid = self._run(imgs)
+        depth, points, valid = self.infer(imgs)
         return [
             PipelineResult(frame_index, depth[s], points[s][valid[s]],
                            stream_index=s)

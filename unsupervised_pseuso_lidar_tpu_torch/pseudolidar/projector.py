@@ -54,7 +54,9 @@ def depth_to_pointcloud(
         [x, y, depth, torch.ones_like(depth)], dim=-1
     ).reshape(batch, -1, 4)
 
-    cam_to_velo = torch.linalg.inv(velo_to_cam).to(dtype)
+    # inv_ex: inv's result without its error check, which waits for the
+    # device (a CUDA graph of the serving program cannot hold that)
+    cam_to_velo = torch.linalg.inv_ex(velo_to_cam).inverse.to(dtype)
     velo = torch.einsum("ij,bnj->bni", cam_to_velo, cam_points)
     # intensity placeholder: clouds are (x, y, z, 0)
     velo = torch.cat([velo[..., :3], torch.zeros_like(velo[..., 3:])], dim=-1)

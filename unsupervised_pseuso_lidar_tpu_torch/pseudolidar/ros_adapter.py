@@ -54,7 +54,9 @@ class RosPseudoLidarNode:
     """Subscribes to a camera Image topic and publishes a PointCloud2 (and
     the depth Image) for each frame: one node for the reference's
     DepthPipeline + PseudoLidarPipeline pair, the depth -> cloud hop kept
-    on the device."""
+    on the device. Each frame is one pipeline.process: on the card one
+    replay of the pipeline's CUDA graph, captured and replayed on the
+    subscriber's callback thread."""
 
     def __init__(
         self,

@@ -6,7 +6,13 @@ make_eval_step :480). XLA compiles a step into one program that the
 device runs whole; on the card the counterpart is a CUDA graph, the
 step's kernels captured once and replayed with one launch. TrainStep,
 make_multi_step and EvalStep (train/trainer.py) run their bodies through
-StepGraphs on a CUDA device without a mesh (graph_enabled).
+StepGraphs on a CUDA device without a mesh (graph_enabled), and so does
+serving, the counterpart of JAX's jitted serving function
+(pseudolidar/pipeline.py :99): DepthToPointCloudPipeline's depth -> cloud
+program, the pose-only eval step (eval/pose.py :154) and cli.odometry's
+pose forward (cli/odometry.py :69). A serving body runs under
+torch.no_grad and returns a tuple of tensors; each pipeline and each
+pose step has its graphs and its pool of its own.
 
 A body is a function of a flat dict of tensors: the batch's arrays and the
 step's host values as tensors (the automask warm-up scale, the learning
@@ -30,6 +36,13 @@ overwritten by the next. A graph's kernel launches are counted on each
 replay (ops/cuda/kernels.captured_launches, add_launches). There is no
 fallback: a capture or a replay that fails raises.
 
+A graph reads the modules' parameters and buffers where they lay when it
+was captured: weights copied into them in place (load_state_dict,
+train/checkpoint.load_serving_weights) are what the next replay reads.
+StepGraphs given the `modules` a body reads raises, on the next call,
+where one of their parameters, buffers or submodules was replaced or
+moved instead (reset() drops the graphs and takes them as they are).
+
 With capture=False (the CPU) the same protocol runs the body on the
 static buffers instead of capturing it: what the CPU tests hold against
 the eager step, bit for bit.
@@ -40,10 +53,11 @@ from __future__ import annotations
 import functools
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
 
@@ -95,6 +109,28 @@ def _leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def _storage_of(modules: Sequence[nn.Module]) -> list:
+    """(registry, name, value, address) of every parameter, buffer and
+    submodule of `modules`: what their graphs read, and where."""
+    out = []
+    for module in modules:
+        for m in module.modules():
+            for registry in (m._parameters, m._buffers):
+                out += [(registry, k, t, None if t is None else t.data_ptr())
+                        for k, t in registry.items()]
+            out += [(m._modules, k, sub, None) for k, sub in m._modules.items()]
+    return out
+
+
+def _moved(storage: list) -> bool:
+    """Whether a value of a _storage_of list was replaced or lies elsewhere."""
+    for registry, name, value, address in storage:
+        now = registry.get(name)
+        if now is not value or (address is not None and now.data_ptr() != address):
+            return True
+    return False
+
+
 @dataclass
 class Captured:
     """One signature's graph: its static input buffers, the outputs its
@@ -113,23 +149,35 @@ class StepGraphs:
     docstring). `pool` is the graphs' private memory pool
     (torch.cuda.graph_pool_handle()): steps that never run at the same
     time share one (a Trainer's train and eval steps); None makes one at
-    the first capture."""
+    the first capture. `modules`: the modules whose parameters and
+    buffers the body reads, checked before every call once a graph
+    exists (module docstring)."""
 
-    def __init__(self, device: torch.device, pool=None, capture: bool = True):
+    def __init__(self, device: torch.device, pool=None, capture: bool = True,
+                 modules: Sequence[nn.Module] = ()):
         self.device = torch.device(device)
         self.capture = capture
         self.pool = pool
+        self.modules = tuple(modules)
         self.graphs: Dict[tuple, Captured] = {}
         self.replays = 0  # graph launches so far
         self._warm: set = set()
+        self._storage: Optional[list] = None
 
     def reset(self) -> None:
         """Drop every graph: the next call of each signature runs eagerly
         again, the one after captures anew."""
         self.graphs.clear()
         self._warm.clear()
+        self._storage = None
 
     def __call__(self, body: Body, inputs: Dict[str, Any]) -> Any:
+        if self.graphs and _moved(self._storage):
+            raise RuntimeError(
+                "a parameter, buffer or submodule that these CUDA graphs read was "
+                "replaced or moved after the capture; copy new weights into the "
+                "tensors in place (load_state_dict, load_serving_weights) or call "
+                "reset() first")
         inputs = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                   for k, v in inputs.items()}
         backends = torch.backends
@@ -143,6 +191,8 @@ class StepGraphs:
             return outputs
         captured = self.graphs.get(key)
         if captured is None:
+            if not self.graphs:
+                self._storage = _storage_of(self.modules)
             captured = self.graphs[key] = self._capture(body, inputs)
         else:
             for k, v in inputs.items():
