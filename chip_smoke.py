@@ -129,7 +129,7 @@ then drives the port's entry points with seeded random weights:
                 loss on bands, kernels A and A' on a band of grid rows). gloo
                 ranks spawned on the one card, four groups: at data 1 x
                 spatial 2 basic_config (1280x384, batch 4, 'min', PoseFc,
-                depth_norm; each rank 192 rows) for 3 steps, the same with
+                depth_norm; each rank 192 rows) for 2 steps, the same with
                 action.remat (against the ranks' remat-off steps too), and
                 with DispResNet-18 all_scales for 2 (launches {4, 4, 5, 4}),
                 then Trainer.fit of basic_config for an epoch of 2 batches
@@ -195,6 +195,42 @@ then drives the port's entry points with seeded random weights:
                 3 updates, its state equal to 3 captured single steps',
                 and the times of one replay against 3 single replays
 
+  mesh_graph    the step captured under an NCCL mesh: world 1 under NCCL in
+                this process (make_mesh(1)), basic_config (1280x384, batch 4,
+                fp32, 'min', PoseFc), cuDNN deterministic: the Trainer's
+                train step captured (graph=None, the default under NCCL)
+                against graph=False from the same seed for 4 steps,
+                make_multi_step(2) for 3 calls and the mesh's eval step
+                (Eigen protocol, pose metrics) over 3 batches: every
+                metric, the parameters, gradients, BatchNorm statistics and
+                Adam moments equal bit for bit (the first differing key is
+                printed); the launches of A, A', B and C a replay
+                ({1, 1, 2, 1} a step), the all-reduces captured a step
+                (counted at the capture), capture seconds, the graph pools'
+                bytes; then the captured and the eager step's host ms and
+                CUDA-event ms a step and busy share. The world-1 check of
+                `parallel` runs captured too; its gloo ranks, and the
+                spatial phase's, stay eager (graph=None under gloo)
+  examples      the JAX package's examples on the port
+                (unsupervised_pseuso_lidar_tpu_torch/examples/): the toy
+                problem at its script's size (64x96, batch 4, ground-truth
+                poses, 'mean'), 200 captured steps with cuDNN
+                deterministic: its depth error list (which falls, then
+                collapses to 90 m as the JAX script's does; the script's
+                verdict printed), the same 200 steps captured and eager
+                through the module's seams equal bit for bit (every loss,
+                the depth errors, parameters, buffers, Adam's moments), the
+                first step's error card vs CPU, A and A' launched once a
+                step (B and C never), and its ms a step over 20 more; then
+                the dinosaur turntable at its script's size (192x256, batch
+                8, 400 steps) on a synthetic stand-in tree written to a temp
+                dir by tests/torch_turntable_fixture.py (36 frames of
+                720x576 .ppm, dino_Ps.mat of cameras 10° apart round the
+                turntable's axis, a textured plane behind it): the
+                warp_err trajectory finite, the ground-truth pose's warp at
+                init better than the identity warp; then a data root that
+                does not exist, skipped with the script's message
+
 The kernel phases time each kernel, its plain version and the library
 call (where one exists) on the card: CUDA events around 20 back-to-back
 calls, divided by 20, the median of 5 such runs (`ms`);
@@ -215,6 +251,7 @@ it exits non-zero and prints no result.
 
 import contextlib
 import gc
+import importlib.util
 import io
 import itertools
 import json
@@ -251,6 +288,7 @@ from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import (
 from unsupervised_pseuso_lidar_tpu_torch.eval.metrics import METRICS, eigen_crop_mask
 from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
 from unsupervised_pseuso_lidar_tpu_torch.eval.trajectory import kitti_odometry_lines
+from unsupervised_pseuso_lidar_tpu_torch.examples import dino_turntable, toy_problem
 from unsupervised_pseuso_lidar_tpu_torch.geometry.calibration import Calibration
 from unsupervised_pseuso_lidar_tpu_torch.geometry.oxts import (
     load_oxts_packets_and_poses,
@@ -442,6 +480,18 @@ GRAPH_REL_L2 = 1e-6
 # of windows its batch of 4 does not divide (the last batch padded)
 SERVE_GRAPH_FRAMES = 20
 ODOMETRY_PADDED_WINDOWS = 22
+# the examples phase: the toy problem's steps (its script's default) and
+# the steps timed apart; the turntable's steps, batch and size (its
+# script's defaults)
+TOY_STEPS, EXAMPLE_TIMED_STEPS = 200, 20
+# the toy's depth error after its first step, card vs CPU (its later steps
+# are chaotic: the disparity collapses)
+TOY_FIRST_RTOL = 1e-4
+DINO_STEPS, DINO_BATCH, DINO_SIZE = 400, 8, (192, 256)
+# the mesh_graph phase: train steps captured vs eager (the first eager,
+# the second captures, the others replay), make_multi_step's K (3 calls),
+# eval batches
+MESH_STEPS, MESH_MULTI, MESH_EVAL = 4, 2, 3
 # TrainStep's arguments, to build make_multi_step like a Trainer's step
 STEP_ARGS = ("loss_mode", "semi_sup_pose", "smooth_weight", "smooth_on", "depth_norm",
              "automask_warmup", "no_ssim", "min_bidirectional", "supervised_weight",
@@ -724,12 +774,21 @@ def main(device="cuda:0"):
     # gloo ranks sharing the card
     rank_launches = parallel_phase(device)
     release_memory()
+    # 18b. the step captured under an NCCL mesh (world 1 in this process)
+    mesh_graph_launches = mesh_graph_phase(device)
+    release_memory()
+    # 18c. the examples' counterparts: the toy problem and the turntable
+    example_launches = examples_phase(device)
+    release_memory()
     # 19. the "spatial" mesh axis: image rows sharded over gloo ranks
     spatial_launches = spatial_phase(device)
     for name, record in records_1280.items():
         record["launches_kitti"] = kitti_launches[name]
         record["launches_parallel_per_rank"] = [r[name] for r in rank_launches]
         record["launches_spatial_per_rank"] = [r[name] for r in spatial_launches]
+        record["launches_mesh_graph_per_replay"] = mesh_graph_launches[name]
+    for name, record in records.items():
+        record["launches_examples"] = {k: v[name] for k, v in example_launches.items()}
     for config_name, recs in (("basic_config", records_1280), ("tpu_v5e", records)):
         for name, record in recs.items():
             record["profiled_ms_per_step"] = profiled[config_name][name]["ms_per_step"]
@@ -2436,8 +2495,8 @@ def _graph_state(trainer):
     out.update({f"grad.{k}": v for k, v in _named(trainer, "grads").items()})
     out.update({f"stat.{k}": v for k, v in _named(trainer, "stats").items()})
     for i, slots in trainer.state.optimizer.state_dict()["state"].items():
-        out.update({f"adam.{i}.{k}": v.cpu() for k, v in slots.items()
-                    if k in ("exp_avg", "exp_avg_sq")})
+        out.update({f"adam.{i}.{k}": v.detach().to("cpu", copy=True)
+                    for k, v in slots.items() if k in ("exp_avg", "exp_avg_sq")})
     return out
 
 
@@ -2532,14 +2591,15 @@ def graph_compare(config, batches, device):
     return record, checks
 
 
-def graph_timing(config, device, batch, graph):
+def graph_timing(config, device, batch, graph, mesh=None):
     """A Trainer's train step (captured when `graph` is None, eager when
-    False) on one device batch, after 2 warm-up calls: host ms a step
+    False; under `mesh` when given) on one device batch, after 2 warm-up
+    calls: host ms a step
     (GRAPH_TIMED_STEPS steps, host clock to a synchronize), CUDA-event ms
     a step, op_breakdown over PROFILE_STEPS steps (device ms, host window,
     busy share), graph launches a step, capture seconds, the graph pool's
     bytes and the peak memory of a step."""
-    trainer = Trainer(config, device=device, graph=graph)
+    trainer = Trainer(config, device=device, graph=graph, mesh=mesh)
     step = lambda: trainer.train_step(batch)  # noqa: E731
     for _ in range(2):
         step()
@@ -2684,6 +2744,394 @@ def graph_phase(device):
         check(ok, what)
 
 
+def toy_timing(device, steps):
+    """The toy problem's captured step (toy_problem's own seams) on one
+    batch: host ms and CUDA-event ms a step after the eager first call
+    and the capture, and its graph launches a step."""
+    config = toy_problem.toy_config()
+    state = create_train_state(config, torch.Generator().manual_seed(0), device=device)
+    step = toy_problem.make_toy_step(state, device)
+    batch = toy_problem.toy_batch(config.action.batch_size, *config.image_shape, seed=0,
+                                  scene_depth=10.0, cam_tx=0.01)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    replays = step.graphs.replays
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        step(batch)
+    end.record()
+    torch.cuda.synchronize()
+    return {"steps": steps, "ms_per_step_host": (time.perf_counter() - t0) * 1e3 / steps,
+            "ms_per_step_cuda_events": start.elapsed_time(end) / steps,
+            "graph_launches_per_step": (step.graphs.replays - replays) / steps}
+
+
+def _turntable_fixture():
+    """tests/torch_turntable_fixture.py, which writes a stand-in for the
+    turntable's data tree (the examples' tests write it too), loaded from
+    its file."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_turntable_fixture", os.path.join(ROOT, "tests", "torch_turntable_fixture.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def toy_replica(device, graph):
+    """toy_problem.run at its defaults through the module's seams
+    (toy_config, make_toy_step, toy_batch, depth_error), its step captured
+    (`graph` True: the default on the card) or eager (the step's graphs
+    dropped) -> (the depth errors run returns, every step's loss, the
+    nets' parameters and buffers and Adam's moments at the end, on the
+    host)."""
+    config = toy_problem.toy_config()
+    batch, (height, width) = config.action.batch_size, config.image_shape
+    state = create_train_state(config, torch.Generator().manual_seed(0),
+                               steps_per_epoch=TOY_STEPS, device=device)
+    step = toy_problem.make_toy_step(state, device)
+    if not graph:
+        step.graphs = None
+    errors, losses = [], []
+    for i in range(TOY_STEPS):
+        data = toy_problem.toy_batch(batch, height, width, i, 10.0, 0.01)
+        losses.append(step(data)["loss"])
+        if i == 0 or (i + 1) % max(TOY_STEPS // 10, 1) == 0:
+            errors.append(toy_problem.depth_error(state.depth_model, data, 10.0, device))
+    final = {f"{name}.{k}": v.detach().to("cpu", copy=True)
+             for name, net in (("depth", state.depth_model), ("pose", state.pose_model))
+             for k, v in net.state_dict().items()}
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        final.update({f"adam.{i}.{k}": v.detach().to("cpu", copy=True)
+                      for k, v in slots.items() if k in ("exp_avg", "exp_avg_sq")})
+    return errors, torch.stack(losses).cpu(), final
+
+
+def examples_phase(device):
+    """The examples' counterparts on the card (see the module docstring's
+    `examples`). Prints the phase's record, then checks it; returns the
+    launches of A, A', B and C of the toy run and the turntable run."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "examples", "card": card()}, []
+    mean_step = expected_launches("mean")
+
+    # the toy problem at its script's size: 200 captured steps, with cuDNN
+    # deterministic. Its disparity collapses to 0 after the first fall
+    # (error 90 m), as the JAX script's does on the CPU
+    # (tests/test_torch_examples.py's slow test prints both): the script's
+    # verdict is printed, not required, and the run ends at that fixed
+    # point whatever the replays did on the way. Held: the captured run
+    # against the same run eager on the card, bit for bit at every step
+    # (losses, depth errors, parameters, buffers, Adam's moments), and its
+    # first step against the same step on the CPU
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        errors = toy_problem.run(steps=TOY_STEPS, verbose=False, device=device)
+        torch.cuda.synchronize()
+        toy_launches = dict(kernels.launch_counts)
+        toy_s = time.perf_counter() - t0
+        captured = toy_replica(device, graph=True)
+        eager = toy_replica(device, graph=False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = (_first_difference({"loss": captured[1], **captured[2]},
+                                {"loss": eager[1], **eager[2]})
+              or (None if captured[0] == eager[0] == errors
+                  else f"depth errors: run {errors}, captured {captured[0]}, "
+                       f"eager {eager[0]}"))
+    cpu_first = toy_problem.run(steps=1, verbose=False, device="cpu")[0]
+    first_rel = abs(errors[0] - cpu_first) / cpu_first
+    out["toy"] = {"steps": TOY_STEPS, "batch": 4, "height": 64, "width": 96,
+                  "seconds": toy_s, "depth_errors_m": errors,
+                  "improved": errors[-1] < errors[0],
+                  "captured_vs_eager_differ": differ,
+                  "losses_first_last": [float(captured[1][0]), float(captured[1][-1])],
+                  "first_step_error_cpu": cpu_first, "first_step_rel": first_rel,
+                  "launches": toy_launches,
+                  "launches_per_step": {k: v / TOY_STEPS for k, v in toy_launches.items()},
+                  "timed": toy_timing(device, EXAMPLE_TIMED_STEPS)}
+    checks += [
+        (all(np.isfinite(errors)), f"examples: the toy problem's depth errors: {errors}"),
+        (differ is None,
+         f"examples: the toy's captured run differs from the eager one: {differ}"),
+        (first_rel <= TOY_FIRST_RTOL,
+         f"examples: the toy's first step card {errors[0]} vs CPU {cpu_first}"),
+        (toy_launches == {k: TOY_STEPS * v for k, v in mean_step.items()},
+         f"examples: toy launches {toy_launches}, expected {mean_step} a step"),
+        (out["toy"]["timed"]["graph_launches_per_step"] == 1.0,
+         f"examples: toy graph launches a step {out['toy']['timed']}"),
+    ]
+
+    # the turntable at its script's size, on a synthetic stand-in tree
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = _turntable_fixture().write_synthetic_turntable(os.path.join(tmp, "dino"))
+        write_s = time.perf_counter() - t0
+        data = dino_turntable.load_dino(*DINO_SIZE, root)
+        first = data["tgt"][:DINO_BATCH].astype(np.float64) / 255.0
+        identity = float(np.abs(first - data["ref_imgs"][:DINO_BATCH, 0] / 255.0).mean())
+        real_root = dino_turntable.DINO_ROOT
+        dino_turntable.DINO_ROOT = root
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            err0, err1, curve = dino_turntable.run(steps=DINO_STEPS, batch=DINO_BATCH,
+                                                   height=DINO_SIZE[0], width=DINO_SIZE[1],
+                                                   verbose=False, trajectory=True,
+                                                   device=device)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            dino_launches = dict(kernels.launch_counts)
+            # the skip: a data root that does not exist (here, whatever
+            # the machine around holds)
+            dino_turntable.DINO_ROOT = os.path.join(tmp, "missing")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                skipped = dino_turntable.run(device=device)
+        finally:
+            dino_turntable.DINO_ROOT = real_root
+    # A once a step and once a warp_err (step 0, every 100, the end)
+    evals = DINO_STEPS // 100 + 2
+    expected = {k: DINO_STEPS * v + (evals if k == "warp_bilinear_fwd" else 0)
+                for k, v in mean_step.items()}
+    out["dino"] = {"frames": 36, "source_frame": [576, 720], "write_seconds": write_s,
+                   "triplets": int(len(data["tgt"])), "batch": DINO_BATCH,
+                   "height": DINO_SIZE[0], "width": DINO_SIZE[1], "steps": DINO_STEPS,
+                   "run_seconds": run_s, "ms_per_step_incl_warp_err": run_s * 1e3 / DINO_STEPS,
+                   "warp_err_trajectory": curve, "warp_err_initial": err0,
+                   "warp_err_final": err1, "identity_warp_err": identity,
+                   "abs_err_fell": err1 < err0, "launches": dino_launches,
+                   "warp_err_calls": evals}
+    checks += [
+        (all(np.isfinite([e for _, a, s in curve for e in (a, s)])) and np.isfinite(err1),
+         f"examples: the turntable's warp_err is not finite: {curve}"),
+        (err0 < identity,
+         f"examples: the ground-truth warp at init ({err0}) does not beat the identity "
+         f"warp ({identity})"),
+        (dino_launches == expected,
+         f"examples: turntable launches {dino_launches}, expected {expected}"),
+    ]
+
+    out["dino_missing_root"] = {"returned": skipped, "printed": printed.getvalue().strip()}
+    checks.append((skipped is None
+                   and printed.getvalue().startswith("dino dataset unavailable (needs "),
+                   f"examples: the missing root's skip: {out['dino_missing_root']}"))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return {"toy": toy_launches, "dino": dino_launches}
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Within: every torch.distributed.all_reduce (the only collective of
+    a step; its callers look it up at each call) counted, apart as made
+    while the calling thread's stream captures a graph or not."""
+    counts = {"captured": 0, "eager": 0}
+    original = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        counts["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return original(*args, **kwargs)
+
+    dist.all_reduce = counting
+    try:
+        yield counts
+    finally:
+        dist.all_reduce = original
+
+
+def _first_difference(got, want):
+    """The first key of two dicts of tensors that differ (or whose keys
+    do), with its max abs difference; None where they are equal bit for
+    bit."""
+    if sorted(got) != sorted(want):
+        return f"keys {sorted(set(got) ^ set(want))}"
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            diff = (float((got[key].double() - want[key].double()).abs().max())
+                    if got[key].shape == want[key].shape else "shape")
+            return f"{key}: max abs {diff}"
+    return None
+
+
+def mesh_graph_train(config, batches, device, mesh, counts):
+    """The train step under `mesh`: a Trainer with graph=False, then one
+    captured by default from the same seed (the eager one's metrics and
+    state kept on the host and the trainer freed first), on `batches`.
+    -> (record, checks)."""
+    eager = Trainer(config, device=device, mesh=mesh, graph=False)
+    want = []
+    for batch in batches:
+        metrics = eager.train_step(batch)
+        want.append(({k: v.detach().cpu() for k, v in metrics.items()}, _graph_state(eager)))
+    del eager, metrics
+    release_memory()
+    captured = Trainer(config, device=device, mesh=mesh)
+    graphs = captured.train_step.graphs
+    differ = []
+    for i, batch in enumerate(batches):
+        before = counts["captured"]
+        got = captured.train_step(batch)
+        if i == 1:
+            collectives = counts["captured"] - before
+        got = {k: v.detach().cpu() for k, v in got.items()}
+        differ.append(_first_difference(got, want[i][0])
+                      or _first_difference(_graph_state(captured), want[i][1]))
+    record = {"steps": len(batches), "differ": differ, "graphs": len(graphs.graphs),
+              "replays": graphs.replays,
+              "launches_per_replay": [g.launches for g in graphs.graphs.values()],
+              "capture_seconds": [g.seconds for g in graphs.graphs.values()],
+              "pool_bytes": pool_bytes(graphs.pool),
+              "collectives_captured_per_step": collectives}
+    checks = [
+        (all(d is None for d in differ),
+         f"mesh_graph: captured train step differs from eager: {differ}"),
+        (len(graphs.graphs) == 1 and graphs.replays == len(batches) - 1,
+         f"mesh_graph: {len(graphs.graphs)} graphs, {graphs.replays} replays"),
+        (record["launches_per_replay"] == [expected_launches(config.action.loss_mode)],
+         f"mesh_graph: launches a replay {record['launches_per_replay']}"),
+        (collectives > 0, "mesh_graph: no collective was captured"),
+    ]
+    return captured, record, checks
+
+
+def mesh_graph_multi(config, batches, device, mesh, counts):
+    """make_multi_step(MESH_MULTI) under `mesh`, graph=False and then
+    captured, from the same seed, over the same 3 calls (the captured
+    one's first eager, its second captures, its third replays); the state
+    after each call. -> (record, checks)."""
+    def stacked(chunk):
+        return {k: np.stack([b[k] for b in chunk]) for k in chunk[0]}
+
+    chunks = [batches[i * MESH_MULTI:(i + 1) * MESH_MULTI] for i in range(3)]
+    runs = []
+    for graph in (False, None):
+        owner = Trainer(config, device=device, mesh=mesh, graph=False)
+        multi = make_multi_step(owner.state, MESH_MULTI, mesh=mesh, device=device,
+                                graph=graph,
+                                **{k: getattr(owner.train_step, k) for k in STEP_ARGS})
+        states, collectives = [], None
+        for i, chunk in enumerate(chunks):
+            before = counts["captured"]
+            metrics = multi(stacked(chunk))
+            if i == 1:
+                collectives = counts["captured"] - before
+            states.append(({k: v.detach().cpu() for k, v in metrics.items()},
+                           _graph_state(owner)))
+        graphs = multi.train_step.graphs
+        runs.append((states, graphs and {
+            "graphs": len(graphs.graphs), "replays": graphs.replays,
+            "launches_per_replay": [g.launches for g in graphs.graphs.values()],
+            "capture_seconds": [g.seconds for g in graphs.graphs.values()],
+            "pool_bytes": pool_bytes(graphs.pool),
+            "collectives_captured_per_step": collectives / MESH_MULTI}))
+        del owner, multi, graphs
+        release_memory()
+    (want, _), (got, record) = runs
+    differ = [_first_difference(g[0], w[0]) or _first_difference(g[1], w[1])
+              for g, w in zip(got, want)]
+    record.update({"num_steps": MESH_MULTI, "calls": len(chunks), "differ": differ})
+    per_replay = {k: MESH_MULTI * v for k, v in expected_launches(config.action.loss_mode).items()}
+    checks = [
+        (all(d is None for d in differ), f"mesh_graph: captured multi-step differs: {differ}"),
+        (record["graphs"] == 1 and record["replays"] == 2,
+         f"mesh_graph: multi-step {record['graphs']} graphs, {record['replays']} replays"),
+        (record["launches_per_replay"] == [per_replay],
+         f"mesh_graph: multi-step launches a replay {record['launches_per_replay']}"),
+    ]
+    return record, checks
+
+
+def mesh_graph_eval(trainer, batches, device, mesh, counts):
+    """The eval step under `mesh` (Eigen protocol, pose metrics) captured
+    against graph=False on the same modules, over `batches`."""
+    act = trainer.config.action
+    kwargs = dict(loss_mode=act.loss_mode, depth_norm=act.depth_norm,
+                  precision=act.precision, eval_protocol="eigen", pose_metrics=True,
+                  mesh=mesh, device=device)
+    state = trainer.state
+    captured = make_eval_step(state.depth_model, state.pose_model, **kwargs)
+    eager = make_eval_step(state.depth_model, state.pose_model, graph=False, **kwargs)
+    differ = []
+    for i, batch in enumerate(batches):
+        before = counts["captured"]
+        (got, got_depth), (want, want_depth) = captured(batch), eager(batch)
+        if i == 1:
+            collectives = counts["captured"] - before
+        differ.append(_first_difference({**got, "depth_pred": got_depth},
+                                        {**want, "depth_pred": want_depth}))
+    graphs = captured.graphs
+    record = {"batches": len(batches), "differ": differ, "replays": graphs.replays,
+              "launches_per_replay": [g.launches for g in graphs.graphs.values()],
+              "capture_seconds": [g.seconds for g in graphs.graphs.values()],
+              "pool_bytes": pool_bytes(graphs.pool),
+              "collectives_captured_per_call": collectives}
+    checks = [(all(d is None for d in differ),
+               f"mesh_graph: captured eval step differs: {differ}"),
+              (graphs.replays == len(batches) - 1,
+               f"mesh_graph: eval replays {graphs.replays}")]
+    del captured, eager
+    return record, checks
+
+
+def mesh_graph_phase(device):
+    """The step captured under an NCCL mesh (see the module docstring's
+    `mesh_graph`). Prints the phase's record, then checks it; returns the
+    train step's launches a replay."""
+    t_phase = time.perf_counter()
+    out, checks = {"phase": "mesh_graph", "card": card()}, []
+    config = load_config(BASIC_CONFIG)
+    batch_size, (height, width) = config.action.batch_size, config.image_shape
+    batches = list(SyntheticTripletDataset(3 * MESH_MULTI, batch_size, height, width,
+                                           seed=SEED + 61, uint8_images=True).batches())
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(1, device=device)
+        out.update({"backend": dist.get_backend(), "world": mesh.size,
+                    "capturable": mesh.capturable, "batch": batch_size, "height": height,
+                    "width": width, "loss_mode": config.action.loss_mode,
+                    "precision": config.action.precision})
+        checks.append((mesh.capturable, "mesh_graph: the NCCL mesh is not capturable"))
+        with counted_collectives() as counts:
+            trainer, out["train"], more = mesh_graph_train(config, batches[:MESH_STEPS],
+                                                           device, mesh, counts)
+            checks += more
+            trainer.train_step.graphs.reset()
+            release_memory()
+            out["eval"], more = mesh_graph_eval(trainer, batches[:MESH_EVAL], device, mesh,
+                                                counts)
+            checks += more
+            del trainer
+            release_memory()
+            out["multi_step"], more = mesh_graph_multi(config, batches, device, mesh, counts)
+            checks += more
+        out["collectives_eager_total"] = counts["eager"]
+        torch.backends.cudnn.deterministic = False
+        batch = {k: torch.as_tensor(v).to(device) for k, v in batches[0].items()}
+        for label, graph in (("captured", None), ("eager", False)):
+            out[label] = graph_timing(config, device, batch, graph, mesh)
+        out["host_ms_ratio_captured_to_eager"] = (out["captured"]["ms_per_step_host"]
+                                                  / out["eager"]["ms_per_step_host"])
+        checks.append((out["captured"]["graph_launches_per_step"] == 1.0,
+                       f"mesh_graph: graph launches a step "
+                       f"{out['captured']['graph_launches_per_step']}"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    for ok, what in checks:
+        check(ok, what)
+    return out["train"]["launches_per_replay"][0]
+
+
 def _named(trainer, what):
     """{net.key: tensor on the CPU} of a Trainer's parameter gradients
     ("grads"; a parameter without one is left out), parameters ("params")
@@ -2730,14 +3178,15 @@ def parallel_cases(basic_config, mean_config):
     return cases
 
 
-def parallel_trainer(config, device, mesh=None):
-    """A Trainer (under `mesh`) from the seed, eager (graph=False: the
-    one-process steps the meshed ones are held to run as the meshed ones
-    do), PoseFc's head given a seeded translation bias: its zero-initialized last layer makes the warp the
+def parallel_trainer(config, device, mesh=None, graph=False):
+    """A Trainer (under `mesh`) from the seed, eager by default (graph=False:
+    the one-process steps the meshed ones are held to; `graph` None lets
+    the mesh decide: captured under NCCL, eager under gloo), PoseFc's head
+    given a seeded translation bias: its zero-initialized last layer makes the warp the
     identity, which puts every warp sample ON a pixel, where the bilinear
     gradient jumps, so that a 1-ulp difference of the depth flips it (the
     reason tests/test_torch_train.py gives its pose head a bias)."""
-    trainer = Trainer(config, device=device, mesh=mesh, graph=False)
+    trainer = Trainer(config, device=device, mesh=mesh, graph=graph)
     pose = trainer.state.pose_model
     if type(pose).__name__ == "PoseFc":
         bias = torch.randn(pose.fc_loc[-1].bias.shape,
@@ -2747,14 +3196,15 @@ def parallel_trainer(config, device, mesh=None):
     return trainer
 
 
-def parallel_steps(config, batches, device, mesh=None):
+def parallel_steps(config, batches, device, mesh=None, graph=False):
     """parallel_trainer's train step on each of `batches` -> the first
     step's metrics, gradients and BatchNorm statistics, the parameters
     after the last, each step's launches and its ms by CUDA events (None
-    off the card: a CPU rehearsal)."""
-    trainer = parallel_trainer(config, device, mesh)
+    off the card: a CPU rehearsal), and whether the step had graphs."""
+    trainer = parallel_trainer(config, device, mesh, graph)
     on_card = device.type == "cuda"
-    out = {"launches": [], "ms_per_step": []}
+    out = {"launches": [], "ms_per_step": [],
+           "captured": trainer.train_step.graphs is not None}
     for i, batch in enumerate(batches):
         if on_card:
             torch.cuda.synchronize()
@@ -2776,6 +3226,21 @@ def parallel_steps(config, batches, device, mesh=None):
     return out
 
 
+def copy_trainer_state(dst, src):
+    """src's parameters, buffers, optimizer slots and learning rates
+    copied into dst's tensors in place (the optimizer's slots where both
+    have them)."""
+    for name in ("depth_model", "pose_model"):
+        getattr(dst.state, name).load_state_dict(getattr(src.state, name).state_dict())
+    dst_opt, src_opt = dst.state.optimizer, src.state.optimizer
+    with torch.no_grad():
+        for dst_group, src_group in zip(dst_opt.param_groups, src_opt.param_groups):
+            dst_group["lr"] = src_group["lr"]
+            for p, q in zip(dst_group["params"], src_group["params"]):
+                for key, value in src_opt.state.get(q, {}).items():
+                    dst_opt.state[p][key].copy_(value)
+
+
 def parallel_rank(rank, world, port, out_path, device, configs):
     """One of `world` gloo ranks on `device`, cuda:0 for all (spawned by
     parallel_phase): parallel_steps of every parallel_cases(*configs)
@@ -2788,7 +3253,8 @@ def parallel_rank(rank, world, port, out_path, device, configs):
     distributed.initialize(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo")
     try:
         mesh = make_mesh(world, device=device)
-        result = {"ok": {name: parallel_steps(config, batches, device, mesh)
+        # graph=None: a gloo mesh runs eagerly
+        result = {"ok": {name: parallel_steps(config, batches, device, mesh, graph=None)
                          for name, config, batches in parallel_cases(*configs)}}
     except BaseException:  # reported by the parent with its traceback
         result = {"error": traceback.format_exc()}
@@ -2814,17 +3280,19 @@ def parallel_phase(device):
     try:
         mesh = make_mesh(1, device=device)
         plain = parallel_trainer(config, device)
-        meshed = parallel_trainer(config, device, mesh)
-        record = {"backend": dist.get_backend(), "steps": []}
+        # captured, as an NCCL mesh's step is by default: the first step
+        # eager, the second captures, the third replays
+        meshed = parallel_trainer(config, device, mesh, graph=None)
+        record = {"backend": dist.get_backend(), "steps": [],
+                  "captured": meshed.train_step.graphs is not None}
         launches = dict.fromkeys(kernels.KERNELS, 0)
         for batch in batches:
             # each step from the plain trainer's state: Adam's first update
             # is ±lr wherever a gradient is not 0, so a 1e-7 difference of a
             # gradient near 0 would move a parameter by 2·lr and the next
-            # steps would compare other points
-            for name in ("depth_model", "pose_model", "optimizer"):
-                getattr(meshed.state, name).load_state_dict(
-                    getattr(plain.state, name).state_dict())
+            # steps would compare other points. Copied in place: the
+            # captured step reads the tensors where they lie
+            copy_trainer_state(meshed, plain)
             plain_metrics = plain.train_step(batch)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
@@ -2837,6 +3305,9 @@ def parallel_phase(device):
                                     "loss": float(mesh_metrics["loss"]),
                                     "loss_plain": float(plain_metrics["loss"])})
         record["launches"] = launches
+        record["replays"] = meshed.train_step.graphs.replays
+        checks.append((record["captured"] and record["replays"] == TRAIN_STEPS - 1,
+                       f"world 1: captured {record['captured']}, {record['replays']} replays"))
         expected = {k: TRAIN_STEPS * v for k, v in expected_launches(mode).items()}
         checks += [(launches == expected, f"world 1: launches {launches}, expected {expected}"),
                    (max(s["grad_rel_l2"] for s in record["steps"]) <= GRAD_REL_L2,
@@ -2906,6 +3377,7 @@ def parallel_phase(device):
             "ms_per_step_one_process": ref["ms_per_step"],
         }
         checks += [
+            (not any(r["captured"] for r in ranks), f"{name}: a gloo rank captured its step"),
             (all(r["metrics"] == ranks[0]["metrics"] for r in ranks),
              f"{name}: the ranks' metrics differ"),
             (all(torch.equal(r["grads"][k], ranks[0]["grads"][k])
@@ -3155,7 +3627,8 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
         out = {}
         for name, path, overrides, steps in cases:
             config, batches = spatial_setup(path, overrides, steps)
-            trainer = parallel_trainer(config, device, mesh)
+            trainer = parallel_trainer(config, device, mesh, graph=None)
+            check(trainer.train_step.graphs is None, f"{name}: a gloo rank captured its step")
             out[name] = spatial_steps(trainer, batches, device, starts[name])
             del trainer
             gc.collect()

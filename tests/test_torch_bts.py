@@ -10,7 +10,8 @@ small image (64x96, batch 2). The decoder keeps num_features 512 too: the
 JAX package's BTS state-dict mapping is written for 512 (checkpoint.py
 _bts_mapping's nf), and the export, import and serving-blob checks go
 through it; the port's mapping reads the width from the weights, checked
-at 128 (the narrowest Reduction1x1 allows). The flax variables
+at 128, and at 64 and 96, where the final Reduction1x1 cascade is empty
+(the narrow-decoder tests, 64x64). The flax variables
 are drawn once for the module (tests/test_torch_zoo.random_variables:
 shapes from jax.eval_shape, values seeded), so the file compiles BTS's
 apply, not its init.
@@ -59,6 +60,7 @@ from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     export_bts_serving_checkpoint,
     export_reference_checkpoint,
+    load_pretrained_depth,
     load_reference_state,
     load_serving_weights,
     reference_state,
@@ -222,6 +224,59 @@ def test_state_dicts_match_jax_export_and_import(bts):
     load_reference_state(fresh, {k: torch.from_numpy(np.array(v)) for k, v in blob.items()})
     new_params, new_stats = import_torch_state(params, stats, blob, "BtsModel")
     assert_state_equal(fresh.state_dict(), state_dict_from_jax(new_params, new_stats, "BtsModel"))
+
+
+# the narrow decoders: JAX's Reduction1x1 cascade is empty where its width
+# (num_features // 32) is under 4, and its reduc1x1 passes up1's
+# num_features // 16 channels through into iconv1. Every output is held at
+# NARROW_ATOL max abs on the scale of the plane depths (divided by
+# max_depth): the final depth, max_depth · sigmoid, is metres up to 80,
+# where one fp32 ulp is ~4e-6, so its sigmoid is compared
+NARROW_SIZE, NARROW_ATOL, MAX_DEPTH = 64, 1e-5, 80.0
+
+
+def _narrow(num_features, seed):
+    model = jax_build_model("BtsModel", num_features=num_features)
+    variables = random_variables(model, jnp.zeros((1, NARROW_SIZE, NARROW_SIZE, 3)), seed=seed)
+    port = build_model("BtsModel", device="cpu", num_features=num_features)
+    port.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"],
+                                             "BtsModel"), strict=True)
+    return model, variables, port.eval()
+
+
+@pytest.mark.parametrize("num_features", [64, 96])
+def test_narrow_decoder_matches_jax(num_features):
+    # eval mode at 64x64: all five outputs at NARROW_ATOL max abs (the
+    # final depth over max_depth), reduc1x1 with num_features // 16
+    # channels as in JAX
+    model, variables, port = _narrow(num_features, seed=num_features)
+    img = np.random.default_rng(num_features).normal(
+        size=(1, NARROW_SIZE, NARROW_SIZE, 3)).astype(np.float32)
+    ref = jax.jit(lambda v, x: model.apply(v, x, train=False))(variables, jnp.asarray(img))
+    with torch.no_grad():
+        got = port(nchw(img))
+    assert len(got) == len(ref) == 5
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = nhwc(g), np.asarray(r)
+        channels = num_features // 16 if i == 3 else 1
+        assert g.shape == r.shape == (1, NARROW_SIZE, NARROW_SIZE, channels), i
+        assert np.isfinite(g).all(), i
+        scale = MAX_DEPTH if i == 4 else 1.0
+        np.testing.assert_allclose(g / scale, r / scale, rtol=0, atol=NARROW_ATOL,
+                                   err_msg=str(i))
+
+
+def test_narrow_decoder_reference_checkpoint_round_trip(tmp_path):
+    # num_features 64: the reference-schema .pth of the port's model loads
+    # strictly into a fresh one, tensor for tensor, with the wider conv1
+    _, _, port = _narrow(64, seed=65)
+    assert port.decoder.conv1[0].weight.shape[1] == 2 * (64 // 16) + 3
+    pose = build_model("PoseNet", device="cpu")
+    path = str(tmp_path / "narrow.pth")
+    export_reference_checkpoint(port, pose, path)
+    fresh = build_model("BtsModel", device="cpu", num_features=64)
+    load_pretrained_depth(fresh, path)
+    assert_state_equal(fresh.state_dict(), port.state_dict())
 
 
 # --------------------------------------------------------------------------

@@ -615,7 +615,7 @@ def test_two_gloo_ranks_sharing_the_card_match_the_one_process_step(cuda, no_tf3
 # --------------------------------------------------------------------------
 
 
-def _graph_trainer(cuda, graph, **action):
+def _graph_trainer(cuda, graph, mesh=None, **action):
     from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
 
@@ -628,7 +628,7 @@ def _graph_trainer(cuda, graph, **action):
             setattr(aug, key, value)
         else:
             setattr(config.action, key, value)
-    return Trainer(config, device=cuda, graph=graph)
+    return Trainer(config, device=cuda, graph=graph, mesh=mesh)
 
 
 def _graph_batches(count, seed):
@@ -685,6 +685,84 @@ def test_captured_train_step_matches_the_eager_step(cuda, deterministic, action)
         assert not differ, (i, differ[:5])
     graphs = captured.train_step.graphs
     assert len(graphs.graphs) == 1 and graphs.replays == 3
+
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    """make_mesh(1) over a 1-rank NCCL group in this process."""
+    import torch.distributed as dist
+
+    from unsupervised_pseuso_lidar_tpu_torch.parallel import distributed
+    from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
+
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_mesh(1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("action", [
+    {"loss_mode": "min", "precision": "fp32"},
+    {"loss_mode": "ssim", "precision": "fp32", "accum_steps": 2, "supervised_weight": 0.1},
+], ids=["min", "ssim_accum2_supervised"])
+def test_world_one_nccl_captured_step_matches_the_eager_step(nccl_world_one, cuda,
+                                                             deterministic, action):
+    # under an NCCL mesh the step captures by default, its all-reduces in
+    # the graph: 4 steps captured against graph=False from one seed, the
+    # metrics and the whole state bit for bit; one graph, 3 replays
+    mesh = nccl_world_one
+    assert mesh.capturable
+    captured = _graph_trainer(cuda, None, mesh, **action)
+    eager = _graph_trainer(cuda, False, mesh, **action)
+    assert captured.train_step.graphs is not None and eager.train_step.graphs is None
+    for i, batch in enumerate(_graph_batches(4, seed=26)):
+        got, want = captured.train_step(batch), eager.train_step(batch)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], want[k]) for k in want), i
+        a, b = _trainer_tensors(captured), _trainer_tensors(eager)
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        assert not differ, (i, differ[:5])
+    graphs = captured.train_step.graphs
+    assert len(graphs.graphs) == 1 and graphs.replays == 3
+
+
+def test_world_one_nccl_captured_multi_and_eval_steps_match_eager(nccl_world_one, cuda,
+                                                                 deterministic):
+    # make_multi_step(2) under the NCCL mesh, captured against eager over
+    # 3 calls, then the mesh's eval step over 3 batches
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+        make_eval_step,
+        make_multi_step,
+    )
+
+    mesh = nccl_world_one
+    owners = [_graph_trainer(cuda, False, mesh, loss_mode="min") for _ in range(2)]
+    names = ("loss_mode", "smooth_weight", "smooth_on", "depth_norm", "precision")
+    multis = [make_multi_step(o.state, 2, mesh=mesh, device=cuda, graph=graph,
+                              **{k: getattr(o.train_step, k) for k in names})
+              for o, graph in zip(owners, (None, False))]
+    assert multis[0].train_step.graphs is not None and multis[1].train_step.graphs is None
+    batches = _graph_batches(6, seed=27)
+    for r in range(3):
+        chunk = {k: np.stack([b[k] for b in batches[2 * r:2 * r + 2]]) for k in batches[0]}
+        got, want = multis[0](chunk), multis[1](chunk)
+        assert all(torch.equal(got[k], want[k]) for k in want), r
+        a, b = _trainer_tensors(owners[0]), _trainer_tensors(owners[1])
+        differ = [k for k in b if not torch.equal(a[k], b[k])]
+        assert not differ, (r, differ[:5])
+    assert multis[0].train_step.graphs.replays == 2
+    state = owners[0].state
+    kwargs = dict(loss_mode="min", eval_protocol="eigen", pose_metrics=True, mesh=mesh,
+                  device=cuda)
+    captured = make_eval_step(state.depth_model, state.pose_model, **kwargs)
+    eager = make_eval_step(state.depth_model, state.pose_model, graph=False, **kwargs)
+    for batch in batches[:3]:
+        (got, depth), (want, want_depth) = captured(batch), eager(batch)
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert torch.equal(depth, want_depth)
+    assert captured.graphs.replays == 2
 
 
 def test_captured_step_returns_metrics_no_later_step_overwrites(cuda):

@@ -307,12 +307,12 @@ def test_graph_true_is_refused_on_the_cpu_and_under_a_mesh():
         with pytest.raises(ValueError, match="needs a CUDA device"):
             make_train_step(state, device="cpu", mesh=mesh, graph=True)
         assert make_train_step(state, device="cpu", mesh=mesh).graphs is None
-        # a CUDA device under a mesh: the collectives cannot be captured
-        with pytest.raises(ValueError, match="under a mesh"):
+        # a CUDA device under a gloo mesh: its collectives run on the host
+        with pytest.raises(ValueError, match="under a gloo mesh"):
             graph_enabled(True, torch.device("cuda", 0), mesh)
     finally:
         dist.destroy_process_group()
-    # the default captures only on a CUDA device without a mesh
+    # the default captures on a CUDA device without a mesh, not under gloo
     assert graph_enabled(None, torch.device("cuda", 0)) is True
     assert graph_enabled(None, torch.device("cuda", 0), mesh) is False
     assert graph_enabled(None, CPU) is False

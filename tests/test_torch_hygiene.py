@@ -104,6 +104,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from unsupervised_pseuso_lidar_tpu_torch.cli import pipeline as pipeline_cli
     from unsupervised_pseuso_lidar_tpu_torch.cli import train as train_cli
     from unsupervised_pseuso_lidar_tpu_torch.data.pipeline import prefetch_to_device
+    from unsupervised_pseuso_lidar_tpu_torch.examples import dino_turntable, toy_problem
     from unsupervised_pseuso_lidar_tpu_torch.eval.pose import make_pose_eval_step
     from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
     from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import run_exported
@@ -166,6 +167,9 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: pipeline_cli.main(["--images", str(tmp_path), "--calib", str(tmp_path),
                                    "--model", "BtsModel"]),
         lambda: run_exported(str(tmp_path / "x.pt2"), np.zeros((1, 32, 64, 3), np.float32)),
+        lambda: toy_problem.run(steps=1),
+        lambda: toy_problem.main(["--steps", "1"]),
+        lambda: dino_turntable.run(steps=1),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

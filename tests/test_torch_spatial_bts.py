@@ -17,7 +17,7 @@ torch_parallel_worker.start_ranks (tests/torch_spatial_bts_worker.py):
 the dilated conv and the average pool on bands against the whole map,
 the resize-and-cut against the whole resize, StnDispNet with its STN at
 72 rows against the whole map, and two training steps of
-BtsModel (num_features 128, the narrowest whose decoder is JAX's) +
+BtsModel (num_features 128, the narrowest with every reduction cascade) +
 PoseNet at 64x96 over 2 ranks (bands of 32) and 4 (bands of 16; the 1/32
 level gathered), and one step of each non-integer-resample class over 2,
 each against the same steps under a one-rank data mesh (the whole image,

@@ -38,7 +38,9 @@ torch.cuda.device_count() with `--device cuda`, 1 with `--device cpu`;
 be its world size. Otherwise this process is rank 0 and spawns ranks
 1..N-1: NCCL on cuda:0..N-1 (fewer CUDA devices than N raise), or gloo
 with `--device cpu`. Rank 0 alone logs and writes checkpoints, and its
-trainer is returned.
+trainer is returned. Under NCCL each rank's train and eval steps run as
+CUDA graphs that hold their collectives (train/graph.py), as they do
+without a mesh; under gloo they run eagerly.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ Reduction1x1 :157, local_planar_guidance :193, BtsDecoder :218, BtsModel
 (dilations 3/6/12/18/24) and local-planar-guidance heads at 8x, 4x and 2x,
 and the final depth 80 · sigmoid. forward(x, focal) returns the 5-tuple
 (depth_8x8, depth_4x4, depth_2x2, reduc1x1, final_depth), each
-[B, 1, H, W]; focal is accepted and unused, as in the reference.
+[B, 1, H, W] — but reduc1x1 where num_features // 32 < 4: its cascade is
+then empty, as JAX's, and it passes up1's num_features // 16 channels
+through; focal is accepted and unused, as in the reference.
 
 Module names are the reference's (encoder.base_model.* after torchvision's
 densenet161.features, decoder.*), so the reference ROS node's serving blob
@@ -190,18 +192,22 @@ class UpConv(Banded, nn.Module):
 class Reduction1x1(nn.Module):
     """A cascade of 1x1 + ELU reductions ending in the plane parameters
     (θ, φ, distance -> unit normal and distance, [B, 4, h, w]) or, with
-    is_final, one sigmoid channel."""
+    is_final, one sigmoid channel. Below a width of 4 the cascade is
+    empty, as JAX's is, and a final one passes its input through:
+    `channels` is what forward returns."""
 
     def __init__(self, in_channels: int, out_channels: int, max_depth: float,
                  is_final: bool = False, level=None):
         super().__init__()
         self.max_depth, self.is_final = max_depth, is_final
+        self.channels = 4 if not is_final else in_channels
         reduc = OrderedDict()
         while out_channels >= 4:
             if out_channels < 8:
                 if is_final:
                     reduc["final"] = nn.Sequential(
                         conv(in_channels, 1, 1, bias=False, level=level), nn.Sigmoid())
+                    self.channels = 1
                 else:
                     reduc["plane_params"] = conv(in_channels, 3, 1, bias=False, level=level)
                 break
@@ -277,8 +283,10 @@ class BtsDecoder(Banded, nn.Module):
         self.reduc2x2 = Reduction1x1(nf // 8, nf // 16, max_depth, level=1)
         self.upconv1 = UpConv(nf // 8, nf // 16, 0)
         self.reduc1x1 = Reduction1x1(nf // 16, nf // 32, max_depth, is_final=True, level=0)
-        self.conv1 = nn.Sequential(conv(nf // 16 + 4, nf // 16, 3, bias=False, level=0),
-                                   nn.ELU())
+        # up1, reduc1x1 and the three plane depths
+        self.conv1 = nn.Sequential(
+            conv(nf // 16 + self.reduc1x1.channels + 3, nf // 16, 3, bias=False, level=0),
+            nn.ELU())
         self.get_depth = nn.Sequential(conv(nf // 16, 1, 3, bias=False, level=0),
                                        nn.Sigmoid())
 

@@ -115,6 +115,16 @@ class Mesh:
     def distributed(self) -> bool:
         return self.group is not None
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: an NCCL
+        group on a CUDA device, whose collectives are kernels on the
+        card. gloo runs its collectives on the host, so a gloo mesh is
+        never captured; a mesh without a group runs no collective (the
+        no-mesh case)."""
+        return (self.group is not None and self.device.type == "cuda"
+                and dist.get_backend(self.group) == "nccl")
+
     def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
         """Sum `tensor` over the mesh in place (no autograd) and return it;
         the identity without a group."""
@@ -258,15 +268,20 @@ def replicated_sharding(mesh: Mesh) -> Sharding:
 class ShardedBatch(dict):
     """A batch dict that already holds this rank's rows (the output of
     shard_batch), so that placing it again is a no-op, as re-placing an
-    already sharded array is in JAX."""
+    already sharded array is in JAX. `height` is the global batch's
+    image height (its tgt's rows before sharding; None without a tgt):
+    under a "spatial" axis a rank holds a band of the rows, and the host
+    knows the whole image's height from here, not from the device."""
 
-    def __init__(self, items, accum_steps: int = 1, batch_axis: int = 0):
+    def __init__(self, items, accum_steps: int = 1, batch_axis: int = 0,
+                 height: Optional[int] = None):
         super().__init__(items)
         self.accum_steps = accum_steps
         self.batch_axis = batch_axis
+        self.height = height
 
     def with_values(self, items) -> "ShardedBatch":
-        return ShardedBatch(items, self.accum_steps, self.batch_axis)
+        return ShardedBatch(items, self.accum_steps, self.batch_axis, self.height)
 
 
 def shard_batch(mesh: Mesh, batch: Any, accum_steps: int = 1, batch_axis: int = 0) -> Any:
@@ -283,7 +298,8 @@ def shard_batch(mesh: Mesh, batch: Any, accum_steps: int = 1, batch_axis: int = 
     data row hold the same images. With a "spatial" axis each of them
     takes its band of the image rows (batch_sharding), and `groundtruth`
     [B, H, W] its band along H (JAX :77-86). A ShardedBatch is returned as
-    it is."""
+    it is. A dict comes back as a ShardedBatch that records the global
+    image height."""
     if isinstance(batch, ShardedBatch):
         if (batch.accum_steps, batch.batch_axis) != (accum_steps, batch_axis):
             raise ValueError("the batch was sharded for other micro-batches or axis")
@@ -296,8 +312,9 @@ def shard_batch(mesh: Mesh, batch: Any, accum_steps: int = 1, batch_axis: int = 
         return Sharding(mesh, batch_axis, accum_steps, spatial_axis).shard(x)
 
     if isinstance(batch, dict):
+        height = batch["tgt"].shape[batch_axis + 1] if "tgt" in batch else None
         return ShardedBatch({k: shard(k, v) for k, v in batch.items()},
-                            accum_steps, batch_axis)
+                            accum_steps, batch_axis, height)
     return shard(None, batch)
 
 

@@ -298,15 +298,6 @@ def halo_reach(mesh: Mesh, above: int, below: int, rows: Sequence[int]) -> Tuple
 
 
 @torch.no_grad()
-def image_height(mesh: Mesh, rows: int, device: torch.device) -> int:
-    """The image's row count from this rank's band of `rows` rows: the sum
-    over the data row (one all-reduce; a host sync)."""
-    total = torch.tensor([rows], dtype=torch.int64, device=device)
-    dist.all_reduce(total, group=mesh.spatial_group)
-    return int(total)
-
-
-@torch.no_grad()
 def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int, height: int) -> torch.Tensor:
     """Every band of the data row along `dim`, in order: this rank's band
     of an image `height` rows tall -> the whole image, the same on every

@@ -6,7 +6,8 @@ make_eval_step :480). XLA compiles a step into one program that the
 device runs whole; on the card the counterpart is a CUDA graph, the
 step's kernels captured once and replayed with one launch. TrainStep,
 make_multi_step and EvalStep (train/trainer.py) run their bodies through
-StepGraphs on a CUDA device without a mesh (graph_enabled), and so does
+StepGraphs on a CUDA device without a mesh or under an NCCL mesh
+(graph_enabled), and so does
 serving, the counterpart of JAX's jitted serving function
 (pseudolidar/pipeline.py :99): DepthToPointCloudPipeline's depth -> cloud
 program, the pose-only eval step (eval/pose.py :154) and cli.odometry's
@@ -18,10 +19,20 @@ A body is a function of a flat dict of tensors: the batch's arrays and the
 step's host values as tensors (the automask warm-up scale, the learning
 rates, the augmentation draws). It reads every one of them on the device,
 copies nothing from the host and waits for nothing, so all of its launches
-can be captured. StepGraphs keys a body by the signature of its inputs
-(keys, shapes, dtypes) and by the backend flags that choose its kernels
-(cuDNN's and cuBLAS's TF32, cuDNN's deterministic and benchmark modes:
-a graph keeps the kernels it captured), as jit keys a program:
+can be captured. Under an NCCL mesh its collectives are captured too:
+NCCL runs them as kernels on its own stream, which waits for the stream
+that calls it and is waited for in turn, so inside a capture they join
+the graph in the order the body calls them (the all-reduces of autograd's
+backward as well, which runs on the forward's stream). The first, eager
+call creates NCCL's communicators, which a capture cannot. A gloo mesh
+runs its collectives on the host and is never captured. StepGraphs keys
+a body by the signature of its inputs (keys, shapes, dtypes), by the
+caller's `static` values (host values that shape the program, passed to
+the body after its inputs, as jit's static arguments: the global image
+height under a spatial axis) and by
+the backend flags that choose its kernels (cuDNN's and cuBLAS's TF32,
+cuDNN's deterministic and benchmark modes: a graph keeps the kernels it
+captured), as jit keys a program:
 
 - the first call of a signature runs the body eagerly, on a side stream,
   and is the real step: cuDNN's algorithm search and the first step's
@@ -57,29 +68,34 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
 
-Body = Callable[[Dict[str, torch.Tensor]], Any]
+Body = Callable[..., Any]  # body(inputs: Dict[str, torch.Tensor], *static)
 
 
 def graph_enabled(graph: Optional[bool], device: torch.device, mesh=None) -> bool:
     """A step's `graph` argument -> whether it runs as CUDA graphs. None:
-    where capture applies, a CUDA device without a mesh. False: eagerly.
-    True: captured, and a ValueError saying why where capture does not
-    apply — on the CPU, and under a mesh, whose collectives (gloo runs
-    them on the host) a graph cannot hold."""
+    where capture applies, a CUDA device without a mesh (or under a mesh
+    without a process group, which runs no collective) or under an NCCL
+    mesh (Mesh.capturable). False: eagerly. True: captured, and a
+    ValueError saying why where capture does not apply — on the CPU, and
+    under a gloo mesh, whose collectives run on the host."""
+    if mesh is not None and not mesh.distributed:
+        mesh = None
     if graph is None:
-        return device.type == "cuda" and mesh is None
+        return device.type == "cuda" and (mesh is None or mesh.capturable)
     if graph and device.type != "cuda":
         raise ValueError(
             f"graph=True needs a CUDA device: a CUDA graph captures the card's "
             f"kernels, and this step runs on {device}")
-    if graph and mesh is not None:
+    if graph and not (mesh is None or mesh.capturable):
         raise ValueError(
-            "graph=True under a mesh: the mesh's collectives cannot be captured "
-            "in a CUDA graph (gloo runs them on the host); pass graph=None or False")
+            f"graph=True under a {dist.get_backend(mesh.group)} mesh: its collectives "
+            f"run on the host (gloo's do), where a CUDA graph cannot hold them; an "
+            f"NCCL mesh can be captured. Pass graph=None or False")
     return bool(graph)
 
 
@@ -171,7 +187,11 @@ class StepGraphs:
         self._warm.clear()
         self._storage = None
 
-    def __call__(self, body: Body, inputs: Dict[str, Any]) -> Any:
+    def __call__(self, body: Body, inputs: Dict[str, Any], static: tuple = ()) -> Any:
+        """body(inputs, *static), eager, captured or replayed (module
+        docstring). `static`: hashable host values that body takes after
+        `inputs`, as jit's static arguments; each tuple of values has
+        graphs of its own."""
         if self.graphs and _moved(self._storage):
             raise RuntimeError(
                 "a parameter, buffer or submodule that these CUDA graphs read was "
@@ -181,37 +201,37 @@ class StepGraphs:
         inputs = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                   for k, v in inputs.items()}
         backends = torch.backends
-        key = (getattr(body, "__qualname__", None), backends.cudnn.allow_tf32,
+        key = (getattr(body, "__qualname__", None), static, backends.cudnn.allow_tf32,
                backends.cuda.matmul.allow_tf32, backends.cudnn.deterministic,
                backends.cudnn.benchmark,
                *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
         if key not in self._warm:
-            outputs = self._eager(body, inputs)
+            outputs = self._eager(body, inputs, static)
             self._warm.add(key)
             return outputs
         captured = self.graphs.get(key)
         if captured is None:
             if not self.graphs:
                 self._storage = _storage_of(self.modules)
-            captured = self.graphs[key] = self._capture(body, inputs)
+            captured = self.graphs[key] = self._capture(body, inputs, static)
         else:
             for k, v in inputs.items():
                 captured.static[k].copy_(v, non_blocking=True)
         if captured.graph is None:
-            return body(captured.static)
+            return body(captured.static, *static)
         captured.graph.replay()
         self.replays += 1
         kernels.add_launches(captured.launches)
         return _map(torch.clone, captured.outputs)
 
-    def _eager(self, body: Body, inputs: Dict[str, torch.Tensor]) -> Any:
+    def _eager(self, body: Body, inputs: Dict[str, torch.Tensor], args: tuple) -> Any:
         if not self.capture:
-            return body(inputs)
+            return body(inputs, *args)
         side = side_stream(self.device)
         current = torch.cuda.current_stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            outputs = body(inputs)
+            outputs = body(inputs, *args)
         current.wait_stream(side)
         for t in inputs.values():
             if t.is_cuda:  # the caller may free it once the call returns
@@ -220,7 +240,7 @@ class StepGraphs:
             t.record_stream(current)
         return outputs
 
-    def _capture(self, body: Body, inputs: Dict[str, torch.Tensor]) -> Captured:
+    def _capture(self, body: Body, inputs: Dict[str, torch.Tensor], args: tuple) -> Captured:
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
                   for k, v in inputs.items()}
         for k, v in inputs.items():
@@ -236,5 +256,5 @@ class StepGraphs:
         with kernels.captured_launches() as launches:
             with torch.cuda.graph(graph, pool=self.pool, stream=side_stream(self.device),
                                   capture_error_mode="thread_local"):
-                outputs = body(static)
+                outputs = body(static, *args)
         return Captured(graph, static, outputs, launches, time.perf_counter() - t0)

@@ -5,8 +5,9 @@ Counterpart of unsupervised_pseuso_lidar_tpu/train/trainer.py
 forward_batch :164, normalize_uint8_batch :213, make_train_step_body
 :231-401, make_eval_step :480, Trainer :561, _warn_if_collapsed :683,
 log_warps :742, fit :783, make_multi_step :447). On a CUDA device without
-a mesh the train step, its K-step form and the eval step run as CUDA
-graphs (train/graph.py), the counterpart of JAX's jitted steps; `graph=`
+a mesh or under an NCCL mesh the train step, its K-step form and the eval
+step run as CUDA graphs (train/graph.py), the counterpart of JAX's jitted
+steps (_jit_with_mesh :404-416 jits them under the mesh too); `graph=`
 of the step constructors and of Trainer turns that off (False) or
 insists on it (True). Under a mesh
 (parallel/mesh.py; `mesh=` of TrainStep, EvalStep, make_multi_step and
@@ -79,7 +80,6 @@ from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     check_height,
     gather_rows,
-    image_height,
     is_band,
     row_sharded,
 )
@@ -126,21 +126,34 @@ def batch_to_device(
 
 
 def whole_frames(mesh: Optional[Mesh], batch: Dict[str, torch.Tensor],
-                 depth_model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+                 depth_model: Optional[nn.Module] = None,
+                 height: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Under a mesh with a "spatial" axis: a device batch whose tgt and
-    ref_imgs hold this rank's band of rows -> the same batch with the
-    whole frames, gathered from the bands of the data row (the warp's
-    sources and the pose net's input; parallel/spatial.gather_rows, in
-    the batch's dtype). Raises ValueError, on every rank, for a height
-    `depth_model` cannot shard (check_height with its row_multiple:
-    BtsModel's 32). The batch itself otherwise."""
+    ref_imgs hold this rank's band of the rows of images `height` rows
+    tall (a host value: the global batch's, sharded_height) -> the same
+    batch with the whole frames, gathered from the bands of the data row
+    (the warp's sources and the pose net's input;
+    parallel/spatial.gather_rows, in the batch's dtype). Raises
+    ValueError, on every rank, for a height `depth_model` cannot shard
+    (check_height with its row_multiple: BtsModel's 32). The batch itself
+    otherwise."""
     if not row_sharded(mesh):
         return batch
     tgt = batch["tgt"]
-    height = image_height(mesh, tgt.shape[2], tgt.device)
+    if height is None:
+        raise ValueError("whole_frames under a spatial mesh needs the image height")
     check_height(mesh, height, tgt.shape[3], getattr(depth_model, "row_multiple", 1))
     return dict(batch, tgt=gather_rows(tgt, mesh, 2, height),
                 ref_imgs=gather_rows(batch["ref_imgs"], mesh, 3, height))
+
+
+def sharded_height(mesh: Optional[Mesh], batch: Dict) -> Optional[int]:
+    """The global image height of a batch that shard_batch placed (a
+    ShardedBatch) under a mesh with a "spatial" axis, where a rank holds a
+    band of the rows: the host's value, so that the step's body reads no
+    device value to learn it. None otherwise (nothing needs it; a plain
+    dict under a spatial axis then fails in whole_frames)."""
+    return getattr(batch, "height", None) if row_sharded(mesh) else None
 
 
 def depth_scales(model: Optional[nn.Module]) -> Tuple[int, ...]:
@@ -463,16 +476,21 @@ class TrainStep:
     The host computes the step's scalars (host_values: the warm-up scale,
     the learning rates, the augmentation draws) and hands them to the
     body as tensors with the batch; the body reads everything on the
-    device. On a CUDA device without a mesh (`graph` None, the default)
-    the body runs as CUDA graphs, one per input signature
-    (train/graph.py): the first call of a batch shape is the eager step,
-    the second captures it, later calls copy the batch and the host
-    values into the graph's buffers and replay it; the gradients are then
-    zeroed in place, not dropped, since a graph writes the same buffers at
-    each replay. A captured step gives the eager step's bits. graph=False
-    runs eagerly; graph=True on the CPU or under a mesh raises. Loading a
-    checkpoint into the optimizer, or dropping a gradient, drops the
-    graphs: they read those tensors where they were captured.
+    device. On a CUDA device without a mesh or under an NCCL mesh (`graph`
+    None, the default) the body runs as CUDA graphs, one per input
+    signature (train/graph.py): the first call of a batch shape is the
+    eager step, the second captures it, later calls copy the batch and the
+    host values into the graph's buffers and replay it; the gradients are
+    then zeroed in place, not dropped, since a graph writes the same
+    buffers at each replay. Under an NCCL mesh the graph holds the step's
+    collectives, in the order every rank calls them: the BatchNorm sums
+    (forward and backward), the 'ssim' clip threshold, the supervised
+    mean, the halos and gathers of a spatial axis, the gradient
+    all-reduce, the metric means. A captured step gives the eager step's
+    bits. graph=False runs eagerly; graph=True on the CPU or under a gloo
+    mesh raises. Loading a checkpoint into the optimizer, or dropping a
+    gradient, drops the graphs: they read those tensors where they were
+    captured.
 
     Under a data `mesh` (parallel/mesh.py) the step takes the global batch
     (or this rank's rows of it, a ShardedBatch from shard_batch or
@@ -648,16 +666,18 @@ class TrainStep:
         return {**{k: batch[k] for k in keys},
                 **self.host_values(step, size // self.accum_steps)}
 
-    def body(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def body(self, inputs: Dict[str, torch.Tensor], height: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
         """One optimizer step on `inputs` (from inputs(); host or device
-        tensors), without the host's part (the schedule, state.step): what
-        a CUDA graph of the step captures."""
+        tensors) of images `height` rows tall (sharded_height: needed under
+        a spatial axis only), without the host's part (the schedule,
+        state.step): what a CUDA graph of the step captures."""
         state = self.state
         host = {k: inputs[k].to(self.device, non_blocking=True)
                 for k in HOST_KEYS if k in inputs}
         batch = normalize_uint8_batch(whole_frames(self.mesh, batch_to_device(
             inputs, self.device, keep_groundtruth=bool(self.supervised_weight)
-        ), state.depth_model))
+        ), state.depth_model, height))
         aug = (AugmentParams(host["aug_add"], host["aug_scale"], host["aug_flip"])
                if "aug_add" in host else None)
         state.optimizer.zero_grad(set_to_none=self.graphs is None)
@@ -691,17 +711,19 @@ class TrainStep:
             state.optimizer.step()
         return global_means(self.mesh, {k: v * scale for k, v in sums.items()})
 
-    def run(self, body: Callable, inputs: Dict) -> Dict[str, torch.Tensor]:
-        """body(inputs), through the step's CUDA graphs when it has them.
-        The graphs hold the optimizer's state and the gradients where they
-        were captured: a state loaded in their place drops them."""
+    def run(self, body: Callable, inputs: Dict, height: Optional[int] = None
+            ) -> Dict[str, torch.Tensor]:
+        """body(inputs, height), through the step's CUDA graphs when it has
+        them (the height is a graph key). The graphs hold the optimizer's
+        state and the gradients where they were captured: a state loaded in
+        their place drops them."""
         if self.graphs is None:
-            return body(inputs)
+            return body(inputs, height)
         held = self._graph_state()
         if (len(held) != len(self._captured_state)
                 or any(a is not b for a, b in zip(held, self._captured_state))):
             self.graphs.reset()
-        out = self.graphs(body, inputs)
+        out = self.graphs(body, inputs, static=(height,))
         self._captured_state = self._graph_state()
         return out
 
@@ -714,7 +736,8 @@ class TrainStep:
         state = self.state
         if self.mesh is not None:
             batch = shard_batch(self.mesh, batch, self.accum_steps)
-        metrics = self.run(self.body, self.inputs(batch, state.step))
+        metrics = self.run(self.body, self.inputs(batch, state.step),
+                           sharded_height(self.mesh, batch))
         state.scheduler.step()
         state.step += 1
         return metrics
@@ -743,17 +766,18 @@ def make_multi_step(state: TrainState, num_steps: int, mesh: Optional[Mesh] = No
     (TrainStep.host_values, stacked [num_steps, ...]: step i's warm-up
     scale, learning rate and draws in slot i; the schedule stepped
     num_steps times), and one body runs the num_steps train-step bodies in
-    order, step i reading slot i. On a CUDA device without a mesh that
-    body is ONE CUDA graph (`graph` as in TrainStep): one replay, one
-    launch, makes num_steps updates. multi.train_step is the TrainStep
+    order, step i reading slot i. On a CUDA device without a mesh or under
+    an NCCL mesh that body is ONE CUDA graph (`graph` as in TrainStep):
+    one replay, one launch, makes num_steps updates. multi.train_step is the TrainStep
     whose body it runs (its graphs: multi.train_step.graphs)."""
     step = make_train_step(state, device=device, mesh=mesh, graph=graph, pool=pool,
                            **step_kwargs)
 
-    def steps(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def steps(inputs: Dict[str, torch.Tensor], height: Optional[int] = None
+              ) -> Dict[str, torch.Tensor]:
         metrics = None
         for i in range(num_steps):
-            metrics = step.body({k: v[i] for k, v in inputs.items()})
+            metrics = step.body({k: v[i] for k, v in inputs.items()}, height)
         return metrics
 
     def multi(batches: Dict) -> Dict[str, torch.Tensor]:
@@ -773,7 +797,7 @@ def make_multi_step(state: TrainState, num_steps: int, mesh: Optional[Mesh] = No
                 state.scheduler.step()
         inputs = {k: (torch.stack([s[k] for s in slots]) if k in HOST_KEYS else batches[k])
                   for k in slots[0]}
-        metrics = step.run(steps, inputs)
+        metrics = step.run(steps, inputs, sharded_height(mesh, batches))
         state.step += num_steps
         return metrics
 
@@ -816,12 +840,12 @@ class EvalStep:
     and the Eigen crop are per whole image): every rank of a data row
     then holds its images' whole depth_pred.
 
-    On a CUDA device without a mesh (`graph` None, the default) the step
-    runs as CUDA graphs, one per batch signature, as TrainStep does
-    (train/graph.py): the first call of a signature is eager, the second
-    captures, later calls replay; the metrics and depth_pred returned are
-    copies of the graph's. graph=False runs eagerly; graph=True on the CPU
-    or under a mesh raises."""
+    On a CUDA device without a mesh or under an NCCL mesh (`graph` None,
+    the default) the step runs as CUDA graphs, one per batch signature, as
+    TrainStep does (train/graph.py): the first call of a signature is
+    eager, the second captures, later calls replay; the metrics and
+    depth_pred returned are copies of the graph's. graph=False runs
+    eagerly; graph=True on the CPU or under a gloo mesh raises."""
 
     def __init__(self, depth_model: nn.Module, pose_model: nn.Module,
                  loss_mode: str = "mean", depth_norm: bool = False,
@@ -849,13 +873,17 @@ class EvalStep:
                        if graph_enabled(graph, self.device, mesh) else None)
 
     @torch.no_grad()
-    def loss_inputs(self, batch: Dict) -> Dict:
+    def loss_inputs(self, batch: Dict, height: Optional[int] = None) -> Dict:
         """The fp32 tensors the loss consumes: normalized images, the two
         disparity lists, poses and intrinsics; and the batch's groundtruth
-        and oxts when it has them."""
+        and oxts when it has them. `height`: the global image height under
+        a spatial axis; by default the one shard_batch recorded in `batch`
+        (sharded_height)."""
+        if height is None:
+            height = sharded_height(self.mesh, batch)
         batch = normalize_uint8_batch(whole_frames(
             self.mesh, batch_to_device(batch, self.device, keep_groundtruth=True),
-            self.depth_model))
+            self.depth_model, height))
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16", cache_enabled=False):
             disps_tgt, disps_ref0, poses = forward_batch(
@@ -905,16 +933,18 @@ class EvalStep:
     def __call__(self, batch: Dict):
         if self.mesh is not None:
             batch = shard_batch(self.mesh, batch)
+        height = sharded_height(self.mesh, batch)
         batch = {k: batch[k] for k in BATCH_KEYS if k in batch}
         if self.graphs is None:
-            return self.body(batch)
-        return self.graphs(self.body, batch)
+            return self.body(batch, height)
+        return self.graphs(self.body, batch, static=(height,))
 
     @torch.no_grad()
-    def body(self, batch: Dict):
+    def body(self, batch: Dict, height: Optional[int] = None):
         """(metrics, depth_pred) of a batch (this rank's rows under a
-        mesh): what a CUDA graph of the step captures."""
-        inputs = self.loss_inputs(batch)
+        mesh) of images `height` rows tall (sharded_height: needed under a
+        spatial axis only): what a CUDA graph of the step captures."""
+        inputs = self.loss_inputs(batch, height)
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         if row_sharded(self.mesh):
             height = inputs["tgt"].shape[2]
@@ -974,8 +1004,9 @@ class Trainer:
     data row join it in the pictures' banded forward (fit, log_warps).
 
     `graph` is the steps' (TrainStep): on a CUDA device without a mesh
-    they run as CUDA graphs by default, the train and eval graphs in one
-    memory pool (they never run at the same time)."""
+    or under an NCCL mesh they run as CUDA graphs by default, the train
+    and eval graphs in one memory pool (they never run at the same
+    time)."""
 
     def __init__(
         self,
@@ -1109,7 +1140,8 @@ class Trainer:
         if sharded:
             batch = shard_batch(self.mesh, batch, self.train_step.accum_steps)
         batch = normalize_uint8_batch(whole_frames(
-            self.mesh, batch_to_device(batch, self.device), self.state.depth_model))
+            self.mesh, batch_to_device(batch, self.device), self.state.depth_model,
+            sharded_height(self.mesh, batch)))
         height = batch["tgt"].shape[2]
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=act.precision == "bf16", cache_enabled=False):
