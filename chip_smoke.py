@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --spatial-repeat WORLD RUNS   # one spatial group, RUNS times
+    python3 chip_smoke.py --models                      # the kernels' build and the models phase
 
 Builds the port's CUDA kernels from the sources in this checkout (into
 build/torch_ext/), holds the division helper of kernels B and C
@@ -107,7 +108,18 @@ then drives the port's entry points with seeded random weights:
                 DispResNet-50 with all_scales (4 scales): 3 timed steps each,
                 launches {S, S, S + 1, S} a step for S scales, finite losses,
                 peak memory, loss gradients card vs CPU; and PoseDecoder over
-                ResNet-50 encoder features, card vs CPU
+                ResNet-50 encoder features, card vs CPU. Then `determinism`:
+                the same three nets and BtsModel (352x1216, batch 1), each
+                two eager steps from one state under cuDNN deterministic,
+                every gradient leaf, the loss and the BatchNorm statistics
+                required equal bit for bit, and the ops that
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                names in a third step; resize_bilinear's gradient at the
+                loss's shapes ([4, 1, 384/2^s, 1280/2^s] -> 384x1280, s =
+                1..3) and resize_nearest's at BtsModel's, twice on the card
+                and once on the CPU, required equal bit for bit, timed
+                beside torch's own upsample_bilinear2d_backward (itself
+                taken twice)
   parallel      data parallelism (parallel/, the step under a mesh). World
                 size 1 under NCCL, in this process: basic_config's Trainer
                 under make_mesh(1) against the plain Trainer from the same
@@ -262,6 +274,7 @@ import tempfile
 import time
 import traceback
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -308,6 +321,9 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import build, kernels
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import (
     grid_sample,
     grid_sample_grad_grid,
+    resize_bilinear,
+    resize_bilinear_grad,
+    resize_nearest,
 )
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
@@ -423,6 +439,19 @@ BTS_REL_L2 = 1e-5
 # scales)
 ZOO_TRAIN = (("DispNetS", {}, 4), ("StnDispNet", {"use_stn": True}, 1),
              ("DispResNet", {"num_layers": 50, "all_scales": True}, 4))
+# the models phase's determinism cases: spatial_setup's overrides of
+# basic_config (BtsModel at batch 1: its eager step at 352x1216 holds tens
+# of GiB at larger batches)
+DETERMINISM_CASES = (("DispNetS", {"depth": ("DispNetS", {})}),
+                     ("StnDispNet-stn", {"depth": ("StnDispNet", {"use_stn": True})}),
+                     ("DispResNet-50", {"depth": ("DispResNet",
+                                                  {"num_layers": 50, "all_scales": True})}),
+                     ("BtsModel", {**BTS_CASE, "batch_size": 1}))
+# the loss's upsamples of a coarse scale s to basic_config's 384x1280
+# (losses/reprojection._full_res_depth), batch 4, and BtsModel's nearest
+# downsamples of a full-resolution depth (models/depth/bts._downsampled)
+RESIZE_SCALES = (1, 2, 3)
+NEAREST_FACTORS = (2, 4)
 # PoseDecoder's 0.01-scaled outputs card vs CPU
 POSE_DECODER_ATOL = 1e-6
 # the zoo's loss gradients card vs CPU on the first rows of a batch only
@@ -2291,10 +2320,169 @@ def models_phase(device, tmp, drive_dir):
                            f"PoseDecoder cuda vs cpu: {out['pose_decoder']}"))
         del trainer
         release_memory()
+    out["determinism"], more = determinism_check(device)
+    checks += more
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     for ok, what in checks:
         check(ok, what)
+
+
+def repeat_step(device, overrides):
+    """Two eager train steps of basic_config with spatial_setup's
+    `overrides` from one state (the parameters and BatchNorm statistics
+    loaded anew before each; the step's inputs made once), under cuDNN
+    deterministic; then a third under
+    torch.use_deterministic_algorithms(True, warn_only=True), whose
+    warnings name the ops that have no deterministic CUDA version.
+    -> record."""
+    t0 = time.perf_counter()
+    config, (batch,) = spatial_setup(BASIC_CONFIG, overrides, 1)
+    trainer = Trainer(config, device=device, graph=False)
+    step = trainer.train_step
+    inputs = step.inputs(batch, 0)
+    start = {name: {k: v.clone() for k, v in getattr(trainer.state, name).state_dict().items()}
+             for name in ("depth_model", "pose_model")}
+
+    def run():
+        for name, state in start.items():
+            getattr(trainer.state, name).load_state_dict(state)
+        metrics = step.body(inputs)
+        return ({k: float(v) for k, v in metrics.items()},
+                {**_named(trainer, "grads"), **_named(trainer, "stats")})
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        (loss_a, a), (loss_b, b) = run(), run()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                run()
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    diffs = {k: max_err(a[k], v) if v.numel() else 0.0 for k, v in b.items()}
+    differing = sorted((k for k, d in diffs.items() if d), key=diffs.get, reverse=True)
+    warned = sorted({str(w.message).split(". ")[0][:160] for w in caught})
+    del trainer
+    release_memory()
+    return {"height": config.image_shape[0], "width": config.image_shape[1],
+            "batch": config.action.batch_size, "leaves": len(diffs),
+            "gradient_leaves": sum(not k.endswith(("running_mean", "running_var"))
+                                   for k in diffs),
+            "max_abs_diff": max(diffs.values()), "differing_leaves": len(differing),
+            "worst_leaves": {k: diffs[k] for k in differing[:5]},
+            "loss_abs_diff": max(abs(loss_a[k] - loss_b[k]) for k in loss_a),
+            "nondeterministic_ops_warned": warned, "seconds": time.perf_counter() - t0}
+
+
+def resize_repeat(fn, x, g):
+    """The gradient of sum(fn(x) · g) w.r.t. x (ops/resample's resize)
+    twice on the card and once on the CPU -> (max abs difference of the two
+    card runs, of the card's against the CPU's, the autograd call's ms by
+    device_time_ms, which the host's work a call bounds)."""
+    leaf = x.clone().requires_grad_()
+    out = fn(leaf)
+
+    def grad():
+        return torch.autograd.grad(out, leaf, g, retain_graph=True)[0]
+
+    first, second = grad(), grad()
+    cpu_leaf = x.cpu().requires_grad_()
+    (on_cpu,) = torch.autograd.grad(fn(cpu_leaf), cpu_leaf, g.cpu())
+    return max_err(first, second), max_err(first.cpu(), on_cpu), device_time_ms(grad)
+
+
+def graph_ms(fn):
+    """Device ms of one call of fn replayed from a CUDA graph: the host's
+    launches left out, as in a captured step (device_time_ms of the
+    replay)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = device_time_ms(graph.replay)
+    del graph
+    return ms
+
+
+def determinism_check(device):
+    """Does a training step repeat on the card? repeat_step for each of
+    DETERMINISM_CASES (every gradient leaf, the loss and the BatchNorm
+    statistics of two runs required equal), and the resizes' gradients
+    alone: resize_bilinear at the loss's shapes and resize_nearest at
+    BtsModel's, twice on the card and on the CPU (required equal bit for
+    bit); resize_bilinear_grad timed beside torch's
+    upsample_bilinear2d_backward, each replayed from a CUDA graph (`ms`,
+    `library_ms`) and eagerly (`eager_ms`, `library_eager_ms`), and the
+    two runs of torch's on the same input compared. -> (record, checks)."""
+    t_check = time.perf_counter()
+    out = {"steps": {name: repeat_step(device, overrides)
+                     for name, overrides in DETERMINISM_CASES}}
+    checks = [(r["max_abs_diff"] == 0.0 and r["loss_abs_diff"] == 0.0,
+               f"determinism: two steps of {name} from one state differ: {r}")
+              for name, r in out["steps"].items()]
+    gen = torch.Generator().manual_seed(SEED + 29)
+    height, width = 384, 1280
+    out["resize_bilinear"] = {}
+    for s in RESIZE_SCALES:
+        shape = (4, 1, height >> s, width >> s)
+        x = (torch.rand(shape, generator=gen) + 0.1).to(device)
+        g = torch.randn(4, 1, height, width, generator=gen).to(device)
+        repeat, vs_cpu, ms = resize_repeat(lambda t: resize_bilinear(t, height, width), x, g)
+
+        def port():
+            return resize_bilinear_grad(g, *shape[2:], torch.float32)
+
+        def library():
+            return torch.ops.aten.upsample_bilinear2d_backward(
+                g, [height, width], list(shape), False)
+
+        out["resize_bilinear"][f"s{s}"] = {
+            "coarse": list(shape), "out": [height, width], "repeat_max_abs_diff": repeat,
+            "cuda_vs_cpu_max_abs_diff": vs_cpu, "autograd_ms": ms,
+            "ms": graph_ms(port), "library_ms": graph_ms(library),
+            "eager_ms": device_time_ms(port), "library_eager_ms": device_time_ms(library),
+            "library_repeat_max_abs_diff": max_err(library(), library())}
+        checks.append((repeat == 0.0 and vs_cpu == 0.0,
+                       f"determinism: resize_bilinear's gradient at {shape}: "
+                       f"{out['resize_bilinear'][f's{s}']}"))
+    out["resize_nearest"] = {}
+    x = (torch.rand(1, 1, *BTS_SHAPE, generator=gen) + 0.1).to(device)
+    for f in NEAREST_FACTORS:
+        size = (BTS_SHAPE[0] // f, BTS_SHAPE[1] // f)
+        g = torch.randn(1, 1, *size, generator=gen).to(device)
+        repeat, vs_cpu, ms = resize_repeat(lambda t: resize_nearest(t, *size), x, g)
+        out["resize_nearest"][f"x{f}"] = {"repeat_max_abs_diff": repeat,
+                                          "cuda_vs_cpu_max_abs_diff": vs_cpu, "ms": ms}
+        checks.append((repeat == 0.0 and vs_cpu == 0.0,
+                       f"determinism: resize_nearest's gradient /{f}: "
+                       f"{out['resize_nearest'][f'x{f}']}"))
+    out["seconds"] = time.perf_counter() - t_check
+    return out, checks
+
+
+def models_only(device="cuda:0"):
+    """The kernels' build and the models phase alone (python3
+    chip_smoke.py --models), on a KITTI-shaped drive written to a temp
+    dir."""
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"phase": "device", "kind": torch.cuda.get_device_name(0), "nvidia_smi": card(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    build.build_all()
+    build.load_libraries()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, drive_dir = write_kitti_drive(os.path.join(tmp, "data"))
+        models_phase(device, tmp, drive_dir)
 
 
 def pose_decoder_check(trainer, device):
@@ -3928,4 +4116,6 @@ if __name__ == "__main__":
         sys.exit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
     if sys.argv[1:2] == ["--spatial-repeat"]:
         sys.exit(1 if spatial_repeat(int(sys.argv[2]), int(sys.argv[3])) else 0)
+    if sys.argv[1:2] == ["--models"]:
+        sys.exit(models_only())
     main()

@@ -25,6 +25,7 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import (
     grid_sample,
     grid_sample_grad_grid,
+    resize_bilinear,
 )
 from unsupervised_pseuso_lidar_tpu_torch.ops.ssim import (
     photometric_map,
@@ -963,3 +964,26 @@ def test_captured_pose_eval_step_matches_the_eager_one(cuda, deterministic):
         kept.append((got, {k: v.clone() for k, v in got.items()}))
     assert all(torch.equal(got[k], values[k]) for got, values in kept for k in values)
     assert len(captured.graphs.graphs) == 1 and captured.graphs.replays == 3
+
+
+@pytest.mark.parametrize("coarse, size", [((48, 160), (384, 1280)), ((24, 80), (384, 1280)),
+                                           ((13, 152), (100, 1216)), ((10, 6), (7, 33))],
+                         ids=["x8", "x16", "non_integer", "down"])
+def test_resize_bilinear_gradient_repeats_and_is_the_cpu_s(cuda, coarse, size):
+    # ops/resample._ResizeBilinear: its gathers and fixed tree of adds give
+    # the same bits in every run and on the CPU; the forward is
+    # F.interpolate's on either device
+    gen = torch.Generator().manual_seed(41)
+    x = torch.rand(2, 1, *coarse, generator=gen) + 0.5
+    g = torch.randn(2, 1, *size, generator=gen)
+
+    def grad(device):
+        leaf = x.to(device).requires_grad_()
+        out = resize_bilinear(leaf, *size)
+        want = F.interpolate(leaf.detach(), size=size, mode="bilinear", align_corners=False)
+        assert torch.equal(out.detach(), want)
+        return torch.autograd.grad(out, leaf, g.to(device))[0]
+
+    first = grad(cuda)
+    assert torch.equal(grad(cuda), first)
+    assert torch.equal(first.cpu(), grad("cpu"))

@@ -7,13 +7,17 @@
     each of its packages on its own loads none and builds no kernel.
   * Entry points called with their default device raise when CUDA is not
     available, instead of running on the CPU.
+  * An installed port carries its kernels' sources: pyproject.toml ships
+    every ``*.cu`` and ``*.cuh`` of ops/cuda as package data.
 """
 
 import ast
 import os
 import re
+import fnmatch
 import subprocess
 import sys
+import tomllib
 
 import pytest
 import torch
@@ -173,3 +177,17 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_the_kernel_sources_ship_as_package_data():
+    from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import build
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        setuptools = tomllib.load(f)["tool"]["setuptools"]
+    assert any(fnmatch.fnmatch("unsupervised_pseuso_lidar_tpu_torch", pattern)
+               for pattern in setuptools["packages"]["find"]["include"])
+    patterns = setuptools["package-data"]["unsupervised_pseuso_lidar_tpu_torch.ops.cuda"]
+    sources = [n for n in os.listdir(build.SOURCE_DIR) if n.endswith((".cu", ".cuh"))]
+    assert set(build.SOURCES.values()) <= set(sources) and any(n.endswith(".cuh") for n in sources)
+    shipped = {n for n in sources if any(fnmatch.fnmatch(n, p) for p in patterns)}
+    assert shipped == set(sources)

@@ -10,6 +10,10 @@ flax's running-statistics rule. The TPU layout rewrites there
 border-ring convs) compute the same function with the same parameters and
 have no counterpart here.
 
+Every strided conv (Conv2d, and the pose nets' StridedConv2d) runs
+through conv2d, which pads a one-column map explicitly where the conv runs
+in bf16 on the CPU (oneDNN's weight gradient of that case is faulty).
+
 The blocks are nn.Sequential in the reference's layout, so their
 state-dict keys are the reference's (conv1.0 / conv1.2 / conv1.3 for a
 DispNetS encoder block, upconv_1.0 / upconv_1.1 for a StnDispNet one).
@@ -243,11 +247,44 @@ def _banded(x: torch.Tensor, mesh, kernel: int, stride: int, padding: int,
     return F.pad(x, pad, value=border) if any(pad) else x
 
 
-class Conv2d(Banded, nn.Conv2d):
-    """nn.Conv2d; under a row-sharding `mesh` its rows come with halos
-    (_banded, zero rows at the image's border; a window dilated by d reads
-    d·(k − 1) + 1 rows, so BTS's 3x3 ASPP convs take d rows each side), or
-    where its output level is not banded it runs on the whole map."""
+def _cpu_bf16(x: torch.Tensor) -> bool:
+    """Does a convolution of x run in bf16 on the CPU?"""
+    return x.device.type == "cpu" and (
+        x.dtype == torch.bfloat16
+        or (torch.is_autocast_enabled("cpu")
+            and torch.get_autocast_dtype("cpu") == torch.bfloat16))
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, padding) -> torch.Tensor:
+    """F.conv2d of x with `conv`'s weights, stride, dilation and groups
+    and the (rows, columns) zero `padding`.
+
+    A strided window over a map one column wide pads explicitly where the
+    conv runs in bf16 on the CPU: there oneDNN's weight gradient of the
+    implicitly padded conv reads memory it never wrote (NaN, 1e36, or
+    values that change from run to run; PoseNet's last convs meet it at
+    32x64 images). The explicit zeros give the same sums."""
+    if conv.stride[1] > 1 and x.shape[3] == 1 and any(padding) and _cpu_bf16(x):
+        x = F.pad(x, (padding[1], padding[1], padding[0], padding[0]))
+        padding = (0, 0)
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, padding, conv.dilation,
+                    conv.groups)
+
+
+class StridedConv2d(nn.Conv2d):
+    """nn.Conv2d run through conv2d: the pose nets' strided convs, which
+    see whole frames (no Banded: bind_spatial leaves them alone)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(self, x, self.padding)
+
+
+class Conv2d(Banded, StridedConv2d):
+    """nn.Conv2d (through conv2d); under a row-sharding `mesh` its rows
+    come with halos (_banded, zero rows at the image's border; a window
+    dilated by d reads d·(k − 1) + 1 rows, so BTS's 3x3 ASPP convs take d
+    rows each side), or where its output level is not banded it runs on
+    the whole map."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.on_bands(_out_level(self.level, self.stride[0])):
@@ -255,8 +292,7 @@ class Conv2d(Banded, nn.Conv2d):
         reach = self.dilation[0] * (self.kernel_size[0] - 1) + 1
         x = _banded(x, self.mesh, reach, self.stride[0], self.padding[0], 0.0,
                     self.band_rows())
-        return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
-                        self.dilation, self.groups)
+        return conv2d(self, x, (0, self.padding[1]))
 
 
 class MaxPool2d(Banded, nn.MaxPool2d):

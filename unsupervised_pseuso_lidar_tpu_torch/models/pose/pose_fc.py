@@ -25,7 +25,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from unsupervised_pseuso_lidar_tpu_torch.models.layers import torch_default_init_
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import StridedConv2d, torch_default_init_
 from unsupervised_pseuso_lidar_tpu_torch.models.pose.posenet import CHANNELS, KERNELS
 
 
@@ -43,7 +43,7 @@ class PoseFc(nn.Module):
         self.nb_ref_imgs = nb_ref_imgs
         cin = 3 * (1 + nb_ref_imgs)
         for i, (width, k) in enumerate(zip(CHANNELS, KERNELS)):
-            conv = nn.Conv2d(cin, width, k, stride=2, padding=(k - 1) // 2)
+            conv = StridedConv2d(cin, width, k, stride=2, padding=(k - 1) // 2)
             setattr(self, f"conv{i + 1}", nn.Sequential(conv, nn.ReLU()))
             cin = width
         out = 6 * nb_ref_imgs

@@ -14,6 +14,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import StridedConv2d
+
 CHANNELS = (16, 32, 64, 128, 256, 256, 256)
 KERNELS = (7, 5, 3, 3, 3, 3, 3)
 
@@ -24,7 +26,7 @@ class PoseNet(nn.Module):
         self.nb_ref_imgs = nb_ref_imgs
         cin = 3 * (1 + nb_ref_imgs)
         for i, (width, k) in enumerate(zip(CHANNELS, KERNELS)):
-            conv = nn.Conv2d(cin, width, k, stride=2, padding=(k - 1) // 2)
+            conv = StridedConv2d(cin, width, k, stride=2, padding=(k - 1) // 2)
             setattr(self, f"conv{i + 1}", nn.Sequential(conv, nn.ReLU()))
             cin = width
         self.pose_pred = nn.Conv2d(cin, 6 * nb_ref_imgs, 1)

@@ -24,6 +24,11 @@ import threading
 from typing import Dict
 
 SOURCE_DIR = os.path.dirname(os.path.abspath(__file__))
+# Run in place, REPO_ROOT is the checkout and BUILD_DIR its build/torch_ext/
+# (listed in .gitignore). Installed (pyproject.toml ships the *.cu and *.cuh
+# sources as package data), REPO_ROOT is the directory that holds the
+# package, such as site-packages, and the libraries go to build/torch_ext/
+# there, which must then be writable.
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(SOURCE_DIR)))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_ext")
 SOURCES = {

@@ -11,10 +11,18 @@ same arithmetic, in the same order, as the CUDA kernel, so the two agree
 to the last bit on the card. `grid_sample_grad_grid` is the plain version
 of the warp's backward kernel in the same file. The wrappers in
 ops/cuda/kernels.py run them only for CPU tensors.
+
+`reflect_pad1` and `resize_bilinear` keep torch's forward and give their
+gradients a fixed-order backward of their own: torch's CUDA backwards of
+both add with atomics, whose order, and so whose bits, change from run to
+run.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -153,14 +161,105 @@ def grid_sample_grad_grid(
     )
 
 
+def _bilinear_source(in_size: int, out_size: int, dtype):
+    """The taps of a bilinear resize along one axis (align_corners=False):
+    for each output index o, (i0, i1, l0, l1) with out[o] = l0·in[i0] +
+    l1·in[i1], in torch's arithmetic (upsample's
+    compute_source_index_and_lambda): src = (in / out)·(o + ½) − ½,
+    clamped at 0; i0 = ⌊src⌋, i1 = i0 + 1 but at the last index; l1 =
+    src − i0, l0 = 1 − l1, each rounded in `dtype` (numpy)."""
+    half = dtype(0.5)
+    scale = dtype(in_size) / dtype(out_size)
+    src = np.maximum(scale * (np.arange(out_size, dtype=dtype) + half) - half, dtype(0))
+    i0 = src.astype(np.int64)
+    i1 = i0 + (i0 < in_size - 1)
+    l1 = src - i0.astype(dtype)
+    return i0, i1, dtype(1) - l1, l1
+
+
+@functools.lru_cache(maxsize=None)
+def _readers(in_size: int, out_size: int, dtype: torch.dtype, device: torch.device):
+    """The transpose of _bilinear_source, as gather tables: for each input
+    index i, the outputs whose taps read it with a weight other than 0, in
+    ascending order (i0's tap before i1's where both read i), padded with
+    weight 0 to a power of two K: (index [K·in] long, weight [K, in] `dtype`), on `device`, made
+    once from the static sizes (a CUDA graph's replay copies nothing)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    i0, i1, l0, l1 = _bilinear_source(in_size, out_size, np_dtype)
+    taps = [[] for _ in range(in_size)]
+    for o in range(out_size):
+        for i, w in ((i0[o], l0[o]), (i1[o], l1[o])):
+            if w:  # a tap of weight 0 adds nothing
+                taps[i].append((o, w))
+    k = 1 << (max(map(len, taps)) - 1).bit_length()
+    index = np.zeros((k, in_size), np.int64)
+    weight = np.zeros((k, in_size), np_dtype)
+    for i, read in enumerate(taps):
+        if read:
+            index[:, i] = read[0][0]  # the padding re-reads a real tap
+        for j, (o, w) in enumerate(read):
+            index[j, i], weight[j, i] = o, w
+    return (torch.from_numpy(index.reshape(-1)).to(device),
+            torch.from_numpy(weight).to(device=device, dtype=dtype))
+
+
+def _fold(g: torch.Tensor, dim: int, in_size: int) -> torch.Tensor:
+    """The adjoint of a bilinear resize of `in_size` to g.shape[dim] along
+    `dim`: each input index gathers its readers' cotangents
+    (index_select), weights them and sums them as a fixed pairwise tree
+    of elementwise adds, the same bits on every device."""
+    index, weight = _readers(in_size, g.shape[dim], g.dtype, g.device)
+    k = weight.shape[0]
+    shape = list(g.shape)
+    shape[dim:dim + 1] = [k, in_size]
+    terms = g.index_select(dim, index).view(shape) * weight.view(
+        [k, in_size] + [1] * (g.dim() - dim - 1))
+    while k > 1:
+        k //= 2
+        terms = terms.narrow(dim, 0, k) + terms.narrow(dim, k, k)
+    return terms.squeeze(dim)
+
+
+def resize_bilinear_grad(g: torch.Tensor, height: int, width: int,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of resize_bilinear w.r.t. a `height` x `width` map of
+    `dtype`, given the cotangent g of its output: g folded back along W,
+    then along H (_fold), in fp32 (fp64 for an fp64 map)."""
+    g = g.to(torch.float64 if g.dtype == torch.float64 else torch.float32)
+    if g.shape[3] != width:
+        g = _fold(g, 3, width)
+    if g.shape[2] != height:
+        g = _fold(g, 2, height)
+    return g.to(dtype)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    """F.interpolate's bilinear resize (align_corners=False) of an NCHW
+    map with resize_bilinear_grad as its backward. torch's own backward
+    adds with atomics on CUDA, in an order that changes from run to run,
+    so two runs of a multi-scale step would part in the last bits of the
+    coarse maps' gradients."""
+
+    @staticmethod
+    def forward(ctx, img, out_h, out_w):
+        ctx.in_shape, ctx.dtype = img.shape, img.dtype
+        return F.interpolate(
+            img, size=(out_h, out_w), mode="bilinear", align_corners=False
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        return resize_bilinear_grad(g, *ctx.in_shape[-2:], ctx.dtype), None, None
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize of an NCHW map (interpolate semantics,
-    align_corners=False: half-pixel centers, border clamp)."""
+    align_corners=False: half-pixel centers, border clamp). Its gradient
+    (_ResizeBilinear) has the same bits in every run and on every
+    device; the forward is F.interpolate's."""
     if img.shape[-2:] == (out_h, out_w):
         return img
-    return F.interpolate(
-        img, size=(out_h, out_w), mode="bilinear", align_corners=False
-    )
+    return _ResizeBilinear.apply(img, out_h, out_w)
 
 
 def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
