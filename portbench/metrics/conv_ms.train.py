@@ -1,0 +1,7 @@
+"""Device ms a training step in the convolution families of the trace (models layer)."""
+
+from portbench.core import readers
+
+
+def read(run):
+    return readers.conv_ms(run)
