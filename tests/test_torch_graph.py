@@ -287,6 +287,36 @@ def test_multi_step_body_equals_single_steps():
             == [g["lr"] for g in single.state.optimizer.param_groups])
 
 
+@pytest.mark.parametrize("modules", [False, True], ids=["no_modules", "modules"])
+def test_step_graphs_record_one_copy_in_a_call_after_the_first(modules):
+    # StepGraphs(capture=False) under a profiler, 4 calls of one signature:
+    # graph.eager on the first, graph.capture (holding its copy_in) on the
+    # second, graph.copy_in on each later one; graph.check_weights on every
+    # call once a graph exists
+    from unsupervised_pseuso_lidar_tpu_torch.utils import profiling
+
+    net = nn.Linear(3, 2)
+    graphs = StepGraphs(CPU, capture=False, modules=[net] if modules else ())
+
+    def body(inputs):
+        return {"y": net(inputs["x"])}
+
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        outs = [graphs(body, {"x": torch.full((4, 3), float(i))}) for i in range(4)]
+    assert torch.equal(outs[3]["y"], net(torch.full((4, 3), 3.0)))
+    records = profiling.spans()
+    names = [s.name for s in records]
+    assert names.count("graph.eager") == 1 and names.count("graph.capture") == 1
+    copies = [s for s in records if s.name == "graph.copy_in"]
+    assert len(copies) == 3
+    capture = next(s for s in records if s.name == "graph.capture")
+    assert copies[0].parent == capture.id and capture.child_ns > 0
+    assert all(s.parent is None for s in copies[1:])
+    assert names.count("graph.check_weights") == 2
+    assert "graph.replay" not in names and "graph.clone_out" not in names
+
+
 def test_graph_true_is_refused_on_the_cpu_and_under_a_mesh():
     import torch.distributed as dist
 

@@ -1,7 +1,7 @@
 """The port's profiler layer on the CPU: utils/profiling.py (hard_sync,
-trace, annotate, StepTimer) and utils/trace.py (op_breakdown,
-summarize_trace, _op_family), held to the JAX package's utils where they
-compute the same thing (StepTimer.summary, _op_family on HLO names).
+trace, the spans of annotate and their table) and utils/trace.py
+(op_breakdown, summarize_trace, _op_family), held to the JAX package's
+utils where they compute the same thing (_op_family on HLO names).
 
 The CUDA half (device events of the card's kernels) runs on the card:
 tests/test_torch_cuda.py and chip_smoke.py's profile phase. Here a trace
@@ -9,18 +9,24 @@ without device events stands in for a CUDA run whose profiler saw none.
 """
 
 import json
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from unsupervised_pseuso_lidar_tpu.utils.profiling import StepTimer as JaxStepTimer
 from unsupervised_pseuso_lidar_tpu.utils.trace import _op_family as jax_op_family
+from unsupervised_pseuso_lidar_tpu_torch.utils import profiling
 from unsupervised_pseuso_lidar_tpu_torch.utils import trace as trace_module
 from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import (
-    StepTimer,
+    SpanTable,
     annotate,
+    clear_spans,
     hard_sync,
+    span_totals,
+    spans,
     trace,
 )
 from unsupervised_pseuso_lidar_tpu_torch.utils.trace import (
@@ -33,29 +39,6 @@ from unsupervised_pseuso_lidar_tpu_torch.utils.trace import (
 )
 
 torch.set_num_threads(1)
-
-
-@pytest.mark.parametrize("batch_size", [None, 4])
-def test_step_timer_summary_equals_jax(batch_size):
-    # the same injected samples -> the same keys and values, bit for bit
-    samples = list(np.random.default_rng(3).uniform(0.01, 0.2, 23))
-    ours, ref = StepTimer(), JaxStepTimer()
-    ours.samples, ref.samples = list(samples), list(samples)
-    got, want = ours.summary(batch_size), ref.summary(batch_size)
-    assert got == want
-    assert ("frames_per_sec" in got) == bool(batch_size)
-    assert StepTimer().summary() == JaxStepTimer().summary() == {}
-
-
-def test_step_timer_times_and_syncs_the_step():
-    timer = StepTimer(blocking=True)
-    out = {}
-    with timer.step(lambda: out["x"]):
-        out["x"] = torch.ones(64, 64) @ torch.ones(64, 64)
-    timer.start()
-    timer.stop([out["x"]])
-    assert len(timer.samples) == 2 and all(s > 0 for s in timer.samples)
-    assert timer.summary(batch_size=2)["frames_per_sec"] > 0
 
 
 def test_hard_sync_reads_every_leaf_of_a_nested_tree():
@@ -261,3 +244,209 @@ def test_host_self_time_subtracts_children():
     got = dict(trace_module._host_self_times(events))
     assert got == {"aten::linear": 40.0, "aten::addmm": 50.0, "aten::copy_": 10.0,
                    "aten::add": 40.0}
+
+
+# the program's spans (utils/profiling.annotate and its table)
+
+class _Refused:
+    """Stands in for record_function and the clock: any use raises."""
+
+    def __call__(self, *args, **kwargs):
+        raise AssertionError("a span with no profiler active used record_function or the clock")
+
+    perf_counter_ns = __call__
+
+
+class _NoOp:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, kind, value, traceback):
+        return None
+
+
+@pytest.mark.parametrize("unit", [None, 0, 7])
+def test_a_span_without_a_profiler_is_one_flag_read(monkeypatch, unit):
+    # no record_function, no clock, no record, the same object every time,
+    # and an exception in the block goes through
+    clear_spans()
+    monkeypatch.setattr(torch.profiler, "record_function", _Refused())
+    monkeypatch.setattr(profiling, "time", _Refused())
+    assert annotate("a", unit) is annotate("b")
+    ran = []
+    with annotate("serve.frame", unit):
+        with annotate("serve.copy"):
+            ran.append(1)
+    with pytest.raises(KeyError):
+        with annotate("serve.frame", unit):
+            raise KeyError("goes through")
+    assert ran == [1] and spans() == [] and span_totals("serve.frame") == (0, 0)
+
+
+def test_a_span_without_a_profiler_costs_a_bare_with_statement():
+    # best of 7 rounds of 20,000: under 0.5 us a span, or on a slower host
+    # than that allows, no more than twice a with-statement that does
+    # nothing
+    def per_call(make):
+        best = float("inf")
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(20_000):
+                with make():
+                    pass
+            best = min(best, (time.perf_counter() - t0) / 20_000)
+        return best
+
+    bare = _NoOp()
+    off = per_call(lambda: annotate("train.step", 3))
+    assert off <= max(0.5e-6, 2.0 * per_call(lambda: bare)), off
+
+
+def _user_annotations(prof, tmp_path):
+    path = str(tmp_path / "spans.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"]: e for e in events
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation"}
+
+
+@pytest.mark.parametrize("nested", [False, True], ids=["flat", "nested"])
+def test_spans_land_in_the_table_and_the_chrome_trace(tmp_path, nested):
+    # each span is one record of the table and one user_annotation of the
+    # trace; durations agree within 50 us + 5 %; parents hold their children
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with annotate("t.root", 3):
+            with annotate("t.a"):
+                time.sleep(0.004)
+                if nested:
+                    with annotate("t.b"):
+                        time.sleep(0.003)
+            with annotate("t.c"):
+                time.sleep(0.002)
+    names = ["t.a", "t.c", "t.root"] + (["t.b"] if nested else [])
+    table = {s.name: s for s in spans()}
+    assert sorted(table) == sorted(names) and len(spans()) == len(names)
+    trace_events = _user_annotations(prof, tmp_path)
+    for name in names:
+        span, event = table[name], trace_events[name]
+        got_us = (span.end_ns - span.start_ns) / 1e3
+        assert abs(float(event["dur"]) - got_us) <= 50.0 + 0.05 * got_us, name
+    children = {"t.root": ["t.a", "t.c"], "t.a": ["t.b"] if nested else []}
+    for parent, kids in children.items():
+        for kid in kids:
+            assert table[kid].parent == table[parent].id
+            assert table[parent].start_ns <= table[kid].start_ns
+            assert table[kid].end_ns <= table[parent].end_ns
+            outer, inner = trace_events[parent], trace_events[kid]
+            assert float(outer["ts"]) <= float(inner["ts"])
+            assert (float(inner["ts"]) + float(inner["dur"])
+                    <= float(outer["ts"]) + float(outer["dur"]))
+    assert table["t.root"].parent is None
+
+
+def test_self_time_excludes_the_child_spans():
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(2):
+            with annotate("s.outer"):
+                time.sleep(0.002)
+                with annotate("s.inner"):
+                    time.sleep(0.005)
+    outer = [s for s in spans() if s.name == "s.outer"]
+    inner = [s for s in spans() if s.name == "s.inner"]
+    assert len(outer) == len(inner) == 2
+    for o, i in zip(outer, inner):
+        assert o.child_ns == i.end_ns - i.start_ns
+        assert o.self_ns == o.end_ns - o.start_ns - o.child_ns
+        assert o.self_ns >= 1_900_000 and i.self_ns >= 4_900_000
+    assert span_totals("s.outer") == (2, sum(o.self_ns for o in outer))
+    assert span_totals("s.inner") == (2, sum(i.self_ns for i in inner))
+    assert span_totals("s.none") == (0, 0)
+
+
+@pytest.mark.parametrize("unit", [0, 5, None])
+def test_the_unit_id_is_the_root_span_s(unit):
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with annotate("u.root", unit):
+            with annotate("u.child"):
+                with annotate("u.grandchild"):
+                    pass
+        with annotate("u.other", 11):
+            with annotate("u.its_child"):
+                pass
+    got = {s.name: s.unit for s in spans()}
+    assert got == {"u.root": unit, "u.child": unit, "u.grandchild": unit,
+                   "u.other": 11, "u.its_child": 11}
+
+
+def test_the_table_drops_its_oldest_spans_past_its_bound(monkeypatch):
+    monkeypatch.setattr(profiling, "TABLE", SpanTable(4))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for i in range(7):
+            with annotate(f"d.{i}", i):
+                pass
+    assert [s.name for s in spans()] == ["d.3", "d.4", "d.5", "d.6"]
+    assert profiling.TABLE.dropped == 3
+    clear_spans()
+    assert spans() == [] and profiling.TABLE.dropped == 0
+
+
+def test_spans_of_many_threads_keep_their_own_parents():
+    # 16 threads, 50 roots each with a child, the interpreter switching
+    # threads every few microseconds: every span is kept, and each child's
+    # parent is its own thread's root
+    clear_spans()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            for i in range(50):
+                with annotate(f"m.root.{k}", i):
+                    with annotate(f"m.child.{k}"):
+                        pass
+
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            threads = [threading.Thread(target=work, args=(k,)) for k in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    records = spans()
+    assert len(records) == 16 * 100 and len({s.id for s in records}) == 1600
+    by_id = {s.id: s for s in records}
+    for s in records:
+        if ".child." in s.name:
+            root = by_id[s.parent]
+            assert root.name == s.name.replace("child", "root") and root.unit == s.unit
+
+
+def test_op_breakdown_gives_the_host_self_ms_of_each_span(capsys):
+    # the window's own spans, a call's: the stale record left before it
+    # is dropped when the window opens
+    clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with annotate("stale"):
+            pass
+    fn, x = _conv_matmul()
+
+    def slow(x):
+        with annotate("sleeper"):
+            time.sleep(0.003)
+            return fn(x)
+
+    result = op_breakdown(slow, x, steps=2, warmup=1)
+    assert sorted(result.spans) == ["conv_then_matmul", "sleeper"]
+    assert 2.9 <= result.spans["sleeper"] < result.host_ms
+    assert 0 < result.spans["conv_then_matmul"] < result.host_ms
+    assert "sleeper" not in result and span_totals("sleeper")[0] == 2
+    out = capsys.readouterr().out
+    assert "ms/step host self  sleeper" in out and "conv_then_matmul" in out
+    assert "stale" not in out

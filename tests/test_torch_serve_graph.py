@@ -356,3 +356,58 @@ def test_odometry_pads_the_last_batch_and_matches_jax_s_cli(mini_kitti, tmp_path
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
     assert np.abs(got[-1] - got[0]).max() > 1e-3
     assert jax_metrics["frames"] == eager["frames"]
+
+
+class _RampDepth(nn.Module):
+    """[B, H, W, 3] -> [B, H, W] depth from 5 to 35 m, the image's mean
+    added: a depth function without a network."""
+
+    def forward(self, img):
+        ramp = torch.linspace(5.0, 35.0, img.shape[2], device=img.device)
+        return ramp.expand(img.shape[:3]) + img.mean(-1)
+
+
+@pytest.mark.parametrize("graphs", [False, True], ids=["eager", "graph_path"])
+@pytest.mark.parametrize("cameras", [1, 2], ids=["process", "process_batch"])
+def test_each_frame_records_its_serving_spans(tmp_path, cameras, graphs):
+    # under a profiler, one pseudolidar.frame (its unit the frame index),
+    # copy_out and compact a process call or rig step; no wait on the CPU;
+    # on the graph path one graph.copy_in a call after the first, inside
+    # the frame. Off, nothing is recorded and the answers are the same
+    from unsupervised_pseuso_lidar_tpu_torch.utils import profiling
+
+    pipeline = DepthToPointCloudPipeline(_RampDepth(),
+                                         PseudoLiDAR(_write_calib(tmp_path / "calib"),
+                                                     device="cpu"), device="cpu")
+    if graphs:
+        _static(pipeline)
+    frames = _frames(7, 3 * cameras)
+
+    def call(i):
+        if cameras == 1:
+            return [pipeline.process(frames[i], i)]
+        return pipeline.process_batch(frames[2 * i:2 * i + 2], i)
+
+    profiling.clear_spans()
+    off = [call(i) for i in range(3)]
+    assert profiling.spans() == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = [call(i) for i in range(3)]
+    for got, want in zip(on, off):
+        for a, b in zip(got, want):
+            _assert_same(a, b)
+    assert sum(len(r.points) for results in on for r in results) > 0
+    records = profiling.spans()
+    frames_spans = [s for s in records if s.name == "pseudolidar.frame"]
+    assert [s.unit for s in frames_spans] == [0, 1, 2]
+    assert all(s.parent is None for s in frames_spans)
+    roots = {s.id for s in frames_spans}
+    for name in ("pseudolidar.copy_out", "pseudolidar.compact"):
+        mine = [s for s in records if s.name == name]
+        assert len(mine) == 3 and all(s.parent in roots for s in mine), name
+        assert [s.unit for s in mine] == [0, 1, 2]
+    assert profiling.span_totals("pseudolidar.wait") == (0, 0)
+    copies = [s for s in records if s.name == "graph.copy_in"]
+    # the graph path's first call here is its third: it replays
+    assert len(copies) == (3 if graphs else 0)
+    assert all(s.unit in (0, 1, 2) for s in copies)

@@ -557,3 +557,35 @@ def test_trainer_runs_epochs_on_the_cpu():
     bad.datasets.augmentation.hflip = bad.action.semi_sup_pose = True
     with pytest.raises(ValueError, match="hflip"):
         bad.validate()
+
+
+@pytest.mark.parametrize("graphs", [False, True], ids=["eager", "graph_path"])
+def test_train_step_records_its_spans(graphs):
+    # under a profiler, one train.step (its unit the optimizer step),
+    # train.inputs and train.schedule a step; through StepGraphs
+    # (capture=False) the graph's spans sit inside train.step
+    from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
+    from unsupervised_pseuso_lidar_tpu_torch.utils import profiling
+
+    cfg = config.load_config(CONFIG)
+    cfg.datasets.augmentation.image_height, cfg.datasets.augmentation.image_width = 32, 64
+    cfg.action.batch_size, cfg.action.precision = 2, "fp32"
+    trainer = Trainer(cfg, device="cpu", graph=False)
+    if graphs:
+        trainer.train_step.graphs = StepGraphs(torch.device("cpu"), capture=False)
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for batch in SyntheticTripletDataset(3, 2, 32, 64, seed=5, uint8_images=True).batches():
+            trainer.train_step(batch)
+    assert trainer.state.step == 3
+    records = profiling.spans()
+    steps = [s for s in records if s.name == "train.step"]
+    assert [s.unit for s in steps] == [0, 1, 2] and all(s.parent is None for s in steps)
+    roots = {s.id: s.unit for s in steps}
+    for name in ("train.inputs", "train.schedule"):
+        mine = [s for s in records if s.name == name]
+        assert [roots[s.parent] for s in mine] == [0, 1, 2], name
+    graph_spans = sorted(s.name for s in records if s.name.startswith("graph."))
+    assert graph_spans == (["graph.capture", "graph.check_weights", "graph.copy_in",
+                            "graph.copy_in", "graph.eager"] if graphs else [])
+    assert all(s.unit in roots.values() for s in records)

@@ -14,6 +14,13 @@ A frame is copied into the graph's static input, the graph is replayed
 with one launch, and its outputs are copied to the host. graph=False
 runs the module eagerly, one launch an op.
 
+Under a torch.profiler session a call records its spans
+(utils/profiling.annotate): `pseudolidar.frame` around a `process` or
+`process_batch` call (its unit id the frame index), and inside it, after
+the step graph's own, `pseudolidar.wait` (the host blocked until the
+card has the outputs; CUDA only), `pseudolidar.copy_out` (the copies to
+the host) and `pseudolidar.compact` (the clouds' numpy compaction).
+
 The streaming loop is the reference ROS graph's in one process: a feed
 thread pushes the source's frames through a bounded latest-wins queue (at
 queue_size 1, the ROS nodes' queue_size=1: a stale frame is dropped when a
@@ -37,6 +44,7 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import make_depth_cl
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
 from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
+from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import load_image
 
 
@@ -126,22 +134,30 @@ class DepthToPointCloudPipeline:
         one graph replay on the card once the batch shape is captured."""
         inputs = {"img": torch.as_tensor(imgs, dtype=torch.float32)}
         outputs = self._body(inputs) if self.graphs is None else self.graphs(self._body, inputs)
-        return tuple(t.cpu().numpy() for t in outputs)
+        if self.device.type == "cuda":
+            # the first pageable copy would block on the same work
+            with annotate("pseudolidar.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
+        with annotate("pseudolidar.copy_out"):
+            return tuple(t.cpu().numpy() for t in outputs)
 
     def process(self, img: np.ndarray, frame_index: int = 0) -> PipelineResult:
         """One [H, W, 3] frame -> depth + compacted cloud."""
-        depth, points, valid = self.infer(img[None])
-        return PipelineResult(frame_index, depth[0], points[0][valid[0]])
+        with annotate("pseudolidar.frame", frame_index):
+            depth, points, valid = self.infer(img[None])
+            with annotate("pseudolidar.compact"):
+                cloud = points[0][valid[0]]
+            return PipelineResult(frame_index, depth[0], cloud)
 
     def process_batch(self, imgs: np.ndarray, frame_index: int = 0):
         """Multi-camera step: [S, H, W, 3] synchronized frames in one
         forward -> one PipelineResult per stream."""
-        depth, points, valid = self.infer(imgs)
-        return [
-            PipelineResult(frame_index, depth[s], points[s][valid[s]],
-                           stream_index=s)
-            for s in range(depth.shape[0])
-        ]
+        with annotate("pseudolidar.frame", frame_index):
+            depth, points, valid = self.infer(imgs)
+            with annotate("pseudolidar.compact"):
+                clouds = [points[s][valid[s]] for s in range(depth.shape[0])]
+            return [PipelineResult(frame_index, depth[s], cloud, stream_index=s)
+                    for s, cloud in enumerate(clouds)]
 
     def _stream(self, payloads, handle: Callable[[int, np.ndarray], None],
                 queue_size: int) -> int:

@@ -57,6 +57,14 @@ moved instead (reset() drops the graphs and takes them as they are).
 With capture=False (the CPU) the same protocol runs the body on the
 static buffers instead of capturing it: what the CPU tests hold against
 the eager step, bit for bit.
+
+Under a torch.profiler session a call records its spans
+(utils/profiling.annotate): `graph.check_weights` (the modules' storage
+checked once a graph exists), `graph.eager` and `graph.capture` (a
+signature's first and second calls), `graph.copy_in` (the inputs copied
+into the static buffers, at the capture and before every replay),
+`graph.replay` and `graph.clone_out`. Nothing inside a captured body has
+a span: a capture records none, and a replay runs no host code.
 """
 
 from __future__ import annotations
@@ -72,6 +80,7 @@ import torch.distributed as dist
 from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
+from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
 
 Body = Callable[..., Any]  # body(inputs: Dict[str, torch.Tensor], *static)
 
@@ -147,6 +156,13 @@ def _moved(storage: list) -> bool:
     return False
 
 
+def _copy_in(static: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor]) -> None:
+    """Copy a call's inputs into a graph's static buffers."""
+    with annotate("graph.copy_in"):
+        for k, v in inputs.items():
+            static[k].copy_(v, non_blocking=True)
+
+
 @dataclass
 class Captured:
     """One signature's graph: its static input buffers, the outputs its
@@ -192,12 +208,15 @@ class StepGraphs:
         docstring). `static`: hashable host values that body takes after
         `inputs`, as jit's static arguments; each tuple of values has
         graphs of its own."""
-        if self.graphs and _moved(self._storage):
-            raise RuntimeError(
-                "a parameter, buffer or submodule that these CUDA graphs read was "
-                "replaced or moved after the capture; copy new weights into the "
-                "tensors in place (load_state_dict, load_serving_weights) or call "
-                "reset() first")
+        if self.graphs:
+            with annotate("graph.check_weights"):
+                moved = _moved(self._storage)
+            if moved:
+                raise RuntimeError(
+                    "a parameter, buffer or submodule that these CUDA graphs read was "
+                    "replaced or moved after the capture; copy new weights into the "
+                    "tensors in place (load_state_dict, load_serving_weights) or call "
+                    "reset() first")
         inputs = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                   for k, v in inputs.items()}
         backends = torch.backends
@@ -206,23 +225,26 @@ class StepGraphs:
                backends.cudnn.benchmark,
                *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
         if key not in self._warm:
-            outputs = self._eager(body, inputs, static)
+            with annotate("graph.eager"):
+                outputs = self._eager(body, inputs, static)
             self._warm.add(key)
             return outputs
         captured = self.graphs.get(key)
         if captured is None:
             if not self.graphs:
                 self._storage = _storage_of(self.modules)
-            captured = self.graphs[key] = self._capture(body, inputs, static)
+            with annotate("graph.capture"):
+                captured = self.graphs[key] = self._capture(body, inputs, static)
         else:
-            for k, v in inputs.items():
-                captured.static[k].copy_(v, non_blocking=True)
+            _copy_in(captured.static, inputs)
         if captured.graph is None:
             return body(captured.static, *static)
-        captured.graph.replay()
+        with annotate("graph.replay"):
+            captured.graph.replay()
         self.replays += 1
         kernels.add_launches(captured.launches)
-        return _map(torch.clone, captured.outputs)
+        with annotate("graph.clone_out"):
+            return _map(torch.clone, captured.outputs)
 
     def _eager(self, body: Body, inputs: Dict[str, torch.Tensor], args: tuple) -> Any:
         if not self.capture:
@@ -243,8 +265,7 @@ class StepGraphs:
     def _capture(self, body: Body, inputs: Dict[str, torch.Tensor], args: tuple) -> Captured:
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
                   for k, v in inputs.items()}
-        for k, v in inputs.items():
-            static[k].copy_(v, non_blocking=True)
+        _copy_in(static, inputs)
         if not self.capture:
             return Captured(None, static, None, {}, 0.0)
         if self.pool is None:

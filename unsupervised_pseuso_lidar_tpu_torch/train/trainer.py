@@ -93,6 +93,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
 from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant, resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
+from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -733,13 +734,20 @@ class TrainStep:
                 *(p.grad for group in optimizer.param_groups for p in group["params"])]
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One optimizer step on `batch`. Under a torch.profiler session it
+        records the spans `train.step` (unit id: the optimizer step),
+        `train.inputs` (inputs and host_values) and `train.schedule`
+        (utils/profiling.annotate), around the step graphs' own."""
         state = self.state
-        if self.mesh is not None:
-            batch = shard_batch(self.mesh, batch, self.accum_steps)
-        metrics = self.run(self.body, self.inputs(batch, state.step),
-                           sharded_height(self.mesh, batch))
-        state.scheduler.step()
-        state.step += 1
+        with annotate("train.step", state.step):
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, batch, self.accum_steps)
+            with annotate("train.inputs"):
+                inputs = self.inputs(batch, state.step)
+            metrics = self.run(self.body, inputs, sharded_height(self.mesh, batch))
+            with annotate("train.schedule"):
+                state.scheduler.step()
+            state.step += 1
         return metrics
 
 

@@ -1,19 +1,40 @@
-"""Profiling and step timing on torch.profiler.
+"""Profiling on torch.profiler, and the program's spans.
 
 Counterpart of unsupervised_pseuso_lidar_tpu/utils/profiling.py
-(hard_sync :29, trace :60, annotate :70, StepTimer :77-124): a completion
-barrier for timed regions, a profiler trace around a region of training
-(a ``*.pt.trace.json`` that Perfetto and TensorBoard open), named
-sub-regions in it, and a step timer whose summary is a metric.
+(hard_sync :29, trace :60, annotate :70): a completion barrier for timed
+regions, a profiler trace around a region of training (a
+``*.pt.trace.json`` that Perfetto and TensorBoard open), and named spans
+in it.
+
+A span, ``with annotate(name, unit):``, marks a region of the program at
+a layer boundary (serving's wait, copies and compaction, a step graph's
+copies and replay, the training step's host work). With no torch.profiler
+session active it reads one flag and does nothing else: no
+record_function, no clock, no allocation. Under a session it opens
+``record_function(name)``, so that the span lands in the chrome trace on
+the profiler's clock beside the card's events, and when it closes it
+appends one Span to an in-memory table: its name, start and end
+(``time.perf_counter_ns``), the time its child spans took, its id and its
+parent's (the span open around it on the same thread), and the unit id
+(a frame index, an optimizer step) its root span was given. The table
+keeps the newest MAX_SPANS records and counts those it dropped;
+``spans()``, ``span_totals(name)`` and ``clear_spans()`` read and empty
+it. A span's self time is its duration less its children's.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+
+MAX_SPANS = 2 ** 16
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -63,59 +84,125 @@ def trace(log_dir: str, device=None) -> Iterator[None]:
         yield
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named sub-region inside an active trace."""
-    with torch.profiler.record_function(name):
-        yield
+class Span(NamedTuple):
+    """One closed span of the table (module docstring); times in ns of
+    time.perf_counter_ns."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    child_ns: int  # inside the span's child spans
+    id: int
+    parent: Optional[int]  # the enclosing span's id; None at a root
+    unit: Optional[int]  # the root span's unit id
+
+    @property
+    def self_ns(self) -> int:
+        return self.end_ns - self.start_ns - self.child_ns
 
 
-class StepTimer:
-    """Wall-clock step timing with percentile summaries.
+class SpanTable:
+    """The newest `size` Spans, oldest first, and how many were dropped to
+    keep to that bound."""
 
-    Blocks on the step outputs (hard_sync) before stopping the clock only
-    when `blocking=True`; otherwise it measures the dispatch cadence.
-    """
+    def __init__(self, size: int = MAX_SPANS):
+        self.records: collections.deque = collections.deque(maxlen=size)
+        self.dropped = 0
+        self._lock = threading.Lock()
 
-    def __init__(self, blocking: bool = True):
-        self.blocking = blocking
-        self.samples: List[float] = []
-        self._t0: Optional[float] = None
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self.records) == self.records.maxlen:
+                self.dropped += 1
+            self.records.append(span)
 
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
+    def clear(self) -> None:
+        with self._lock:
+            self.records.clear()
+            self.dropped = 0
 
-    def stop(self, outputs=None) -> float:
-        if self.blocking and outputs is not None:
-            hard_sync(outputs)
-        dt = time.perf_counter() - (self._t0 or time.perf_counter())
-        self.samples.append(dt)
-        return dt
 
-    @contextlib.contextmanager
-    def step(self, outputs_fn=None):
-        """Time one step; `outputs_fn` (called AFTER the body) returns the
-        step outputs so blocking mode can sync on them:
+TABLE = SpanTable()
+_ids = itertools.count()
+_open = threading.local()  # .stack: this thread's open spans, innermost last
 
-            with timer.step(lambda: out):
-                out = step(batch)
-        """
-        self.start()
-        yield
-        self.stop(outputs_fn() if outputs_fn is not None else None)
 
-    def summary(self, batch_size: Optional[int] = None) -> Dict[str, float]:
-        if not self.samples:
-            return {}
-        xs = sorted(self.samples)
-        n = len(xs)
-        out = {
-            "steps": float(n),
-            "mean_s": sum(xs) / n,
-            "p50_s": xs[n // 2],
-            "p95_s": xs[min(n - 1, int(n * 0.95))],
-            "max_s": xs[-1],
-        }
-        if batch_size:
-            out["frames_per_sec"] = batch_size / out["mean_s"]
-        return out
+class _Off:
+    """What annotate returns with no profiler session: a ``with`` that does
+    nothing, one object for every span."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, kind, value, traceback) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+class _Open:
+    """A span under a profiler session (module docstring)."""
+
+    __slots__ = ("name", "id", "parent", "unit", "start_ns", "child_ns", "record")
+
+    def __init__(self, name: str, unit: Optional[int]):
+        self.name, self.unit = name, unit
+
+    def __enter__(self) -> None:
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        outer = stack[-1] if stack else None
+        self.id, self.parent = next(_ids), outer.id if outer else None
+        if self.unit is None and outer is not None:
+            self.unit = outer.unit
+        self.child_ns = 0
+        stack.append(self)
+        # the clock outside record_function: the trace's event lies within
+        # the table's span, which holds the instrument's own cost
+        self.start_ns = time.perf_counter_ns()
+        self.record = torch.profiler.record_function(self.name)
+        self.record.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self.record.__exit__(*exc)
+        end = time.perf_counter_ns()
+        stack = _open.stack
+        stack.pop()
+        if stack:
+            stack[-1].child_ns += end - self.start_ns
+        TABLE.add(Span(self.name, self.start_ns, end, self.child_ns, self.id, self.parent,
+                       self.unit))
+
+
+def annotate(name: str, unit: Optional[int] = None):
+    """A span named `name` (module docstring) around a ``with`` block; `unit`
+    is the unit id of a root span (its children take their root's). Off,
+    with no torch.profiler session active, it is one flag read."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(name, unit)
+
+
+def spans() -> List[Span]:
+    """The table's Spans, in the order they closed (children before their
+    parents)."""
+    return list(TABLE.records)
+
+
+def span_totals(name: str) -> Tuple[int, int]:
+    """(count, total self ns) of the table's spans named `name`."""
+    count = total = 0
+    for span in TABLE.records:
+        if span.name == name:
+            count += 1
+            total += span.self_ns
+    return count, total
+
+
+def clear_spans() -> None:
+    """Empty the table and its count of dropped spans."""
+    TABLE.clear()

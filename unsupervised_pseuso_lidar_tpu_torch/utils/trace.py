@@ -31,7 +31,10 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import (
+    clear_spans,
     hard_sync,
+    span_totals,
+    spans,
     tensor_leaves,
     trace,
     uses_cuda,
@@ -163,11 +166,13 @@ class Breakdown(dict):
     call in which the device ran at least one event: the union of their
     intervals, less than total_ms where events overlap, as the kernels of
     a CUDA graph may; total_ms when not given), `busy` (busy_ms / host_ms:
-    on a CUDA run the device's busy share; 1 - busy is its idle share) and
-    `on_device`."""
+    on a CUDA run the device's busy share; 1 - busy is its idle share),
+    `on_device` and `spans` ({program span: its host self ms a call in the
+    window}, utils/profiling.annotate; op_breakdown fills it)."""
 
     def __init__(self, rows: Rows, steps: int, host_ms: float, on_device: bool,
                  busy_ms: float | None = None):
+        self.spans: Dict[str, float] = {}
         super().__init__((fam, ms / steps) for fam, ms, _ in rows)
         self.counts = {fam: count for fam, _, count in rows}
         self.steps = steps
@@ -203,6 +208,8 @@ def print_breakdown(result: Breakdown, top: int = 20) -> None:
           f"{result.host_ms:.3f} ms/step host window: {share} {result.busy:.3f}"
           + (f" ({result.busy_ms:.3f} ms/step busy)" if result.on_device else ""),
           flush=True)
+    for name, ms in result.spans.items():
+        print(f"[trace] span {ms:9.3f} ms/step host self  {name}", flush=True)
 
 
 def op_breakdown(
@@ -215,7 +222,9 @@ def op_breakdown(
     verbose: bool = True,
 ) -> Breakdown:
     """Run `fn(*args)` `warmup` times, then `steps` times under a
-    torch.profiler trace; return ms a call by op family (a Breakdown).
+    torch.profiler trace; return ms a call by op family (a Breakdown),
+    and the host self ms a call of each program span the window recorded
+    (Breakdown.spans; the span table is emptied when the window opens).
 
     The run is a CUDA run when a tensor of `args` or of fn's output lies
     on a card (with no tensor in either: when a card is available). The
@@ -241,6 +250,7 @@ def op_breakdown(
         directory = trace_dir or stack.enter_context(
             tempfile.TemporaryDirectory(prefix="torch_trace_"))
         with trace(directory, device="cuda" if on_cuda else "cpu"):
+            clear_spans()
             t0 = time.perf_counter()
             for _ in range(steps):
                 out = fn(*args)
@@ -250,6 +260,8 @@ def op_breakdown(
         if path is None:
             raise RuntimeError(f"op_breakdown: torch.profiler wrote no trace to {directory}")
         result = breakdown_from_trace(path, steps, host_ms, on_cuda)
+    names = dict.fromkeys(span.name for span in spans())
+    result.spans = {name: span_totals(name)[1] / 1e6 / steps for name in names}
     if verbose:
         print_breakdown(result, top)
     return result
