@@ -912,6 +912,59 @@ def test_captured_pipeline_matches_the_eager_one(cuda, deterministic, tmp_path, 
     assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
 
 
+def _pool_bytes(pool) -> int:
+    """Bytes in the segments of the CUDA graph memory pool `pool`."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
+@pytest.mark.parametrize("cudnn_deterministic", [True, False], ids=["deterministic", "default"])
+@pytest.mark.parametrize("streams", [1, 2], ids=["batch1", "rig2"])
+def test_captured_pipeline_compacts_on_the_card_as_the_eager_one(cuda, tmp_path, monkeypatch,
+                                                                 streams, cudnn_deterministic):
+    # 5 frames (or rig steps), each camera's cloud compacted inside the
+    # captured graph (captured with capture_error_mode="thread_local", so
+    # nothing in it waits on the host): depth and clouds equal the eager
+    # pipeline's bit for bit and numpy's points[valid] of the uncompacted
+    # program, with cuDNN deterministic and without; a result held over
+    # the later replays keeps its values; the graph pool's bytes are
+    # reported beside infer's uncompacted graph's
+    from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.pipeline import (
+        DepthToPointCloudPipeline,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", cudnn_deterministic)
+    _, captured, eager = _serve_pipelines(cuda, tmp_path, "fp32")
+    frames = np.random.default_rng(10 + streams).normal(
+        size=(5, streams, 64, 96, 3)).astype(np.float32)
+    held = None
+    for i, rig in enumerate(frames):
+        got, want = _serve(captured, rig, i), _serve(eager, rig, i)
+        depth, points, valid = eager.infer(rig)
+        for s, (a, b) in enumerate(zip(got, want)):
+            assert (a.frame_index, a.stream_index) == (b.frame_index, b.stream_index)
+            assert np.array_equal(a.depth, b.depth) and np.array_equal(a.depth, depth[s])
+            assert a.points.shape == b.points.shape and np.array_equal(a.points, b.points)
+            assert np.array_equal(a.points, points[s][valid[s]]) and len(a.points) > 0
+        if i == 2:
+            held = got, [(r.depth.copy(), r.points.copy()) for r in got]
+    for result, (d, p) in zip(*held):
+        assert np.array_equal(result.depth, d) and np.array_equal(result.points, p)
+    assert captured.card_compactions == eager.card_compactions == 5 * streams
+    assert captured.kept_points == eager.kept_points > 0
+    compacting = _pool_bytes(captured.graphs.pool)
+    # the uncompacted program captured alone, in a pool of its own
+    uncompacted = DepthToPointCloudPipeline(captured._fused.depth_fn, captured.projector,
+                                            device=cuda)
+    for rig in frames[:3]:
+        uncompacted.infer(rig)
+    pools = (f"graph pool bytes at 64x96, {streams} camera(s): compacting {compacting}, "
+             f"uncompacted {_pool_bytes(uncompacted.graphs.pool)}")
+    print(pools)
+    assert len(captured.graphs.graphs) == 1 and captured.graphs.replays == 4, pools
+    assert compacting > 0, pools
+
+
 def test_captured_pipeline_serves_weights_loaded_in_place(cuda, deterministic, tmp_path):
     # weights copied into the live parameters after the capture are what
     # the next replay serves; a replaced parameter makes the next call

@@ -411,3 +411,72 @@ def test_each_frame_records_its_serving_spans(tmp_path, cameras, graphs):
     # the graph path's first call here is its third: it replays
     assert len(copies) == (3 if graphs else 0)
     assert all(s.unit in (0, 1, 2) for s in copies)
+
+
+def _ramp_pipeline(tmp_path, sparsity=0, max_high=1.0):
+    """A _RampDepth pipeline on the graph path's CPU protocol."""
+    projector = PseudoLiDAR(_write_calib(tmp_path / "calib"), sparsity=sparsity,
+                            max_high=max_high, device="cpu")
+    return _static(DepthToPointCloudPipeline(_RampDepth(), projector, device="cpu"))
+
+
+@pytest.mark.parametrize("sparsity,max_high,cameras,scale,offset", [
+    (0, 1.0, 1, 1.0, 0.0),
+    (3, 1.0, 1, 1.0, 0.0),
+    (0, 1.0, 1, 0.0, -1e3),  # every depth negative: no pixel kept
+    (0, 1e9, 1, 0.0, 0.0),  # no crop on a scene ahead: every pixel kept
+    (0, 1.0, 2, 40.0, 0.0),  # a rig of two, each camera its own count
+], ids=["sparsity0", "sparsity3", "none_kept", "all_kept", "rig2"])
+def test_the_device_compaction_is_numpy_s_bit_for_bit(tmp_path, sparsity, max_high, cameras,
+                                                      scale, offset):
+    # process / process_batch, 3 calls (eager, "capture", "replay"): each
+    # camera's cloud equals numpy's points[valid] of the uncompacted
+    # program (infer) bit for bit, in pixel order, and its depth infer's;
+    # the counters advance once a camera frame, by its kept count
+    pipeline = _ramp_pipeline(tmp_path, sparsity, max_high)
+    frames = (_frames(8, 3 * cameras) * scale + offset).reshape(3, cameras, HEIGHT, WIDTH, 3)
+    kept = []
+    for i, rig in enumerate(frames):
+        before = pipeline.card_compactions, pipeline.kept_points
+        got = ([pipeline.process(rig[0], i)] if cameras == 1
+               else pipeline.process_batch(rig, i))
+        depth, points, valid = pipeline.infer(rig)
+        assert len(got) == cameras
+        for s, result in enumerate(got):
+            want = points[s][valid[s]]
+            assert result.points.dtype == np.float32 and result.points.shape == want.shape
+            assert np.array_equal(result.points, want) and np.array_equal(result.depth, depth[s])
+        counts = [len(r.points) for r in got]
+        assert (pipeline.card_compactions, pipeline.kept_points) == (
+            before[0] + cameras, before[1] + sum(counts))
+        kept += counts
+    if offset < 0:
+        assert kept == [0] * 3
+    elif max_high > 1e6:
+        assert kept == [HEIGHT * WIDTH] * 3
+    else:
+        assert 0 < min(kept) and max(kept) < HEIGHT * WIDTH
+    if cameras == 2:
+        assert all(a != b for a, b in zip(kept[::2], kept[1::2]))
+    assert len(pipeline.graphs.graphs) == 2  # process's body and infer's
+
+
+@pytest.mark.parametrize("cameras", [1, 2], ids=["process", "process_batch"])
+def test_a_held_result_is_not_written_by_later_frames(tmp_path, cameras):
+    # a result's depth and cloud, held while the next two frames of its
+    # batch shape are served (the last a replay), keep their values
+    pipeline = _ramp_pipeline(tmp_path)
+    frames = (_frames(9, 4 * cameras) * 40.0).reshape(4, cameras, HEIGHT, WIDTH, 3)
+
+    def serve(i):
+        if cameras == 1:
+            return [pipeline.process(frames[i, 0], i)]
+        return pipeline.process_batch(frames[i], i)
+
+    serve(0)
+    held = serve(1)
+    copies = [(r.depth.copy(), r.points.copy()) for r in held]
+    later = [serve(i) for i in (2, 3)]
+    for result, (depth, points) in zip(held, copies):
+        assert np.array_equal(result.depth, depth) and np.array_equal(result.points, points)
+    assert not np.array_equal(later[-1][0].depth, held[0].depth)

@@ -7,19 +7,25 @@ Counterpart of unsupervised_pseuso_lidar_tpu/pseudolidar/pipeline.py
 projector run as one module (pseudolidar/export.make_depth_cloud_fn) on
 the pipeline's device, and results come back as numpy.
 
-JAX jits that module (`self._fused = jax.jit(fused)`); on the card the
-port runs it as CUDA graphs (train/graph.StepGraphs), one a batch shape:
-a one-camera stream and a rig each replay one graph a frame or rig step.
-A frame is copied into the graph's static input, the graph is replayed
-with one launch, and its outputs are copied to the host. graph=False
-runs the module eagerly, one launch an op.
+JAX jits that module (`self._fused = jax.jit(fused)`) and compacts its
+clouds with numpy; on the card the port runs it as CUDA graphs
+(train/graph.StepGraphs), one a batch shape: a one-camera stream and a
+rig each replay one graph a frame or rig step. `process` and
+`process_batch` serve a body that also compacts each camera's cloud on
+the device (projector.partition_kept: the kept points first, in pixel
+order, and their count), so the host copies depth and the kept rows
+alone. A frame is copied into the graph's static input, the graph is
+replayed with one launch, the counts are read and depth and the kept
+rows are copied to the host. graph=False runs the same body eagerly, one
+launch an op.
 
 Under a torch.profiler session a call records its spans
 (utils/profiling.annotate): `pseudolidar.frame` around a `process` or
 `process_batch` call (its unit id the frame index), and inside it, after
 the step graph's own, `pseudolidar.wait` (the host blocked until the
-card has the outputs; CUDA only), `pseudolidar.copy_out` (the copies to
-the host) and `pseudolidar.compact` (the clouds' numpy compaction).
+card has the outputs; CUDA only), `pseudolidar.compact` (what compaction
+leaves to the host: the kept counts read, each camera's rows chosen) and
+`pseudolidar.copy_out` (depth and the kept rows copied to the host).
 
 The streaming loop is the reference ROS graph's in one process: a feed
 thread pushes the source's frames through a bounded latest-wins queue (at
@@ -41,7 +47,10 @@ import numpy as np
 import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.export import make_depth_cloud_fn
-from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import PseudoLiDAR
+from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
+    PseudoLiDAR,
+    partition_kept,
+)
 from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
@@ -102,6 +111,9 @@ class DepthToPointCloudPipeline:
     copied in place (load_serving_weights, load_state_dict) are served by
     the next frame; a parameter replaced by another tensor makes the next
     call raise until reset() drops the graphs.
+
+    Counters: `card_compactions`, the camera frames whose cloud was
+    compacted on the device, and `kept_points`, their points kept in all.
     """
 
     def __init__(self, depth_fn: Callable, projector: PseudoLiDAR,
@@ -115,6 +127,8 @@ class DepthToPointCloudPipeline:
         self._fused = make_depth_cloud_fn(depth_fn, projector)
         self.graphs = (StepGraphs(self.device, modules=[self._fused])
                        if graph_enabled(graph, self.device) else None)
+        self.card_compactions = 0
+        self.kept_points = 0
 
     def reset(self) -> None:
         """Drop the graphs: the next frame of each batch shape runs eagerly
@@ -125,37 +139,57 @@ class DepthToPointCloudPipeline:
     @torch.no_grad()
     def _body(self, inputs):
         """(depth, points, valid) of a [B, H, W, 3] float32 batch: what a
-        graph of the pipeline captures."""
+        graph of `infer` captures."""
         return self._fused(inputs["img"].to(self.device))
+
+    @torch.no_grad()
+    def _compacting_body(self, inputs):
+        """(depth [B, H, W], points [B, H·W, 4] each camera's kept points
+        first, count [B]) of a [B, H, W, 3] float32 batch: what a graph of
+        `process` and `process_batch` captures."""
+        depth, points, valid = self._body(inputs)
+        return (depth, *partition_kept(points, valid))
+
+    def _run(self, body, imgs: np.ndarray):
+        """body on a [B, H, W, 3] batch, one graph replay once the batch
+        shape is captured; on CUDA the host then waits for its outputs (the
+        first pageable copy would block on the same work)."""
+        inputs = {"img": torch.as_tensor(imgs, dtype=torch.float32)}
+        outputs = body(inputs) if self.graphs is None else self.graphs(body, inputs)
+        if self.device.type == "cuda":
+            with annotate("pseudolidar.wait"):
+                torch.cuda.current_stream(self.device).synchronize()
+        return outputs
 
     def infer(self, imgs: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """[B, H, W, 3] frames -> the program's (depth [B, H, W], points
         [B, H·W, 4], valid [B, H·W]) on the host, the clouds not compacted:
         one graph replay on the card once the batch shape is captured."""
-        inputs = {"img": torch.as_tensor(imgs, dtype=torch.float32)}
-        outputs = self._body(inputs) if self.graphs is None else self.graphs(self._body, inputs)
-        if self.device.type == "cuda":
-            # the first pageable copy would block on the same work
-            with annotate("pseudolidar.wait"):
-                torch.cuda.current_stream(self.device).synchronize()
+        outputs = self._run(self._body, imgs)
         with annotate("pseudolidar.copy_out"):
             return tuple(t.cpu().numpy() for t in outputs)
 
     def process(self, img: np.ndarray, frame_index: int = 0) -> PipelineResult:
-        """One [H, W, 3] frame -> depth + compacted cloud."""
-        with annotate("pseudolidar.frame", frame_index):
-            depth, points, valid = self.infer(img[None])
-            with annotate("pseudolidar.compact"):
-                cloud = points[0][valid[0]]
-            return PipelineResult(frame_index, depth[0], cloud)
+        """One [H, W, 3] frame -> depth + compacted cloud. The cloud is
+        compacted on the pipeline's device; `pseudolidar.compact` holds
+        the count's read and the rows' choice, `pseudolidar.copy_out` the
+        copies of depth and the kept rows (module docstring)."""
+        return self.process_batch(img[None], frame_index)[0]
 
     def process_batch(self, imgs: np.ndarray, frame_index: int = 0):
         """Multi-camera step: [S, H, W, 3] synchronized frames in one
-        forward -> one PipelineResult per stream."""
+        forward -> one PipelineResult per stream, each cloud compacted on
+        the device and only its kept rows copied, as in `process`."""
         with annotate("pseudolidar.frame", frame_index):
-            depth, points, valid = self.infer(imgs)
+            depth, points, count = self._run(self._compacting_body, imgs)
             with annotate("pseudolidar.compact"):
-                clouds = [points[s][valid[s]] for s in range(depth.shape[0])]
+                counts = count.tolist()
+                kept = [points[s, :n] for s, n in enumerate(counts)]
+            with annotate("pseudolidar.copy_out"):
+                depth = depth.cpu().numpy()
+                clouds = [rows.cpu().numpy() for rows in kept]
+            self.card_compactions += len(counts)
+            self.kept_points += sum(counts)
             return [PipelineResult(frame_index, depth[s], cloud, stream_index=s)
                     for s, cloud in enumerate(clouds)]
 

@@ -4,7 +4,7 @@ Counterpart of unsupervised_pseuso_lidar_tpu/pseudolidar/projector.py
 (depth_to_pointcloud :28, PseudoLiDAR :96, save_cloud :129). The batched
 op keeps the static-shape contract: (points [B, H·W, 4], valid [B, H·W])
 with the crop and sparsity folded into the mask; project_PL compacts on
-the host.
+the host, partition_kept on the device (the serving pipeline's graphs).
 """
 
 from __future__ import annotations
@@ -72,6 +72,36 @@ def depth_to_pointcloud(
         idx = torch.arange(height * width, device=depth.device)[None, :]
         valid = valid & (idx % sparsity == 0)
     return velo, valid
+
+
+def partition_kept(points: torch.Tensor, valid: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each cloud compacted on its device, at a static shape: (points
+    [B, N, 4] stably partitioned, count [B] int32) of points [B, N, 4] and
+    valid [B, N]. Row r < count[b] holds the (r + 1)-th kept point of
+    cloud b in pixel order, so points[b, :count[b]] is points[b][valid[b]]
+    bit for bit; the dropped points follow in their own order.
+
+    The inclusive cumsum of `valid` gives each kept pixel its row (and of
+    ~valid each dropped one's, after the kept). Each row finds its pixel
+    by a binary search of those sums and gathers it: every row reads one
+    pixel and no two write one place, so the result is the same on every
+    device and in torch's and cuDNN's deterministic modes alike, and
+    nothing waits on the host (a CUDA graph can hold it). Indices are
+    int32."""
+    batch, n = valid.shape
+    kept = torch.cumsum(valid, dim=1, dtype=torch.int32)
+    count = kept[:, -1]
+    rows = torch.arange(1, n + 1, dtype=torch.int32, device=valid.device).repeat(batch, 1)
+    dropped = rows - kept
+    pixel = torch.where(
+        rows <= count[:, None],
+        torch.searchsorted(kept, rows, out_int32=True),
+        torch.searchsorted(dropped, rows - count[:, None], out_int32=True))
+    pixel = pixel + torch.arange(0, batch * n, n, dtype=torch.int32,
+                                 device=valid.device)[:, None]
+    flat = points.reshape(batch * n, points.shape[-1])
+    return flat.index_select(0, pixel.reshape(-1)).reshape(points.shape), count
 
 
 class PseudoLiDAR:
