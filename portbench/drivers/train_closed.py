@@ -10,14 +10,16 @@ first runs eagerly, the second captures the CUDA graph, the third
 replays it. They are the steps the reference follows. The window then
 calls the same object on the following batches, in turn, until `seconds`
 have passed; the card is synchronized before the first and after the
-last step. A traced run then profiles `trace_units` more steps.
+last step. A traced run then profiles `trace_units` more steps; the
+rooflines count the loss kernels' launches by the depth net's outputs
+(`shapes["outputs"]`, the program's trainer.depth_scales).
 
 After the window the program is freed and the plain reference
 (reference/loss.py, and reference/nets/<name>.py for the depth and pose
 nets the trainer settings name, built from the same keyword arguments)
-takes the same weights (filled
-from the same seed) and the same batches through the checked steps in full
-float32. Compared, each against its limit (limits/<cell>.json):
+takes the same weights (filled from the same seed) and the same batches
+through the checked steps in full float32, the loss over every output of
+the depth net. Compared, each against its limit (limits/<cell>.json):
 
 - grad_gap: over the leaves, the largest gap between the norm of the
   program's first gradient, worked out from Adam's first moment after
@@ -189,7 +191,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.d
     """One run of the cell (module docstring). control=True runs the
     program's bf16 path, the precision below the configuration's."""
     from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
-    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer
+    from unsupervised_pseuso_lidar_tpu_torch.train.trainer import Trainer, depth_scales
 
     config, traffic = cell.config, cell.traffic
     dev.apply_flags(config["flags"])
@@ -250,7 +252,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: torch.d
             outcome.facts.update(
                 pool_bytes=dev.pool_bytes(device, graphs.pool if graphs else None),
                 flops_per_unit=model_flops_per_step(trainer_config),
-                shapes={"batch": b, "height": h, "width": w})
+                shapes={"batch": b, "height": h, "width": w,
+                        "outputs": len(depth_scales(trainer.state.depth_model))})
         del trainer, named
         checked_batches = batches[:checked]
         del batches

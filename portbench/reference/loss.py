@@ -18,6 +18,21 @@ warp, second-order smoothness) as the benchmarked program configures it.
 - smoothness: the mean |.| of the four second differences of the target
   disparity, times the smoothness weight;
 - Adam (beta 0.9 / 0.999, eps 1e-8).
+
+A depth net with several outputs (its `scales`, one per output, (0,) where
+it names none; BtsModel's five full-resolution maps) is taken by the
+program's rules (losses/total.py, losses/reprojection.py's
+min_reprojection_loss, losses/smoothness.py's smooth_loss):
+
+- each output is a disparity map of its own, turned into depth and
+  normalized on its own;
+- 'min' and its backward leg are taken for each output against the one
+  identity error, and the reprojection loss is their mean over outputs;
+- smoothness is summed over the outputs at weights 1, 1/2.3, 1/2.3^2, ...
+  in order (smooth_loss's default decay, which the trainer keeps).
+
+Only outputs at the image's resolution (scale 0) are written here; a net
+with a coarser output raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +45,8 @@ import torch.nn.functional as F
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 C1, C2 = 1e-4, 9e-4
+# smooth_loss's weight decay from one output to the next
+SMOOTH_DECAY = 2.3
 
 
 def normalize_images(x_uint8: torch.Tensor) -> torch.Tensor:
@@ -113,22 +130,27 @@ def photometric(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (0.85 * dist + 0.15 * torch.abs(target - pred)).mean(dim=1)
 
 
-def min_reprojection(tgt, ref0, ref1, depth_tgt, depth_ref0, poses, intrinsics):
-    """The 'min' objective with the automask and the backward leg."""
+def min_reprojection(tgt, ref0, ref1, depths_tgt, depths_ref0, poses, intrinsics):
+    """The 'min' objective with the automask and the backward leg, for each
+    output's pair of depths [B, H, W] in `depths_tgt` and `depths_ref0`,
+    averaged over the outputs."""
     batch = len(tgt)
     t0, t1 = pose_matrix(poses[:, 0]), pose_matrix(poses[:, 1])
     ident_pair = photometric(torch.cat([ref0, ref1]), torch.cat([tgt, tgt]))
     ident = torch.minimum(ident_pair[:batch], ident_pair[batch:]) + 1e-5
     ident_bwd = ident_pair[:batch] + 1e-5
     k = intrinsics.repeat(3, 1, 1)
-    warped = warp(torch.cat([ref0, ref1, tgt]),
-                  torch.cat([depth_tgt, depth_tgt, depth_ref0]),
-                  torch.cat([t0, t1, invert(t0)]), k)
-    err = photometric(warped, torch.cat([tgt, tgt, ref0]))
-    err_f = torch.minimum(err[:batch], err[batch:2 * batch])
-    forward = torch.minimum(err_f, ident).mean()
-    backward = torch.minimum(err[2 * batch:], ident_bwd).mean()
-    return 0.5 * (forward + backward)
+    srcs, targets = torch.cat([ref0, ref1, tgt]), torch.cat([tgt, tgt, ref0])
+    transforms = torch.cat([t0, t1, invert(t0)])
+    per_output = []
+    for depth_tgt, depth_ref0 in zip(depths_tgt, depths_ref0):
+        warped = warp(srcs, torch.cat([depth_tgt, depth_tgt, depth_ref0]), transforms, k)
+        err = photometric(warped, targets)
+        err_f = torch.minimum(err[:batch], err[batch:2 * batch])
+        forward = torch.minimum(err_f, ident).mean()
+        backward = torch.minimum(err[2 * batch:], ident_bwd).mean()
+        per_output.append(0.5 * (forward + backward))
+    return sum(per_output[1:], per_output[0]) / len(per_output)
 
 
 def smoothness(disp: torch.Tensor) -> torch.Tensor:
@@ -141,14 +163,26 @@ def smoothness(disp: torch.Tensor) -> torch.Tensor:
     return sum(torch.abs(d).mean() for d in (dx2, dxdy, dydx, dy2))
 
 
+def output_scales(depth_net) -> tuple:
+    """The scale of each output of `depth_net` (its map 2**scale times
+    smaller than the image): its `scales`, (0,) where it names none."""
+    scales = tuple(getattr(depth_net, "scales", (0,)))
+    coarse = [s for s in scales if s]
+    if coarse:
+        raise NotImplementedError(
+            f"an output at scale {coarse[0]}: the reference takes full-resolution outputs only")
+    return scales
+
+
 def step_loss(depth_net, pose_net, batch: Dict[str, torch.Tensor], objective: Dict,
               autocast_dtype=None) -> torch.Tensor:
     """The loss of one batch {tgt [B, H, W, 3] uint8, ref_imgs [B, 2, H, W, 3]
-    uint8, intrinsics [B, 3, 3]}: the depth net on [tgt; ref0] and the pose
-    net in train mode (under autocast to `autocast_dtype` when given, the
-    loss in float32)."""
+    uint8, intrinsics [B, 3, 3]}: the depth net on [tgt; ref0], every one
+    of its outputs, and the pose net in train mode (under autocast to
+    `autocast_dtype` when given, the loss in float32)."""
     if objective["loss_mode"] != "min" or objective["smooth_on"] != "disp":
         raise ValueError("the reference implements loss_mode 'min', smooth_on 'disp'")
+    output_scales(depth_net)
     tgt = normalize_images(batch["tgt"])
     refs = normalize_images(batch["ref_imgs"])
     ref0, ref1 = refs[:, 0], refs[:, 1]
@@ -156,16 +190,20 @@ def step_loss(depth_net, pose_net, batch: Dict[str, torch.Tensor], objective: Di
     pose_net.train()
     with torch.autocast(tgt.device.type, autocast_dtype or torch.float32,
                         enabled=autocast_dtype is not None, cache_enabled=False):
-        disp = depth_net(torch.cat([tgt, ref0]))[0]
+        outputs = depth_net(torch.cat([tgt, ref0]))
         poses = pose_net(tgt, [ref0, ref1])
-    disp, poses = disp.float(), poses.float()
-    depth = disp_to_depth(disp)
+    disps, poses = [d.float() for d in outputs], poses.float()
+    depths = [disp_to_depth(d) for d in disps]
     if objective["depth_norm"]:
-        depth = normalize_depth(depth)
+        depths = [normalize_depth(d) for d in depths]
     batch_size = len(tgt)
-    reproj = min_reprojection(tgt, ref0, ref1, depth[:batch_size, 0], depth[batch_size:, 0],
-                              poses, batch["intrinsics"].float())
-    return reproj + objective["smooth_weight"] * smoothness(disp[:batch_size])
+    reproj = min_reprojection(tgt, ref0, ref1, [d[:batch_size, 0] for d in depths],
+                              [d[batch_size:, 0] for d in depths], poses,
+                              batch["intrinsics"].float())
+    smooth = smoothness(disps[0][:batch_size])
+    for i, disp in enumerate(disps[1:], 1):
+        smooth = smooth + smoothness(disp[:batch_size]) / SMOOTH_DECAY ** i
+    return reproj + objective["smooth_weight"] * smooth
 
 
 class Adam:

@@ -7,8 +7,10 @@ program's state-dict names.
 
 `build(kwargs, image_shape)` takes the keyword arguments the
 configuration gives the program's model of this name. The module returns
-its outputs as a list whose last entry is the final depth [B, 1, H, W],
-as the program's model does.
+the program's five outputs, each [B, 1, H, W] at the image's resolution
+(`scales`), in its order: the plane depths of the 8x, 4x and 2x heads
+over max_depth, the 1x1 reduction's sigmoid, and last the final depth in
+metres, which serving takes. Training takes all five as disparities.
 """
 
 from __future__ import annotations
@@ -224,12 +226,16 @@ class BtsDecoder(nn.Module):
         up1 = self.upconv1(iconv2)
         reduc1x1 = self.reduc1x1(up1)
         iconv1 = self.conv1(torch.cat([up1, reduc1x1, depth_2x2, depth_4x4, depth_8x8], 1))
-        return self.max_depth * self.get_depth(iconv1)
+        return [depth_8x8, depth_4x4, depth_2x2, reduc1x1,
+                self.max_depth * self.get_depth(iconv1)]
 
 
 class BtsModel(nn.Module):
-    """[B, 3, H, W] (H and W multiples of 32) -> [final depth [B, 1, H, W] in
-    metres, (0, max_depth)]."""
+    """[B, 3, H, W] (H and W multiples of 32) -> [depth_8x8, depth_4x4,
+    depth_2x2, reduc1x1, final depth in metres (0, max_depth)], each
+    [B, 1, H, W]."""
+
+    scales = (0,) * 5
 
     def __init__(self, num_features: int = 512, max_depth: float = 80.0):
         super().__init__()
@@ -239,9 +245,9 @@ class BtsModel(nn.Module):
         self.decoder = BtsDecoder(num_features, max_depth)
 
     def forward(self, x) -> List[torch.Tensor]:
-        return [self.decoder(self.encoder(x))]
+        return self.decoder(self.encoder(x))
 
 
 def build(kwargs: Dict, image_shape: Tuple[int, int]) -> nn.Module:
-    """[B, 3, H, W] (H and W multiples of 32) -> [final depth [B, 1, H, W]]."""
+    """[B, 3, H, W] (H and W multiples of 32) -> its five outputs (BtsModel)."""
     return BtsModel(**kwargs)

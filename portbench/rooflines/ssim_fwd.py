@@ -1,7 +1,8 @@
 """Kernel B, the 3x3 reflection-padded SSIM distance blended with L1
-(ops/cuda/ssim.cu, `ssim_fwd_kernel`): two launches a step in the 'min'
-objective, the identity pair over 2 * batch images and the warped jobs
-over 3 * batch, each of 3 channels.
+(ops/cuda/ssim.cu, `ssim_fwd_kernel`), in the 'min' objective: one launch
+a step for the identity pair over 2 * batch images, and one for each of
+the depth net's outputs over its 3 * batch warped jobs, each image of 3
+channels.
 
 Bytes: a pixel of a channel reads x and y (8 B) and writes the error
 (4 B). Operations: 40 for the five 3x3 box means (two passes of 2 sums and
@@ -14,9 +15,10 @@ PRECISION = "fp32_flops_per_s"
 
 
 def launches(shapes):
-    return 2
+    return 1 + shapes.get("outputs", 1)
 
 
 def work(shapes):
-    planes = (2 + 3) * shapes["batch"] * 3 * shapes["height"] * shapes["width"]
+    images = (2 + 3 * shapes.get("outputs", 1)) * shapes["batch"]
+    planes = images * 3 * shapes["height"] * shapes["width"]
     return 8 * planes, 4 * planes, 64 * planes

@@ -1,6 +1,7 @@
 """Kernel A', the bilinear warp's gradient with respect to the grid
 (ops/cuda/warp_bilinear.cu, `warp_bilinear_bwd_grid_kernel`): one launch a
-step over the 3 * batch jobs of kernel A.
+step for each of the depth net's outputs, over the 3 * batch jobs of
+kernel A's launch for that output.
 
 Bytes: a pixel of a job reads its grid point (8 B), its image pixel (12 B)
 and the output's cotangent (12 B), and writes the grid's gradient (8 B).
@@ -14,9 +15,9 @@ PRECISION = "fp32_flops_per_s"
 
 
 def launches(shapes):
-    return 1
+    return shapes.get("outputs", 1)
 
 
 def work(shapes):
-    pixels = 3 * shapes["batch"] * shapes["height"] * shapes["width"]
+    pixels = launches(shapes) * 3 * shapes["batch"] * shapes["height"] * shapes["width"]
     return 32 * pixels, 8 * pixels, (10 + 12 * 3) * pixels

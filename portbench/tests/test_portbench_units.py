@@ -292,6 +292,186 @@ def test_a_later_change_adds_a_configuration_with_another_model_by_files_alone(
     assert after == before
 
 
+def _small_bts_training_config() -> dict:
+    """r18_1280's file with BtsModel (num_features 128) as the depth net, at
+    64x128 and batch 2, its heads at the serving configuration's stds."""
+    config = json.loads(json.dumps(spec.load_cell("train.r18_1280").config))
+    trainer = config["trainer"]
+    trainer["model"]["depth"] = {"name": "BtsModel", "num_features": 128, "max_depth": 80.0}
+    trainer["datasets"]["augmentation"].update(image_height=64, image_width=128)
+    trainer["action"]["batch_size"] = 2
+    config["init"]["std"].update(spec.load_cell("serve.bts1216").config["init"]["std"])
+    config["name"] = "bts_train_small"
+    return config
+
+
+def test_a_later_change_adds_a_training_configuration_with_several_outputs_by_files_alone(
+        tmp_path):
+    """Copy the checkout's benchmark, add a configuration that trains
+    BtsModel (five full-resolution outputs, each fed to the loss) with
+    PoseFc, its traffic and its limits as new files and entries; the
+    training driver then runs the cell correct on the CPU against the
+    reference's loss over all five outputs, with no file that was there
+    edited (a reference that took the first output alone read grad_gap 612
+    here).
+
+    On the CPU, which has no TF32, grad_tf32_gap is the whole gradient's
+    gap over its floor, 1e-3 of its norm; at this size the five outputs'
+    pixel flips alone put it at 0.0009 - 0.88 over nine seeds, and the
+    reference moves by up to 0.22 of the floor between thread counts.
+    Seed 106 reads 0.0010 in every process tried (PERF.md)."""
+    root = tmp_path / "checkout"
+    shutil.copytree(os.path.join(ROOT, "portbench"), root / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in (root / "portbench").rglob("*") if p.is_file()}
+    pb = root / "portbench"
+    (pb / "configs" / "bts_train_small.json").write_text(json.dumps(_small_bts_training_config()))
+    (pb / "traffic" / "closed_triplets4.json").write_text(json.dumps(
+        {"driver": "train_closed", "batches": 4, "checked_steps": 3, "trace_units": 2}))
+    (pb / "limits" / "train.bts_small.json").write_text((pb / "limits" / "train.r18_1280.json")
+                                                        .read_text())
+    bench = spec.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    bench["configs"].append({"name": "bts_train_small", "source": "test", "file":
+                             "portbench/configs/bts_train_small.json", "reduced": [],
+                             "why": "test"})
+    bench["workloads"].append({"name": "train.bts_small", "config": "bts_train_small",
+                               "traffic": "closed_triplets4", "chips": 1, "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    script = (
+        "import sys, time; sys.path.insert(0, sys.argv[1]); sys.path.insert(1, sys.argv[2])\n"
+        "import torch\n"
+        "torch.set_num_threads(4)\n"
+        "from portbench.core import spec\n"
+        "cell = spec.load_cell('train.bts_small', root=sys.argv[1])\n"
+        "assert spec.reference_net('BtsModel').BtsModel.scales == (0,) * 5\n"
+        "out = spec.driver(cell).run(cell, 106, 0.5, False, torch.device('cpu'),\n"
+        "                            time.perf_counter())\n"
+        "assert out.correct, out.checks\n"
+        "assert out.attempted > 0\n"
+        "assert spec.PACKAGE_DIR.startswith(sys.argv[1])\n")
+    subprocess.run([sys.executable, "-c", script, str(root), ROOT], check=True)
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
+
+
+def test_the_reference_bts_gives_the_programs_five_training_outputs():
+    """BtsModel's plain reference returns the program's five outputs, in its
+    order, equal to the program's BtsModel in train mode (batch
+    statistics) on the same seeded weights."""
+    from portbench.core.weights import fill
+    from unsupervised_pseuso_lidar_tpu_torch.models.depth.bts import BtsModel
+
+    init = _small_bts_training_config()["init"]
+    init["std"] = {k: v for k, v in init["std"].items() if k.startswith("depth.")}
+    reference = spec.reference_net("BtsModel").build({"num_features": 128, "max_depth": 80.0},
+                                                     (64, 128))
+    program = BtsModel(128, 80.0)
+    fill({"depth": reference}, 5, init)
+    fill({"depth": program}, 5, init)
+    reference.train()
+    program.train()
+    x = torch.randn(4, 3, 64, 128, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        ours, theirs = reference(x), program(x)
+    assert type(reference).scales == program.scales == (0,) * 5
+    assert len(ours) == len(theirs) == 5
+    for mine, program_output in zip(ours, theirs):
+        assert mine.shape == (4, 1, 64, 128)
+        assert torch.equal(mine, program_output)
+
+
+def _one_output_step_loss(depth_net, pose_net, batch, objective):
+    """The one-output objective written out whole: 'min' with its backward
+    leg over one warp of the 3 * batch jobs, + w * smoothness, on output
+    [0]."""
+    from portbench.reference import loss as L
+
+    tgt = L.normalize_images(batch["tgt"])
+    refs = L.normalize_images(batch["ref_imgs"])
+    ref0, ref1 = refs[:, 0], refs[:, 1]
+    depth_net.train()
+    pose_net.train()
+    disp = depth_net(torch.cat([tgt, ref0]))[0]
+    poses = pose_net(tgt, [ref0, ref1])
+    disp, poses = disp.float(), poses.float()
+    depth = L.disp_to_depth(disp)
+    if objective["depth_norm"]:
+        depth = L.normalize_depth(depth)
+    b = len(tgt)
+    depth_tgt, depth_ref0 = depth[:b, 0], depth[b:, 0]
+    intrinsics = batch["intrinsics"].float()
+    t0, t1 = L.pose_matrix(poses[:, 0]), L.pose_matrix(poses[:, 1])
+    ident_pair = L.photometric(torch.cat([ref0, ref1]), torch.cat([tgt, tgt]))
+    ident = torch.minimum(ident_pair[:b], ident_pair[b:]) + 1e-5
+    ident_bwd = ident_pair[:b] + 1e-5
+    warped = L.warp(torch.cat([ref0, ref1, tgt]), torch.cat([depth_tgt, depth_tgt, depth_ref0]),
+                    torch.cat([t0, t1, L.invert(t0)]), intrinsics.repeat(3, 1, 1))
+    err = L.photometric(warped, torch.cat([tgt, tgt, ref0]))
+    err_f = torch.minimum(err[:b], err[b:2 * b])
+    forward = torch.minimum(err_f, ident).mean()
+    backward = torch.minimum(err[2 * b:], ident_bwd).mean()
+    reproj = 0.5 * (forward + backward)
+    return reproj + objective["smooth_weight"] * L.smoothness(disp[:b])
+
+
+def test_a_one_output_step_loss_is_the_one_output_formula_bit_for_bit():
+    """With one output the loss over outputs is the one-output objective
+    operation for operation: the same loss and gradients, bit for bit."""
+    from portbench.core.synthetic import triplet_batch
+    from portbench.core.weights import fill
+    from portbench.drivers.train_closed import objective, reference_net
+    from portbench.reference import loss as L
+
+    config = json.loads(json.dumps(spec.load_cell("train.r18_1280").config))
+    config["trainer"]["datasets"]["augmentation"].update(image_height=64, image_width=128)
+    batch = triplet_batch(2, 64, 128, 11, torch.device("cpu"))
+    results = []
+    for formula in (L.step_loss, _one_output_step_loss):
+        depth = reference_net(config["trainer"], "depth")
+        pose = reference_net(config["trainer"], "pose")
+        fill({"depth": depth, "pose": pose}, 11, config["init"])
+        loss = formula(depth, pose, batch, objective(config["trainer"]))
+        loss.backward()
+        grads = [p.grad for p in list(depth.parameters()) + list(pose.parameters())
+                 if p.grad is not None]
+        results.append((loss.detach(), grads))
+    (loss_new, grads_new), (loss_old, grads_old) = results
+    assert torch.equal(loss_new, loss_old)
+    assert len(grads_new) == len(grads_old) > 0
+    assert all(torch.equal(a, b) for a, b in zip(grads_new, grads_old))
+
+
+class _CoarseDepth(nn.Module):
+    scales = (0, 1)
+
+    def forward(self, x):
+        return [x[:, :1], x[:, :1, ::2, ::2]]
+
+
+def test_a_net_with_a_coarser_output_is_refused_by_name_of_its_scale():
+    from portbench.reference import loss as L
+
+    with pytest.raises(NotImplementedError, match="scale 1"):
+        L.output_scales(_CoarseDepth())
+    assert L.output_scales(TwoConv()) == (0,)
+
+
+@pytest.mark.parametrize("kernel,launches,images", [
+    # a 'min' step for S outputs launches A, A', B and C S, S, S + 1 and S
+    # times (chip_smoke.expected_launches); B's identity launch is over
+    # 2 * batch images, each other launch over 3 * batch. (S = 1, S = 5)
+    ("warp_bilinear_fwd", (1, 5), (3, 15)), ("warp_bilinear_bwd_grid", (1, 5), (3, 15)),
+    ("ssim_fwd", (2, 6), (5, 17)), ("ssim_bwd", (1, 5), (3, 15))])
+def test_rooflines_count_by_output(kernel, launches, images):
+    module = spec.roofline(kernel)
+    shapes = {"batch": 4, "height": 352, "width": 704}
+    assert module.launches(dict(shapes, outputs=1)) == module.launches(shapes)
+    assert module.work(dict(shapes, outputs=1)) == module.work(shapes)
+    assert (module.launches(shapes), module.launches(dict(shapes, outputs=5))) == launches
+    one, five = module.work(shapes), module.work(dict(shapes, outputs=5))
+    assert all(b * images[0] == a * images[1] for a, b in zip(one, five))
+
+
 def test_the_measuring_path_without_a_card_fails_and_prints_no_result(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(dev.NoCard):
