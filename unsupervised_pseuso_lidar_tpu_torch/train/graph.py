@@ -69,10 +69,11 @@ a span: a capture records none, and a replay runs no host code.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, ContextManager, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -203,11 +204,14 @@ class StepGraphs:
         self._warm.clear()
         self._storage = None
 
-    def __call__(self, body: Body, inputs: Dict[str, Any], static: tuple = ()) -> Any:
+    def __call__(self, body: Body, inputs: Dict[str, Any], static: tuple = (),
+                 on_eager: Optional[Callable[[], ContextManager]] = None) -> Any:
         """body(inputs, *static), eager, captured or replayed (module
         docstring). `static`: hashable host values that body takes after
         `inputs`, as jit's static arguments; each tuple of values has
-        graphs of its own."""
+        graphs of its own. `on_eager`: a context manager's factory, entered
+        around a signature's first, eager call alone (the train step counts
+        the bytes saved for its backward there)."""
         if self.graphs:
             with annotate("graph.check_weights"):
                 moved = _moved(self._storage)
@@ -225,7 +229,7 @@ class StepGraphs:
                backends.cudnn.benchmark,
                *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
         if key not in self._warm:
-            with annotate("graph.eager"):
+            with annotate("graph.eager"), (on_eager or contextlib.nullcontext)():
                 outputs = self._eager(body, inputs, static)
             self._warm.add(key)
             return outputs

@@ -93,7 +93,11 @@ from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
 from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant, resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
-from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
+from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import (
+    SavedBytes,
+    annotate,
+    set_counter,
+)
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -448,6 +452,9 @@ def global_means(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor],
 # (TrainStep.host_values)
 BATCH_KEYS = ("tgt", "ref_imgs", "intrinsics", "oxts", "groundtruth")
 HOST_KEYS = ("ident_scale", "lr", "aug_add", "aug_scale", "aug_flip")
+# the counter (utils/profiling.counter) of the bytes a train step's eager
+# call saved for its backward
+SAVED_BYTES = "train.saved_bytes"
 
 
 class TrainStep:
@@ -517,6 +524,11 @@ class TrainStep:
     same halo and BatchNorm all-reduces in the same order on every rank.
     The loss and the gradient are those without remat; only memory and
     time change.
+
+    The first call of each input signature (the eager one where the step
+    runs as CUDA graphs) counts the bytes that autograd saves for its
+    backward, the weights left out: saved_bytes, and the counter
+    SAVED_BYTES (counting_saved). Later calls count nothing.
     """
 
     def __init__(
@@ -570,6 +582,10 @@ class TrainStep:
         self.graphs = (StepGraphs(self.device, pool)
                        if graph_enabled(graph, self.device, mesh) else None)
         self._captured_state: List = []
+        # bytes saved for the backward by the latest eager call of a new
+        # signature (counting_saved); None until the first step
+        self.saved_bytes: Optional[int] = None
+        self._counted: set = set()  # signatures counted without graphs
 
     def _ident_scale(self, step: int) -> float:
         if not (self.automask_warmup and self.loss_mode == "min"):
@@ -719,14 +735,36 @@ class TrainStep:
         state and the gradients where they were captured: a state loaded in
         their place drops them."""
         if self.graphs is None:
-            return body(inputs, height)
+            signature = (height, *sorted((k, tuple(v.shape), str(v.dtype))
+                                         for k, v in inputs.items()))
+            if signature in self._counted:
+                return body(inputs, height)
+            self._counted.add(signature)
+            with self.counting_saved():
+                return body(inputs, height)
         held = self._graph_state()
         if (len(held) != len(self._captured_state)
                 or any(a is not b for a, b in zip(held, self._captured_state))):
             self.graphs.reset()
-        out = self.graphs(body, inputs, static=(height,))
+        out = self.graphs(body, inputs, static=(height,), on_eager=self.counting_saved)
         self._captured_state = self._graph_state()
         return out
+
+    @contextlib.contextmanager
+    def counting_saved(self):
+        """Count the bytes that autograd saves for the backward inside the
+        block, the weights left out (utils/profiling.SavedBytes), into
+        saved_bytes and the counter SAVED_BYTES. run() enters it around
+        each signature's first call, the eager one, and around no other:
+        a replay runs no host code. Under remat the checkpoint's own hooks
+        take the loss's tensors, so what it keeps is what counts; with
+        accumulation every micro-batch's saved storages add up."""
+        state = self.state
+        weights = [*state.depth_model.parameters(), *state.pose_model.parameters()]
+        with SavedBytes(exclude=weights) as saved:
+            yield
+        self.saved_bytes = saved.bytes
+        set_counter(SAVED_BYTES, saved.bytes)
 
     def _graph_state(self) -> List:
         optimizer = self.state.optimizer

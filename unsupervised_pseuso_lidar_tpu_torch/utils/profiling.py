@@ -20,6 +20,16 @@ parent's (the span open around it on the same thread), and the unit id
 keeps the newest MAX_SPANS records and counts those it dropped;
 ``spans()``, ``span_totals(name)`` and ``clear_spans()`` read and empty
 it. A span's self time is its duration less its children's.
+
+A counter is a named number the program records for a reader outside it
+(``set_counter(name, value)``, ``counter(name)``, the latest value
+kept): ``train.saved_bytes``, the bytes a training step's eager call
+saved for its backward (train/trainer.TrainStep), counted by SavedBytes.
+SavedBytes, ``with SavedBytes(exclude=params) as saved:``, sums the
+untyped storage of every tensor that autograd saves inside the block,
+once per distinct storage, and leaves out the storages of `exclude` (the
+weights); its hooks hand autograd each tensor as it is (detached, the
+same storage), so the block computes the same bits.
 """
 
 from __future__ import annotations
@@ -29,10 +39,12 @@ import contextlib
 import itertools
 import threading
 import time
-from typing import Iterator, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd import profiler as autograd_profiler
+from torch.autograd.graph import saved_tensors_hooks
+from torch.multiprocessing.reductions import StorageWeakRef
 
 MAX_SPANS = 2 ** 16
 
@@ -206,3 +218,52 @@ def span_totals(name: str) -> Tuple[int, int]:
 def clear_spans() -> None:
     """Empty the table and its count of dropped spans."""
     TABLE.clear()
+
+
+COUNTERS: Dict[str, int] = {}
+
+
+def set_counter(name: str, value: int) -> None:
+    """Record `value` as the counter `name` (module docstring)."""
+    COUNTERS[name] = int(value)
+
+
+def counter(name: str) -> Optional[int]:
+    """The counter `name`'s latest value; None where none was recorded."""
+    return COUNTERS.get(name)
+
+
+class SavedBytes:
+    """The bytes autograd saves for the backward inside a ``with`` block
+    (module docstring): `bytes` once the block has closed."""
+
+    def __init__(self, exclude: Iterable[torch.Tensor] = ()):
+        self._excluded = {t.untyped_storage()._cdata for t in exclude}
+        # a weak reference pins each counted storage's address (not its
+        # memory), so a storage freed in the block and another allocated
+        # at its address count as two
+        self._seen: Dict[int, StorageWeakRef] = {}
+        self._hooks = saved_tensors_hooks(self._pack, _unpack)
+        self.bytes = 0
+
+    def _pack(self, tensor: torch.Tensor) -> torch.Tensor:
+        storage = tensor.untyped_storage()
+        key = storage._cdata
+        if key not in self._excluded and key not in self._seen:
+            self._seen[key] = StorageWeakRef(storage)
+            self.bytes += storage.nbytes()
+        # the tensor itself would tie an output to its own grad_fn in a
+        # reference cycle; its detached alias holds the same storage
+        return tensor.detach()
+
+    def __enter__(self) -> "SavedBytes":
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hooks.__exit__(*exc)
+        self._seen.clear()
+
+
+def _unpack(tensor: torch.Tensor) -> torch.Tensor:
+    return tensor
