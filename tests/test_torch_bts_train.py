@@ -171,19 +171,22 @@ def test_saved_bytes_are_the_hand_summed_activations():
     # conv -> BatchNorm -> ReLU -> conv on [2, 3, 16, 20]: the first conv
     # keeps its input, the BatchNorm its input and its batch mean and
     # inverse deviation (8 floats each), the ReLU its output, which the
-    # second conv keeps too (one storage); the weights are left out
+    # second conv keeps too (one storage); the weights and buffers are left
+    # out, as the train step leaves them out
     torch.manual_seed(0)
     stack = nn.Sequential(nn.Conv2d(3, 8, 3, padding=1), BatchNorm2d(8), nn.ReLU(),
                           nn.Conv2d(8, 4, 3, padding=1))
     x = torch.randn(2, 3, 16, 20)
-    with SavedBytes(exclude=list(stack.parameters())) as saved:
+    with SavedBytes(exclude=[*stack.parameters(), *stack.buffers()]) as saved:
         stack(x).sum().backward()
     activation = 2 * 8 * 16 * 20 * 4
     assert saved.bytes == x.nbytes + activation + 2 * 8 * 4 + activation
     with SavedBytes() as with_weights:
         stack(x)
     weights = sum(p.nbytes for p in stack.parameters() if p.ndim > 1)
-    assert with_weights.bytes == saved.bytes + weights + 8 * 4  # + the BatchNorm scale
+    # + the BatchNorm scale and its batch statistics (mean and variance,
+    # one storage), which the kernel wrote and autograd keeps
+    assert with_weights.bytes == saved.bytes + weights + 8 * 4 + 2 * 8 * 4
 
 
 def test_the_counter_changes_no_bit_of_a_step(program, tmp_path):

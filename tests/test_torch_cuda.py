@@ -1040,3 +1040,104 @@ def test_resize_bilinear_gradient_repeats_and_is_the_cpu_s(cuda, coarse, size):
     first = grad(cuda)
     assert torch.equal(grad(cuda), first)
     assert torch.equal(first.cpu(), grad("cpu"))
+
+
+def _stats_gap(got: torch.Tensor, exact: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.double() - exact) / torch.linalg.vector_norm(exact))
+
+
+def test_captured_step_running_statistics_follow_the_flax_rule(cuda):
+    # DispResNet-18 + PoseNet at 128x256, batch 4, fp32, captured: a hook
+    # that the graph captured copies each BatchNorm's input out, so after
+    # the third call (a replay) every running statistic is held to flax's
+    # rule on that input in fp64 (biased variance), over its channels
+    from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
+
+    trainer = _graph_trainer(cuda, None, loss_mode="min", precision="fp32")
+    norms = {name: m for name, m in trainer.state.depth_model.named_modules()
+             if isinstance(m, BatchNorm2d)}
+    inputs = {}
+
+    def keep(name):
+        def hook(module, args):
+            if name not in inputs:
+                inputs[name] = torch.empty_like(args[0])
+            inputs[name].copy_(args[0].detach())
+        return hook
+
+    for name, m in norms.items():
+        m.register_forward_pre_hook(keep(name))
+    batches = _graph_batches(3, seed=31)
+    trainer.train_step(batches[0])
+    trainer.train_step(batches[1])
+    before = {name: (m.running_mean.clone(), m.running_var.clone()) for name, m in norms.items()}
+    replays = trainer.train_step.graphs.replays
+    trainer.train_step(batches[2])
+    torch.cuda.synchronize()
+    assert trainer.train_step.graphs.replays == replays + 1 and len(norms) == 20
+    gaps = {}
+    for name, m in norms.items():
+        x, (mean0, var0), decay = inputs[name].double(), before[name], 1 - m.momentum
+        gaps[name] = max(
+            _stats_gap(m.running_mean, decay * mean0.double() + m.momentum * x.mean(dim=(0, 2, 3))),
+            _stats_gap(m.running_var, decay * var0.double()
+                       + m.momentum * x.var(dim=(0, 2, 3), unbiased=False)))
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= 1e-5, (worst, gaps[worst])
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 64, 48, 160), torch.float32), ((1, 16, 9, 13), torch.float32),
+    ((4, 32, 1, 1), torch.float32), ((4, 24, 12, 20), torch.bfloat16),
+], ids=["relu_8x64x48x160", "batch1", "map1x1_batch4", "bf16_autocast"])
+def test_one_pass_batch_norm_on_the_card_is_the_plain_one(cuda, shape, dtype):
+    # the output and the gradients of input, weight and bias equal those of
+    # F.batch_norm(x, None, None, ...) bit for bit (cuDNN for fp32, ATen's
+    # kernel for a bf16 input); the module's kernel also wrote batch_stats
+    from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    channels = shape[1]
+    x = torch.relu(torch.randn(shape, generator=gen, device=cuda) + 0.3).to(dtype)
+    grad = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    bn = BatchNorm2d(channels).to(cuda).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(channels, generator=gen, device=cuda))
+        bn.bias.copy_(torch.randn(channels, generator=gen, device=cuda))
+
+    def run(fn):
+        leaf = x.detach().requires_grad_()
+        with torch.autocast("cuda", torch.bfloat16, enabled=dtype == torch.bfloat16):
+            out = fn(leaf)
+        return (out, *torch.autograd.grad(out, (leaf, bn.weight, bn.bias), grad))
+
+    got = run(bn)
+    plain = run(lambda t: F.batch_norm(t, None, None, bn.weight, bn.bias, True, 0.0, bn.eps))
+    gaps = {what: float((g.detach().float() - p.detach().float()).abs().max())
+            for g, p, what in zip(got, plain, ("output", "dx", "dweight", "dbias"))}
+    assert all(torch.equal(g, p) for g, p in zip(got, plain)), gaps
+    assert float(bn.batch_stats.abs().sum()) > 0
+
+
+def test_train_mode_forward_launches_no_statistics_pass(cuda):
+    # one eager train-mode forward of DispResNet-18 under torch.profiler:
+    # the BatchNorms launch no mean, no x * x and no reduction kernel of
+    # their own (the normalization's kernel computes the statistics)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
+
+    net = build_model("DispResNet", torch.Generator().manual_seed(5), device=cuda).train()
+    x = torch.randn(4, 3, 128, 256, device=cuda)
+    net(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        net(x)
+        torch.cuda.synchronize()
+    events = prof.events()
+    names = {e.name for e in events}
+    assert any(e.device_type == DeviceType.CUDA for e in events)
+    assert "aten::batch_norm" in names
+    assert not names & {"aten::mean", "aten::mul", "aten::sum", "aten::var"}, sorted(names)
+    assert not [n for n in names if "reduce_kernel" in n], sorted(names)

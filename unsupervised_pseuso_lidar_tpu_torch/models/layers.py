@@ -70,12 +70,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d with flax's running-statistics update in train mode.
 
     flax BatchNorm normalizes a training batch as torch does, but moves
-    running_var toward the BIASED batch variance E[x²] − E[x]² (fp32,
-    clipped at 0), where torch uses the unbiased one (a factor n/(n−1): 4 %
-    at 24 values per channel). Here the running statistics are updated the
-    flax way — (1 − momentum) · running + momentum · batch, momentum in
-    torch's convention (flax's is 1 − it) — from the batch in fp32; eval
-    mode is torch's own.
+    running_var toward the BIASED batch variance, where torch uses the
+    unbiased one (a factor n/(n−1): 4 % at 24 values per channel). Here
+    the running statistics are updated the flax way — (1 − momentum) ·
+    running + momentum · batch, momentum in torch's convention (flax's is
+    1 − it) — from the batch statistics of the normalization's own pass:
+    F.batch_norm (cuDNN on the card, ATen on the CPU) writes the batch
+    mean and the unbiased variance into `batch_stats` (a non-persistent
+    fp32 [2, C] buffer, rows mean and variance, zeros at first: the kernel
+    blends (1 − 1) · old in) at momentum 1, and the running variance takes
+    (n − 1)/n of the latter, n = numel / C. Each such call adds one to
+    `one_pass_calls` (the trainer's counter train.bn_one_pass). Under
+    frozen_running_statistics the kernel still writes batch_stats, and
+    nothing else moves. Eval mode is torch's own.
 
     Under a data mesh (`mesh`, set by the train step; parallel/mesh.py)
     the training statistics are the GLOBAL batch's, as under JAX's mesh:
@@ -94,18 +101,35 @@ class BatchNorm2d(nn.BatchNorm2d):
     # (frozen_running_statistics): the first pass updated the statistics
     update_running = True
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # train-mode calls whose running statistics came from the
+        # normalization's own pass
+        self.one_pass_calls = 0
+        self.register_buffer("batch_stats", torch.zeros(2, self.num_features,
+                                                        device=self.running_mean.device),
+                             persistent=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if self.mesh is not None and self.mesh.distributed:
             return self._global_batch_forward(x)
-        if BatchNorm2d.update_running:
-            with torch.no_grad():
-                xf = x.float()
-                mean = xf.mean(dim=(0, 2, 3))
-                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-                self._update_running(mean, var)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        # the remat recompute writes batch_stats too: a checkpoint's
+        # recompute must save the tensors its forward saved
+        mean, var = self.batch_stats
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if not BatchNorm2d.update_running:
+            return out
+        # autograd saved mean and var: read them, never write them
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=self.momentum * (n - 1) / n)
+            self.num_batches_tracked.add_(1)
+        self.one_pass_calls += 1
+        return out
 
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         if not BatchNorm2d.update_running:

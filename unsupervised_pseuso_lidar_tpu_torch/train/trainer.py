@@ -362,6 +362,13 @@ def supervised_loss(disp: torch.Tensor, groundtruth: torch.Tensor,
     return total / torch.clamp(count, min=1.0)
 
 
+def one_pass_calls(models) -> int:
+    """The train-mode calls of every BatchNorm2d of `models` whose running
+    statistics came from the normalization's own pass, so far."""
+    return sum(m.one_pass_calls for model in models for m in model.modules()
+               if isinstance(m, BatchNorm2d))
+
+
 def bind_batch_norm(models, mesh: Optional[Mesh]) -> None:
     """Point every BatchNorm2d of `models` at `mesh`: training statistics
     over the global batch under a distributed mesh (models/layers.py)."""
@@ -452,9 +459,11 @@ def global_means(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor],
 # (TrainStep.host_values)
 BATCH_KEYS = ("tgt", "ref_imgs", "intrinsics", "oxts", "groundtruth")
 HOST_KEYS = ("ident_scale", "lr", "aug_add", "aug_scale", "aug_flip")
-# the counter (utils/profiling.counter) of the bytes a train step's eager
-# call saved for its backward
+# the counters (utils/profiling.counter) of the bytes a train step's eager
+# call saved for its backward, and of its train-mode BatchNorm2d calls whose
+# running statistics came from the normalization's own pass
 SAVED_BYTES = "train.saved_bytes"
+BN_ONE_PASS = "train.bn_one_pass"
 
 
 class TrainStep:
@@ -527,8 +536,10 @@ class TrainStep:
 
     The first call of each input signature (the eager one where the step
     runs as CUDA graphs) counts the bytes that autograd saves for its
-    backward, the weights left out: saved_bytes, and the counter
-    SAVED_BYTES (counting_saved). Later calls count nothing.
+    backward, the weights and buffers left out: saved_bytes, and the counter
+    SAVED_BYTES; and its BatchNorm2d calls that took their running
+    statistics from the normalization's own pass, the counter BN_ONE_PASS
+    (counting_saved). Later calls count nothing.
     """
 
     def __init__(
@@ -753,18 +764,24 @@ class TrainStep:
     @contextlib.contextmanager
     def counting_saved(self):
         """Count the bytes that autograd saves for the backward inside the
-        block, the weights left out (utils/profiling.SavedBytes), into
-        saved_bytes and the counter SAVED_BYTES. run() enters it around
-        each signature's first call, the eager one, and around no other:
-        a replay runs no host code. Under remat the checkpoint's own hooks
-        take the loss's tensors, so what it keeps is what counts; with
-        accumulation every micro-batch's saved storages add up."""
+        block, the models' weights and buffers left out (a BatchNorm2d
+        saves its batch_stats; utils/profiling.SavedBytes), into
+        saved_bytes and the counter SAVED_BYTES, and the one-pass
+        BatchNorm2d calls (one_pass_calls) into the counter BN_ONE_PASS.
+        run() enters it around each signature's first call, the eager one,
+        and around no other: a replay runs no host code. Under remat the
+        checkpoint's own hooks take the loss's tensors, so what it keeps is
+        what counts; with accumulation every micro-batch's saved storages
+        add up."""
         state = self.state
-        weights = [*state.depth_model.parameters(), *state.pose_model.parameters()]
-        with SavedBytes(exclude=weights) as saved:
+        models = (state.depth_model, state.pose_model)
+        held = [t for m in models for t in (*m.parameters(), *m.buffers())]
+        calls = one_pass_calls(models)
+        with SavedBytes(exclude=held) as saved:
             yield
         self.saved_bytes = saved.bytes
         set_counter(SAVED_BYTES, saved.bytes)
+        set_counter(BN_ONE_PASS, one_pass_calls(models) - calls)
 
     def _graph_state(self) -> List:
         optimizer = self.state.optimizer

@@ -24,7 +24,10 @@ it. A span's self time is its duration less its children's.
 A counter is a named number the program records for a reader outside it
 (``set_counter(name, value)``, ``counter(name)``, the latest value
 kept): ``train.saved_bytes``, the bytes a training step's eager call
-saved for its backward (train/trainer.TrainStep), counted by SavedBytes.
+saved for its backward (train/trainer.TrainStep), counted by SavedBytes,
+and ``train.bn_one_pass``, that call's train-mode BatchNorm2d calls whose
+running statistics came from the normalization's own pass
+(models/layers.BatchNorm2d).
 SavedBytes, ``with SavedBytes(exclude=params) as saved:``, sums the
 untyped storage of every tensor that autograd saves inside the block,
 once per distinct storage, and leaves out the storages of `exclude` (the
