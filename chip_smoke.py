@@ -352,6 +352,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     load_serving_weights,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
+from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     Trainer,
     batch_to_device,
@@ -1781,7 +1782,7 @@ def paced_latency(pipeline, image_dir, height, width):
     processed = pipeline.run(stamped(paced), on_result, queue_size=1)
     return {"rate_hz": SERVE_RATE_HZ, "queue_size": 1, "frames": processed,
             "warmup_ms": warmup,
-            "graph_replays": pipeline.graphs.replays if pipeline.graphs else None,
+            "graph_replays": pipeline.graphs.replays if pipeline.graphs.graphed else None,
             "latency_ms_median": float(np.median(latencies)),
             "latency_ms_max": float(np.max(latencies)), "latency_ms": latencies}
 
@@ -2797,13 +2798,13 @@ def graph_timing(config, device, batch, graph, mesh=None):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     graphs = trainer.train_step.graphs
-    replays = graphs.replays if graphs else 0
+    replays = graphs.replays
     t0 = time.perf_counter()
     for _ in range(GRAPH_TIMED_STEPS):
         step()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED_STEPS
-    launches = ((graphs.replays - replays) / GRAPH_TIMED_STEPS) if graphs else None
+    launches = ((graphs.replays - replays) / GRAPH_TIMED_STEPS) if graphs.graphed else None
     event_ms = event_ms_per_step(step)
     result = op_breakdown(step, steps=PROFILE_STEPS, warmup=1, verbose=False)
     record = {"ms_per_step_host": host_ms, "ms_per_step_cuda_events": event_ms,
@@ -2813,9 +2814,9 @@ def graph_timing(config, device, batch, graph, mesh=None):
               "busy_share": result.busy,
               "profiled_device_events_per_step": sum(result.counts.values()) / PROFILE_STEPS,
               "graph_launches_per_step": launches,
-              "capture_seconds": ([g.seconds for g in graphs.graphs.values()] if graphs
-                                  else None),
-              "pool_bytes": pool_bytes(graphs.pool) if graphs else None,
+              "capture_seconds": ([g.seconds for g in graphs.graphs.values()]
+                                  if graphs.graphed else None),
+              "pool_bytes": pool_bytes(graphs.pool) if graphs.graphed else None,
               "peak_allocated_bytes": peak}
     del trainer, step
     release_memory()
@@ -2981,7 +2982,7 @@ def toy_replica(device, graph):
                                steps_per_epoch=TOY_STEPS, device=device)
     step = toy_problem.make_toy_step(state, device)
     if not graph:
-        step.graphs = None
+        step.graphs = StepGraphs(device, graph=False)
     errors, losses = [], []
     for i in range(TOY_STEPS):
         data = toy_problem.toy_batch(batch, height, width, i, 10.0, 0.01)
@@ -3392,7 +3393,7 @@ def parallel_steps(config, batches, device, mesh=None, graph=False):
     trainer = parallel_trainer(config, device, mesh, graph)
     on_card = device.type == "cuda"
     out = {"launches": [], "ms_per_step": [],
-           "captured": trainer.train_step.graphs is not None}
+           "captured": trainer.train_step.graphs.graphed}
     for i, batch in enumerate(batches):
         if on_card:
             torch.cuda.synchronize()
@@ -3472,7 +3473,7 @@ def parallel_phase(device):
         # eager, the second captures, the third replays
         meshed = parallel_trainer(config, device, mesh, graph=None)
         record = {"backend": dist.get_backend(), "steps": [],
-                  "captured": meshed.train_step.graphs is not None}
+                  "captured": meshed.train_step.graphs.graphed}
         launches = dict.fromkeys(kernels.KERNELS, 0)
         for batch in batches:
             # each step from the plain trainer's state: Adam's first update
@@ -3816,7 +3817,7 @@ def spatial_rank(rank, world, spatial, port, out_path, device, cases, starts_pat
         for name, path, overrides, steps in cases:
             config, batches = spatial_setup(path, overrides, steps)
             trainer = parallel_trainer(config, device, mesh, graph=None)
-            check(trainer.train_step.graphs is None, f"{name}: a gloo rank captured its step")
+            check(not trainer.train_step.graphs.graphed, f"{name}: a gloo rank captured its step")
             out[name] = spatial_steps(trainer, batches, device, starts[name])
             del trainer
             gc.collect()

@@ -670,7 +670,7 @@ def test_captured_train_step_matches_the_eager_step(cuda, deterministic, action)
     # Adam's slots equal bit for bit after every step; one graph, replayed
     # 3 times, each replay counting one step's kernel launches
     captured, eager = _graph_trainer(cuda, None, **action), _graph_trainer(cuda, False, **action)
-    assert captured.train_step.graphs is not None and eager.train_step.graphs is None
+    assert captured.train_step.graphs.graphed and not eager.train_step.graphs.graphed
     for i, batch in enumerate(_graph_batches(4, seed=21)):
         kernels.reset_launch_counts()
         got = captured.train_step(batch)
@@ -717,7 +717,7 @@ def test_world_one_nccl_captured_step_matches_the_eager_step(nccl_world_one, cud
     assert mesh.capturable
     captured = _graph_trainer(cuda, None, mesh, **action)
     eager = _graph_trainer(cuda, False, mesh, **action)
-    assert captured.train_step.graphs is not None and eager.train_step.graphs is None
+    assert captured.train_step.graphs.graphed and not eager.train_step.graphs.graphed
     for i, batch in enumerate(_graph_batches(4, seed=26)):
         got, want = captured.train_step(batch), eager.train_step(batch)
         torch.cuda.synchronize()
@@ -744,7 +744,7 @@ def test_world_one_nccl_captured_multi_and_eval_steps_match_eager(nccl_world_one
     multis = [make_multi_step(o.state, 2, mesh=mesh, device=cuda, graph=graph,
                               **{k: getattr(o.train_step, k) for k in names})
               for o, graph in zip(owners, (None, False))]
-    assert multis[0].train_step.graphs is not None and multis[1].train_step.graphs is None
+    assert multis[0].train_step.graphs.graphed and not multis[1].train_step.graphs.graphed
     batches = _graph_batches(6, seed=27)
     for r in range(3):
         chunk = {k: np.stack([b[k] for b in batches[2 * r:2 * r + 2]]) for k in batches[0]}
@@ -895,7 +895,7 @@ def test_captured_pipeline_matches_the_eager_one(cuda, deterministic, tmp_path, 
     # pipeline's bit for bit, one graph launch a call once captured, and no
     # kernel of ops/cuda on the serving path
     _, captured, eager = _serve_pipelines(cuda, tmp_path, precision)
-    assert captured.graphs is not None and eager.graphs is None
+    assert captured.graphs.graphed and not eager.graphs.graphed
     frames = np.random.default_rng(streams).normal(
         size=(4, streams, 64, 96, 3)).astype(np.float32)
     kernels.reset_launch_counts()
@@ -1005,7 +1005,7 @@ def test_captured_pose_eval_step_matches_the_eager_one(cuda, deterministic):
     pose = build_model("PoseNet", torch.Generator().manual_seed(4), device=cuda)
     captured = make_pose_eval_step(pose, device=cuda)
     eager = make_pose_eval_step(pose, device=cuda, graph=False)
-    assert captured.graphs is not None and eager.graphs is None
+    assert captured.graphs.graphed and not eager.graphs.graphed
     rng = np.random.default_rng(8)
     kept = []
     for batch in _graph_batches(4, seed=26):

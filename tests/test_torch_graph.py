@@ -7,9 +7,13 @@ graph reads as tensors (the automask warm-up scale, the learning rate)
 keep their bits; the body a graph captures, run eagerly on its static
 buffers refilled at each step (StepGraphs with capture=False), equals the
 eager step bit for bit; the port's make_multi_step equals JAX's lax.scan
-of the step; graph=True is refused where capture does not apply; and a
-graph's launches are counted once a replay.
+of the step; graph=True is refused where capture does not apply; where
+nothing is captured StepGraphs runs the body as it is, and the train
+step counts its saved bytes once a signature; and a graph's launches are
+counted once a replay.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +34,15 @@ from torch import nn
 from unsupervised_pseuso_lidar_tpu.train.trainer import TrainState as JaxTrainState
 from unsupervised_pseuso_lidar_tpu.train.trainer import make_multi_step as jax_make_multi_step
 from unsupervised_pseuso_lidar_tpu_torch.data.synthetic import SyntheticTripletDataset
+from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
 from unsupervised_pseuso_lidar_tpu_torch.train import config
 from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
+    BN_ONE_PASS,
+    SAVED_BYTES,
     EvalStep,
     Trainer,
     TrainState,
@@ -47,6 +54,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
     make_optimizer,
     make_train_step,
 )
+from unsupervised_pseuso_lidar_tpu_torch.utils import profiling
 from unsupervised_pseuso_lidar_tpu_torch.weights import state_dict_from_jax
 
 torch.set_num_threads(1)
@@ -336,7 +344,7 @@ def test_graph_true_is_refused_on_the_cpu_and_under_a_mesh():
         assert mesh.distributed and dist.get_backend() == "gloo"
         with pytest.raises(ValueError, match="needs a CUDA device"):
             make_train_step(state, device="cpu", mesh=mesh, graph=True)
-        assert make_train_step(state, device="cpu", mesh=mesh).graphs is None
+        assert not make_train_step(state, device="cpu", mesh=mesh).graphs.graphed
         # a CUDA device under a gloo mesh: its collectives run on the host
         with pytest.raises(ValueError, match="under a gloo mesh"):
             graph_enabled(True, torch.device("cuda", 0), mesh)
@@ -347,7 +355,7 @@ def test_graph_true_is_refused_on_the_cpu_and_under_a_mesh():
     assert graph_enabled(None, torch.device("cuda", 0), mesh) is False
     assert graph_enabled(None, CPU) is False
     assert graph_enabled(False, torch.device("cuda", 0)) is False
-    assert make_train_step(state, device="cpu").graphs is None
+    assert not make_train_step(state, device="cpu").graphs.graphed
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 2, 2, 2), (2, 1, 3, 2)])
@@ -422,3 +430,64 @@ def test_step_graphs_key_by_signature_and_reset():
     graphs.reset()
     graphs(body, {"x": a})
     assert seen[-1] is a and not graphs.graphs
+
+
+def test_step_graphs_run_the_body_as_it_is_where_nothing_is_captured():
+    # on the CPU (graph None) every call runs the body on the caller's
+    # tensors: no buffer, no graph, no replay; on_eager is entered around
+    # the first call of each signature (its shapes, dtypes and static
+    # values) and never again
+    entered, seen = [], []
+
+    @contextlib.contextmanager
+    def on_eager():
+        entered.append(1)
+        yield
+
+    def body(inputs, scale):
+        seen.append(inputs["x"])
+        return {"y": inputs["x"] * scale}
+
+    graphs = StepGraphs(CPU)
+    assert not graphs.graphed and graphs.pool is None
+    a, b = torch.ones(3), torch.ones(4)
+    calls = [(a, 2, 1), (a + 1, 2, 1), (b, 2, 2), (b, 3, 3), (a, 2, 3), (b.double(), 3, 4),
+             (b + 1, 3, 4)]
+    for x, scale, count in calls:
+        out = graphs(body, {"x": x}, (scale,), on_eager=on_eager)
+        assert seen[-1] is x and torch.equal(out["y"], x * scale)
+        assert len(entered) == count
+    assert not graphs.graphs and graphs.replays == 0
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["eager", "static_buffers"])
+def test_the_step_counts_saved_bytes_once_a_signature(monkeypatch, static):
+    # the eager train step (graph=False) and the graph protocol on the
+    # CPU's static buffers: the first call of a batch shape sets
+    # saved_bytes and the counters train.saved_bytes and
+    # train.bn_one_pass; a second call of that shape sets nothing; a new
+    # shape sets them anew, its own bytes
+    trainer = _small_trainer(loss_mode="min")
+    step = trainer.train_step
+    assert not step.graphs.graphed
+    if static:
+        step.graphs = StepGraphs(CPU, capture=False)
+    norms = sum(isinstance(m, BatchNorm2d) for net in (trainer.state.depth_model,
+                                                       trainer.state.pose_model)
+                for m in net.modules())
+    small = list(SyntheticTripletDataset(3, 2, 32, 64, seed=13, uint8_images=True).batches())
+    large = next(SyntheticTripletDataset(1, 2, 64, 64, seed=14, uint8_images=True).batches())
+    monkeypatch.setattr(profiling, "COUNTERS", {})
+    step(small[0])
+    first = step.saved_bytes
+    assert first > 0 and norms > 0
+    assert profiling.counter(SAVED_BYTES) == first and profiling.counter(BN_ONE_PASS) == norms
+    monkeypatch.setattr(profiling, "COUNTERS", {})
+    for batch in small[1:]:
+        step(batch)
+    assert step.saved_bytes == first
+    assert profiling.counter(SAVED_BYTES) is None and profiling.counter(BN_ONE_PASS) is None
+    step(large)
+    assert step.saved_bytes > first
+    assert profiling.counter(SAVED_BYTES) == step.saved_bytes
+    assert profiling.counter(BN_ONE_PASS) == norms

@@ -70,7 +70,7 @@ def nets(jax_weights):  # noqa: F811
 
 def _static(pipeline):
     """The pipeline with its program run as the graph path does on the CPU."""
-    assert pipeline.graphs is None  # the CPU's default: eager
+    assert not pipeline.graphs.graphed  # the CPU's default: eager
     pipeline.graphs = StepGraphs(CPU, capture=False, modules=[pipeline._fused])
     return pipeline
 
@@ -277,7 +277,7 @@ def test_pose_eval_step_graph_path_equals_eager_and_matches_jax(nets, semi_sup_p
     _, jax_pose, state, _, pose = nets
     step = make_pose_eval_step(pose, semi_sup_pose=semi_sup_pose, device="cpu")
     eager = make_pose_eval_step(pose, semi_sup_pose=semi_sup_pose, device="cpu", graph=False)
-    assert step.graphs is None and eager.graphs is None
+    assert not step.graphs.graphed and not eager.graphs.graphed
     step.graphs = StepGraphs(CPU, capture=False, modules=[pose])
     batch = _semi_batch()
     rng = np.random.default_rng(106)
@@ -334,7 +334,6 @@ def test_odometry_pads_the_last_batch_and_matches_jax_s_cli(mini_kitti, tmp_path
 
     with monkeypatch.context() as m:
         m.setattr(graph_module, "StepGraphs", Recorded)
-        m.setattr(graph_module, "graph_enabled", lambda graph, device, mesh=None: True)
         graphed = odometry_cli.main(["--config", path, "--out", str(graph_out),
                                      "--device", "cpu"])
     assert len(made) == 1 and len(made[0].graphs) == 1

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from tests import torch_parallel_worker as worker
 from tests import torch_spatial_bts_worker as bts
 from tests.test_torch_spatial import STEP_GRAD_REL_L2, UNIT_RTOL, _flat, _rel_l2
+from tests.test_torch_spatial_zoo import assert_declared_placement
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
 
@@ -178,12 +179,28 @@ def test_stn_on_bands_matches_the_whole(runs):
     # whole's, at rel L2 UNIT_RTOL
     parts = [r["units"]["stn"] for r in runs["ranks"][2]]
     ref = runs["whole"]["stn"]
-    for out, _ in parts:
+    for out, *_ in parts:
         assert out.shape == ref[0].shape, (out.shape, ref[0].shape)
         assert _rel_l2(out, ref[0]) <= UNIT_RTOL, _rel_l2(out, ref[0])
     grad = torch.cat([p[1] for p in parts], 2)
     assert grad.shape == ref[1].shape
     assert _rel_l2(grad, ref[1]) <= UNIT_RTOL, _rel_l2(grad, ref[1])
+
+
+@pytest.mark.parametrize("spatial,name", STEP_CASES + [(2, "stn_unit")])
+def test_declared_placement_is_what_the_forward_returns(runs, spatial, name):
+    # each step's depth forward (BtsModel's five outputs over 2 and 4,
+    # DispResNet-18 with all_scales and DispNetS at 100 rows, StnDispNet
+    # at 72) and the STN unit at 72: each rank's outputs hold the rows
+    # their net declares; StnDispNet at 72 rows (no multiple of 16)
+    # declares its 80-row map whole, every other output a band
+    if name == "stn_unit":
+        placements = [r["units"]["stn"][2] for r in runs["ranks"][spatial]]
+    else:
+        placements = [step["placement"] for r in runs["ranks"][spatial]
+                      for step in r["steps"][name]]
+    declared = assert_declared_placement(placements)
+    assert declared == (not name.startswith("stn"),) * len(declared)
 
 
 @pytest.mark.parametrize("spatial,name", STEP_CASES)

@@ -53,6 +53,7 @@ from unsupervised_pseuso_lidar_tpu.train.trainer import (
     forward_batch as jax_forward_batch,
     normalize_uint8_batch as jax_normalize_uint8_batch,
 )
+from unsupervised_pseuso_lidar_tpu_torch.losses.total import total_loss
 from unsupervised_pseuso_lidar_tpu_torch.models import layers
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import Mesh
@@ -65,6 +66,7 @@ GROUPS = {2: (("dispnets", "stn", "stn_off"), ("dispnets", "stn")),
           4: (("dispnets", "resnet"), ("resnet_h64", "resnet_h104_all_scales"))}
 FORWARD_CASES = [(s, name, train) for s, (names, _) in GROUPS.items() for name in names
                  for train in (False, True)]
+PLACEMENT_CASES = [(s, name) for s, (names, _) in GROUPS.items() for name in names]
 STEP_NAMES = [name for _, names in GROUPS.values() for name in names]
 # StnDispNet's forward with its STN, the parameter gradient of a linear
 # functional of its output: the whole image's own fp32 evaluation sits
@@ -379,6 +381,47 @@ def test_a_banded_module_needs_its_level_and_the_image_height(what):
     with pytest.raises(ValueError, match="needs the image's height" if what.endswith(
             "height") else "was expected"):
         model(x) if what.endswith("height") else model(x, height=96)
+
+
+def assert_declared_placement(placements):
+    """Every rank's placement of one forward's outputs
+    (torch_parallel_worker.placement): each rank declares the same
+    (layers.Banded.banded_outputs), an output declared a band holds this
+    rank's band's rows, one declared whole the same rows on every rank
+    and at least the whole map's. -> the declaration."""
+    declared, first_rows = placements[0][:2]
+    assert len(declared) == len(first_rows)
+    for got, rows, band_rows, whole_rows in placements:
+        assert got == declared
+        for i, on_band in enumerate(declared):
+            if on_band:
+                assert rows[i] == band_rows[i] < whole_rows[i], (i, rows, band_rows)
+            else:
+                assert rows[i] == first_rows[i] >= whole_rows[i], (i, rows, whole_rows)
+    return declared
+
+
+@pytest.mark.parametrize("spatial,name", PLACEMENT_CASES)
+def test_declared_placement_is_what_the_forward_returns(runs, spatial, name):
+    # DispNetS (four scales) over 2 and 4 ranks, StnDispNet with and
+    # without its STN at 64 rows (a multiple of 16) over 2, DispResNet-18
+    # over 4: every output is declared this rank's band, and each rank's
+    # output holds the band's rows
+    placements = [r["units"]["forward"][(name, False)][2] for r in runs["ranks"][spatial]]
+    assert all(assert_declared_placement(placements))
+
+
+@pytest.mark.parametrize("declared", [True, False], ids=["band", "whole"])
+def test_a_map_that_contradicts_its_declared_placement_raises(declared):
+    # total_loss holds each disparity to its net's declaration before any
+    # exchange: the whole 64-row map declared a band, and the band's 32
+    # rows declared whole, raise, naming the band's rows
+    mesh = Mesh(None, 0, 2, torch.device("cpu"), spatial=2)
+    frames = torch.rand(1, 3, 64, 8)
+    disp = torch.rand(1, 1, 64 if declared else 32, 8)
+    with pytest.raises(ValueError, match="band of it is rows 0:32 of a 64-row map"):
+        total_loss(frames, [frames, frames], [[disp], [disp]], torch.zeros(1, 2, 6),
+                   torch.eye(3), mesh=mesh, banded=(declared,))
 
 
 def _step_ranks(runs, name):

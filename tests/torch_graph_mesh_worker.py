@@ -82,7 +82,7 @@ def static_vs_eager(mesh):
             state = _state()
             step = make_train_step(state, device="cpu", mesh=mesh, **worker.STEP_SETTINGS,
                                    **kwargs)
-            default.append(step.graphs is not None)
+            default.append(step.graphs.graphed)
             if static:
                 step.graphs = StepGraphs(CPU, capture=False)
             metrics = [step(b) for b in _batches(STEPS, seed=31)]
@@ -99,7 +99,7 @@ def static_vs_eager(mesh):
         state = _state()
         multi = make_multi_step(state, MULTI, mesh=mesh, device="cpu", loss_mode="min",
                                 **worker.STEP_SETTINGS)
-        default.append(multi.train_step.graphs is not None)
+        default.append(multi.train_step.graphs.graphed)
         if static:
             multi.train_step.graphs = StepGraphs(CPU, capture=False)
         batches = _batches(2 * MULTI, seed=32)
@@ -116,7 +116,7 @@ def static_vs_eager(mesh):
     for static in (False, True):
         step = make_eval_step(state.depth_model, state.pose_model, loss_mode="min",
                               eval_protocol="eigen", pose_metrics=True, mesh=mesh, device="cpu")
-        default.append(step.graphs is not None)
+        default.append(step.graphs.graphed)
         if static:
             step.graphs = StepGraphs(CPU, capture=False)
         steps.append(step)

@@ -26,6 +26,7 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.photometric import photometric_l
 from unsupervised_pseuso_lidar_tpu_torch.models.layers import BatchNorm2d
 from unsupervised_pseuso_lidar_tpu_torch.models.registry import build_model
 from unsupervised_pseuso_lidar_tpu_torch.ops.cuda import kernels
+from unsupervised_pseuso_lidar_tpu_torch.parallel import spatial
 from unsupervised_pseuso_lidar_tpu_torch.parallel.mesh import make_mesh
 from unsupervised_pseuso_lidar_tpu_torch.train import config as config_module
 from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
@@ -157,6 +158,21 @@ def step_result(state, metrics):
              if k.endswith(("running_mean", "running_var"))}
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
             "stats": stats}
+
+
+def placement(mesh, net, outs, height):
+    """Under a spatial mesh, what test_torch_spatial_zoo's
+    assert_declared_placement holds: (the placement depth net `net`
+    declares for its outputs on an image `height` rows tall
+    (banded_outputs), each of `outs`' row counts, and at each output's
+    scale this rank's band's and the whole map's row counts). None
+    otherwise."""
+    if not spatial.row_sharded(mesh):
+        return None
+    bands = [spatial.band(mesh, height, s) for s in net.scales]
+    return (net.banded_outputs(height), tuple(o.shape[2] for o in outs),
+            tuple(b.stop - b.start for b in bands),
+            tuple(-(-height // 2 ** s) for s in net.scales))
 
 
 def params_of(state):

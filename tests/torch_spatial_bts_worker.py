@@ -119,10 +119,15 @@ def train(weights, name, mesh=None, starts=None):
     every parameter by ±lr whatever its gradient's size, so two runs that
     part by one ulp at step 1 part by ~1e-2 at step 2); without them the
     steps follow each other and each result holds the state it started
-    from ("start")."""
+    from ("start"). Each result holds its step's first depth forward's
+    declared placement ("placement", torch_parallel_worker.placement)."""
     state = make_state(weights, name)
     step = make_train_step(state, device="cpu", mesh=mesh, loss_mode="min",
                            **worker.STEP_SETTINGS)
+    placed = []
+    state.depth_model.register_forward_hook(
+        lambda net, args, kwargs, outs: placed.append(
+            worker.placement(mesh, net, outs, kwargs.get("height"))), with_kwargs=True)
     out = []
     for i, batch in enumerate(step_batches(name)):
         if starts is not None:
@@ -130,7 +135,9 @@ def train(weights, name, mesh=None, starts=None):
                 getattr(state, part).load_state_dict(starts[i][part])
         else:
             start = {part: copy.deepcopy(getattr(state, part).state_dict()) for part in PARTS}
+        placed.clear()
         result = worker.step_result(state, step(batch))
+        result["placement"] = placed[0]
         if mesh is not None and mesh.rank != 0:
             result["grads"] = digest(result["grads"])
         if starts is None:
@@ -207,8 +214,9 @@ def resized(mesh, inputs):
 def stn(mesh, inputs):
     """StnDispNet with its STN and inputs["stn"]'s weights on this rank's
     band of its images (the whole without a mesh) -> (its output, every
-    rank's copy of the whole map; d band) of Σ output · cotangent (1/spatial
-    of it on each rank's copy: the gather's backward adds them)."""
+    rank's copy of the whole map; d band; its declared placement,
+    torch_parallel_worker.placement) of Σ output · cotangent (1/spatial of
+    it on each rank's copy: the gather's backward adds them)."""
     x, g, state = inputs["stn"]
     net = build_model("StnDispNet", device="cpu", use_stn=True, image_shape=STN_SHAPE)
     net.load_state_dict(state)
@@ -216,9 +224,10 @@ def stn(mesh, inputs):
         bind_spatial([net], mesh)
         g = g / mesh.spatial
     leaf = _rows(mesh, x, STN_SHAPE[0]).clone().requires_grad_()
-    y = net(leaf, STN_SHAPE[0])[0]
+    outs = net(leaf, STN_SHAPE[0])
+    y = outs[0]
     (y * g).sum().backward()
-    return y.detach(), leaf.grad
+    return y.detach(), leaf.grad, worker.placement(mesh, net, outs, STN_SHAPE[0])
 
 
 def ranks(mesh, weights, inputs, names, starts):

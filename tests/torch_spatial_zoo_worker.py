@@ -137,8 +137,9 @@ def forward(mesh, weights, name, inputs, train, dtype=torch.float32):
     """FORWARDS[name] on this rank's band of inputs' image (the whole
     image without a mesh), in train or eval mode, the model and its
     inputs in `dtype` -> (each output — a band of each scale: every scale
-    of these cases is banded — and the parameter gradients of Σ output ·
-    cotangent in train mode)."""
+    of these cases is banded —, the parameter gradients of Σ output ·
+    cotangent in train mode, and under a spatial mesh the outputs'
+    declared placement, torch_parallel_worker.placement)."""
     net, kwargs, key, height, _ = FORWARDS[name]
     x, cotangents = inputs[name]
     model = build_model(net, device="cpu", **kwargs)
@@ -151,14 +152,16 @@ def forward(mesh, weights, name, inputs, train, dtype=torch.float32):
         outs = model(_rows(mesh, x.to(dtype), height), height=height)
     else:
         outs = model(x.to(dtype))
+    placed = worker.placement(mesh, model, outs, height)
     if not train:
-        return [o.detach() for o in outs], None
+        return [o.detach() for o in outs], None, placed
     total = 0.0
     for scale, (o, g) in enumerate(zip(outs, cotangents)):
         total = total + (o * _rows(mesh, g.to(dtype), height, scale)).sum()
     total.backward()
     return ([o.detach() for o in outs],
-            {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None})
+            {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None},
+            placed)
 
 
 def transposed(mesh, inputs):

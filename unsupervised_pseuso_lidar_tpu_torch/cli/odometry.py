@@ -58,7 +58,7 @@ def main(argv=None, graph=None):
         load_oxts_packets_and_poses,
     )
     from unsupervised_pseuso_lidar_tpu_torch.train.config import load_config
-    from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+    from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
     from unsupervised_pseuso_lidar_tpu_torch.train.trainer import (
         Trainer,
         batch_to_device,
@@ -67,7 +67,8 @@ def main(argv=None, graph=None):
     from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    captured = graph_enabled(graph, device)
+    # before the data: graph=True on the CPU raises here
+    graphs = StepGraphs(device, graph=graph)
     config = load_config(args.config)
     config.action.from_scratch = False  # restore the latest checkpoint
     if args.checkpoint:
@@ -88,7 +89,7 @@ def main(argv=None, graph=None):
         drive = os.path.dirname(os.path.dirname(os.path.dirname(sample.tgt)))
         by_drive.setdefault(drive, []).append(i)
     batch_size = config.action.batch_size
-    graphs = StepGraphs(device, modules=[pose_model]) if captured else None
+    graphs.modules = (pose_model,)  # the weights its graph reads
 
     @torch.no_grad()
     def predict(batch):
@@ -104,7 +105,7 @@ def main(argv=None, graph=None):
             batch = collate([dataset.load_sample(i, with_groundtruth=False) for i in padded])
             moved = batch_to_device(batch, device)
             inputs = {k: moved[k] for k in ("tgt", "ref_imgs")}
-            poses = predict(inputs) if graphs is None else graphs(predict, inputs)
+            poses = graphs(predict, inputs)
             rel_pred.append(poses.float().cpu().numpy()[: len(chunk)])  # [b, 2, 6]
             rel_gt.append(batch["oxts"][: len(chunk)])
         return np.concatenate(rel_pred, axis=0), np.concatenate(rel_gt, axis=0)

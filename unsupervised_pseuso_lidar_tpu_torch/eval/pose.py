@@ -84,19 +84,18 @@ class PoseEvalStep:
     the device (trainer.batch_to_device), then `body` normalizes it, runs
     the pose net and takes the errors: on a CUDA device that body runs as
     CUDA graphs (train/graph.StepGraphs, one a batch signature), the
-    counterpart of JAX's jitted step; `graphs` is None where it runs
-    eagerly."""
+    counterpart of JAX's jitted step; elsewhere `graphs` runs it eagerly
+    (graphs.graphed is False)."""
 
     def __init__(self, pose_model: nn.Module, semi_sup_pose: bool = False,
                  device: str | torch.device = "cuda", graph: Optional[bool] = None):
-        from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+        from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
         from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 
         self.device = resolve_device(device)
         self.pose_model = pose_model
         self.semi_sup_pose = semi_sup_pose
-        self.graphs = (StepGraphs(self.device, modules=[pose_model])
-                       if graph_enabled(graph, self.device) else None)
+        self.graphs = StepGraphs(self.device, graph, modules=[pose_model])
 
     @torch.no_grad()
     def body(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -114,7 +113,7 @@ class PoseEvalStep:
 
         batch = batch_to_device(batch, self.device)
         self.pose_model.eval()
-        return self.body(batch) if self.graphs is None else self.graphs(self.body, batch)
+        return self.graphs(self.body, batch)
 
 
 def make_pose_eval_step(pose_model: nn.Module, semi_sup_pose: bool = False,
@@ -126,6 +125,6 @@ def make_pose_eval_step(pose_model: nn.Module, semi_sup_pose: bool = False,
     computes the same metrics from the pose forward its loss ran. With
     semi_sup_pose the "prediction" is the oxts itself, so every error is
     0 by construction. `graph` as the other steps take it
-    (train/graph.graph_enabled): None captures on a CUDA device, False
+    (train/graph.StepGraphs): None captures on a CUDA device, False
     runs eagerly, True on the CPU raises."""
     return PoseEvalStep(pose_model, semi_sup_pose, device, graph)

@@ -46,10 +46,11 @@ from unsupervised_pseuso_lidar_tpu_torch.ops.resample import resize_bilinear
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     band_weight,
+    banded_level,
+    banded_outputs,
     first_band,
     gather_band,
     halo,
-    is_band,
     level_rows,
     row_sharded,
 )
@@ -60,12 +61,13 @@ REPROJECTION_MODES = ("mean", "l1", "mse", "ssim")
 
 
 def _full_res_depth(depth: torch.Tensor, height: int, width: int,
-                    mesh=None, scale: int = 0) -> torch.Tensor:
+                    mesh=None, scale: int = 0, banded: bool | None = None) -> torch.Tensor:
     """[B, 1, h, w] (or [B, h, w]) scale-s depth -> [B, H, W].
 
     Under a mesh with a "spatial" axis the result is this rank's band of
     the image's rows. Where `depth` is this rank's band of the scale-s
-    map (parallel/spatial.is_band) and H a multiple of f = 2^s, the band
+    map (`banded`, as its net declares it; by default
+    parallel/spatial.banded_level) and H a multiple of f = 2^s, the band
     with one coarse row of halo above and below (parallel/spatial.halo,
     differentiable) is upsampled by the integer factor f and f rows are
     cropped at each end but at the image's border, where the slab's own
@@ -82,7 +84,7 @@ def _full_res_depth(depth: torch.Tensor, height: int, width: int,
     if not row_sharded(mesh):
         return resize_bilinear(depth, height, width)[:, 0]
     rows = band(mesh, height)
-    if not is_band(depth, mesh, height, scale):
+    if not (banded_level(mesh, height, scale) if banded is None else banded):
         return resize_bilinear(depth, height, width)[:, 0, rows]
     factor = 2 ** scale
     if height % factor:
@@ -127,6 +129,7 @@ def reprojection_loss(
     with_coverage: bool = False,
     mesh=None,
     scales: Sequence[int] | None = None,
+    banded: Sequence[bool] | None = None,
 ):
     """Bidirectional multi-scale reprojection loss.
 
@@ -144,6 +147,9 @@ def reprojection_loss(
         this rank's band of rows (module docstring).
       scales: each depth's scale (its map 2**scale times smaller than the
         image; by default 0, 1, 2, … in order), read under a spatial mesh.
+      banded: whether each depth is this rank's band of its map or the
+        whole map (its net's declared placement; by default
+        parallel/spatial.banded_outputs), read under a spatial mesh.
     Returns the scalar loss, or (loss, in-frame fraction of every job's
     samples) with with_coverage. Each scale's depth is upsampled to full
     resolution; the jobs are, per scale, ref0 -> tgt and ref1 -> tgt with
@@ -157,6 +163,7 @@ def reprojection_loss(
     rows = band(mesh, height)
     num_scales = len(depths[0])
     scales = range(num_scales) if scales is None else scales
+    banded = banded_outputs(mesh, height, scales) if banded is None else banded
     # the per-job transforms in fp64 (device-independent coordinates, see
     # warp_coords)
     t0 = pose_matrix(poses[:, 0].double())
@@ -165,8 +172,8 @@ def reprojection_loss(
 
     srcs, tgts, transforms, depth_maps, weights = [], [], [], [], []
     fwd_w = 1.0 / (2.0 * num_scales) / 2.0
-    for scale, scale_depth in zip(scales, depths[0]):
-        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale)
+    for scale, on_band, scale_depth in zip(scales, banded, depths[0]):
+        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale, on_band)
         for ref, transform in ((refs[0], t0), (refs[1], t1)):
             srcs.append(ref)
             tgts.append(tgt[:, :, rows])
@@ -174,11 +181,11 @@ def reprojection_loss(
             depth_maps.append(depth_full)
             weights.append(fwd_w)
     bwd_w = 1.0 / (2.0 * num_scales)
-    for scale, scale_depth in zip(scales, depths[1]):
+    for scale, on_band, scale_depth in zip(scales, banded, depths[1]):
         srcs.append(tgt)
         tgts.append(refs[0][:, :, rows])
         transforms.append(t0_inv)
-        depth_maps.append(_full_res_depth(scale_depth, height, width, mesh, scale))
+        depth_maps.append(_full_res_depth(scale_depth, height, width, mesh, scale, on_band))
         weights.append(bwd_w)
 
     jobs = len(srcs)
@@ -216,6 +223,7 @@ def min_reprojection_loss(
     with_coverage: bool = False,
     mesh=None,
     scales: Sequence[int] | None = None,
+    banded: Sequence[bool] | None = None,
 ):
     """monodepth2-style per-pixel minimum over the two references, with
     the joint-min automask: per pixel min(min_r reproj_r, min_r ident_r ·
@@ -231,8 +239,10 @@ def min_reprojection_loss(
         backward leg (tgt warped into ref0's frame with the inverted pose,
         automasked against the same identity pair) averaged with the
         forward direction.
-      scales: each depth's scale (by default 0, 1, 2, … in order), read
-        under a spatial mesh.
+      scales: each depth's scale (by default 0, 1, 2, … in order) and
+        banded, whether each is this rank's band of its map or the whole
+        map (its net's declared placement; by default
+        parallel/spatial.banded_outputs), read under a spatial mesh.
     Returns (the scalar loss, mean over scales; automask_keep, the
     fraction of pixels whose warp error wins the joint min — the pixels
     that still carry photometric gradient — the two directions averaged,
@@ -281,11 +291,13 @@ def min_reprojection_loss(
     total = torch.zeros((), dtype=tgt.dtype, device=tgt.device)
     keeps, in_frame = [], []
     scales = range(len(depths)) if scales is None else scales
-    for i, (scale, scale_depth) in enumerate(zip(scales, depths)):
-        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale)
+    banded = banded_outputs(mesh, height, scales) if banded is None else banded
+    for i, (scale, on_band, scale_depth) in enumerate(zip(scales, banded, depths)):
+        depth_full = _full_res_depth(scale_depth, height, width, mesh, scale, on_band)
         depth_maps = [depth_full, depth_full]
         if bidirectional:
-            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh, scale))
+            depth_maps.append(_full_res_depth(depths_ref0[i], height, width, mesh, scale,
+                                              on_band))
         coords = warp_coords(torch.cat(depth_maps, dim=0), transform, k_tiled,
                              row_start=rows.start, height=height)
         if with_coverage:

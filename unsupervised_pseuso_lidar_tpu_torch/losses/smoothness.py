@@ -11,8 +11,8 @@ from typing import Sequence
 import torch
 
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    banded_outputs,
     halo,
-    is_band,
     level_rows,
     row_sharded,
 )
@@ -55,25 +55,27 @@ def _banded_terms(band: torch.Tensor, mesh, image_rows: int, rows_of_bands):
 def smooth_loss(
     pred_maps: Sequence[torch.Tensor] | torch.Tensor, decay: float = 2.3, mesh=None,
     height: int | None = None, scales: Sequence[int] | None = None,
+    banded: Sequence[bool] | None = None,
 ) -> torch.Tensor:
     """Sum over scales (finest first, weights 1, 1/decay, 1/decay², …) of
     the mean absolute second-order differences dx², dxdy, dydx, dy².
     Under a mesh with a "spatial" axis map i is of scale scales[i] (by
     default i) of an image `height` rows tall (ceil(height / 2**scale)
-    rows whole): this rank's band of its rows, each mean its share
-    (_banded_terms), or the whole map (parallel/spatial.is_band: a scale
-    that is not banded, StnDispNet's 16·ceil(H/16) rows), each of whose
-    means every rank takes whole — their mean over the ranks is the
-    image's."""
+    rows whole): where banded[i] (its net's declared placement; by
+    default spatial.banded_outputs) this rank's band of its rows, each
+    mean its share (_banded_terms), or else the whole map (a scale that
+    is not banded, StnDispNet's 16·ceil(H/16) rows), each of whose means
+    every rank takes whole — their mean over the ranks is the image's."""
     if not isinstance(pred_maps, (tuple, list)):
         pred_maps = [pred_maps]
     if row_sharded(mesh) and height is None:
         raise ValueError("smooth_loss under a spatial mesh needs the image's height")
     scales = range(len(pred_maps)) if scales is None else scales
+    banded = banded_outputs(mesh, height, scales) if banded is None else banded
     loss = torch.zeros((), dtype=pred_maps[0].dtype, device=pred_maps[0].device)
     weight = 1.0
-    for scale, scaled_map in zip(scales, pred_maps):
-        if is_band(scaled_map, mesh, height, scale):
+    for scale, on_band, scaled_map in zip(scales, banded, pred_maps):
+        if on_band:
             image_rows = -(-height // 2 ** scale)
             loss = loss + weight * _banded_terms(scaled_map, mesh, image_rows,
                                                  level_rows(mesh, height, scale))

@@ -17,7 +17,11 @@ from unsupervised_pseuso_lidar_tpu_torch.losses.reprojection import (
     reprojection_loss,
 )
 from unsupervised_pseuso_lidar_tpu_torch.losses.smoothness import smooth_loss
-from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import is_band, row_sharded
+from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    banded_outputs,
+    check_placement,
+    row_sharded,
+)
 
 
 def normalize_depth(depth: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -63,6 +67,7 @@ def total_loss(
     with_coverage: bool = False,
     mesh=None,
     scales: Sequence[int] | None = None,
+    banded: Sequence[bool] | None = None,
 ):
     """(reprojection_loss, smooth_weight · smoothness_loss, extra): extra
     holds {"automask_keep": fraction} in 'min' mode (min_reprojection_loss)
@@ -85,9 +90,8 @@ def total_loss(
         step's all-reduce of the metrics and gradients makes global. With
         a "spatial" axis tgt and refs are the whole frames and each
         disparity this rank's band of its scale's rows (parallel/
-        spatial.band), or the whole map where its scale is not banded or
-        the net's map is not the image's pyramid size (parallel/
-        spatial.is_band: its terms are then taken whole on every rank):
+        spatial.band), or the whole map where its net declares it whole
+        (`banded`; its terms are then taken whole on every rank):
         the reductions that cross the band's edges — SSIM windows,
         vertical smoothness differences, depth_norm's per-image mean, a
         coarse scale's upsample — exchange rows or sums with the other
@@ -97,38 +101,45 @@ def total_loss(
         the image (trainer.depth_scales: BtsModel's five outputs are all
         at scale 0); by default 0, 1, 2, … in order. Read under a spatial
         mesh only.
+      banded: whether each disparity (of both frames) is this rank's band
+        of its map or the whole map, as the depth net declares it
+        (layers.Banded.banded_outputs; by default spatial.banded_outputs).
+        Read under a spatial mesh only, where a map of other rows raises
+        ValueError (spatial.check_placement).
     """
     height = tgt.shape[2]
     scales = tuple(range(len(disparities[0]))) if scales is None else tuple(scales)
-    # a map of the wrong rows raises here, before any exchange
-    banded = [[is_band(d, mesh, height, scale) for scale, d in zip(scales, frame)]
-              for frame in disparities]
+    banded = banded_outputs(mesh, height, scales) if banded is None else banded
+    if row_sharded(mesh):
+        # a map of the wrong rows raises here, before any exchange
+        for frame in disparities:
+            for scale, on_band, d in zip(scales, banded, frame):
+                check_placement(d, mesh, height, scale, on_band)
     depths = [[disp_to_depth(d) for d in frame] for frame in disparities]
     if depth_norm:
         depths = [[normalize_depth(d, mesh if on_band else None)
-                   for on_band, d in zip(frame_banded, frame)]
-                  for frame_banded, frame in zip(banded, depths)]
+                   for on_band, d in zip(banded, frame)] for frame in depths]
     extra = {}
     if mode == "min":
         loss_reproj, extra["automask_keep"], *in_frame = min_reprojection_loss(
             tgt, refs, depths[0], poses, intrinsics, warp_impl=warp_impl,
             ident_scale=ident_scale, no_ssim=no_ssim,
             depths_ref0=depths[1] if min_bidirectional else None,
-            with_coverage=with_coverage, mesh=mesh, scales=scales,
+            with_coverage=with_coverage, mesh=mesh, scales=scales, banded=banded,
         )
     else:
         result = reprojection_loss(tgt, refs, depths, poses, intrinsics, mode=mode,
                                    warp_impl=warp_impl, with_coverage=with_coverage,
-                                   mesh=mesh, scales=scales)
+                                   mesh=mesh, scales=scales, banded=banded)
         loss_reproj, *in_frame = result if with_coverage else (result,)
     if with_coverage:
         extra["warp_in_frame"] = in_frame[0]
     if smooth_on == "depth":
         loss_smooth = smooth_loss(depths[0], decay=smooth_decay, mesh=mesh, height=height,
-                                  scales=scales)
+                                  scales=scales, banded=banded)
     elif smooth_on == "disp":
         loss_smooth = smooth_loss(disparities[0], decay=smooth_decay, mesh=mesh,
-                                  height=height, scales=scales)
+                                  height=height, scales=scales, banded=banded)
     else:
         raise ValueError(f"smooth_on must be 'depth' or 'disp', got {smooth_on}")
     return loss_reproj, smooth_weight * loss_smooth, extra

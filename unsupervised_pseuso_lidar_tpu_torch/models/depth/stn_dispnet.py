@@ -106,7 +106,9 @@ class StnDispNet(Banded, nn.Module):
     """Returns [disp] ([B, 1, H', W'], H' = 16·⌈⌈⌈⌈H/2⌉/2⌉/2⌉/2⌉); under a
     spatial mesh its band of the rows, or where H' is not H the whole map
     on every rank (the loss resizes it to the image's rows as a whole:
-    no integer factor)."""
+    no integer factor; banded_outputs)."""
+
+    scales = (0,)
 
     def __init__(self, use_stn: bool = False,
                  image_shape: Tuple[int, int] = REFERENCE_SHAPE):
@@ -169,11 +171,23 @@ class StnDispNet(Banded, nn.Module):
         for i in range(4):
             out = getattr(self, f"upconv_{i + 1}")(out)
         disp = self.predict(out)
-        if spatial.row_sharded(self.mesh) and height % 2 ** DEPTH_LEVELS:
+        if self._gathers_output(height):
             # the last band runs to the decoder's last row
             rows = 2 ** DEPTH_LEVELS * -(-height // 2 ** DEPTH_LEVELS)
             disp = spatial.gather_band(disp, self.mesh, height, total=rows)
         return [disp]
+
+    def _gathers_output(self, height: Optional[int]) -> bool:
+        """Whether forward gathers its output whole for an image `height`
+        rows tall: under a spatial mesh, where H' is not H (H no multiple
+        of 16)."""
+        return spatial.row_sharded(self.mesh) and height % 2 ** DEPTH_LEVELS != 0
+
+    def banded_outputs(self, height: int) -> Tuple[bool, ...]:
+        """(True,) where forward returns this rank's band of its output,
+        (False,) where it returns the whole map (_gathers_output, or no
+        spatial axis): layers.Banded.banded_outputs."""
+        return (spatial.row_sharded(self.mesh) and not self._gathers_output(height),)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init with the JAX model's distributions: torch-default

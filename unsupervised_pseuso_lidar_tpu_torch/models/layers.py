@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +51,7 @@ from torch import nn
 
 from unsupervised_pseuso_lidar_tpu_torch.ops.resample import reflect_pad1
 from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
+    banded_outputs,
     first_band,
     halo,
     halo_reach,
@@ -224,6 +226,16 @@ class Banded:
     def band_rows(self):
         """Every band's row count at this module's level (the halo's)."""
         return level_rows(self.mesh, self.height, self.level)
+
+    def banded_outputs(self, height: int) -> Tuple[bool, ...]:
+        """Of a depth net: whether each of its outputs, for an image
+        `height` rows tall under its mesh, is this rank's band of the map's
+        rows (True) or the whole map, every rank's copy (False) — what the
+        losses take each for. By default output i is a band iff the level
+        of its scale is banded (spatial.banded_outputs of the net's
+        `scales`); all whole without a spatial axis. StnDispNet overrides
+        it."""
+        return banded_outputs(self.mesh, height, self.scales)
 
 
 def set_image_height(net: nn.Module, x: torch.Tensor, height) -> None:

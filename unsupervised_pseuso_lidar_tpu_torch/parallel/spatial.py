@@ -26,8 +26,10 @@ functions:
     are given, for the image height the net's forward is given. A coarse
     map whose resize to the image is no integer factor is gathered,
     resized whole and cut back the same way (losses/reprojection.py,
-    StnDispNet's output), and `is_band` tells the loss which of its
-    inputs are bands and which whole maps;
+    StnDispNet's output). Which of a net's outputs are bands and which
+    whole maps its net declares (layers.Banded.banded_outputs, by default
+    `banded_outputs`), and the loss takes that declaration
+    (`check_placement` holds each map to it);
   * `gather_rows` assembles whole images on every rank of a data row
     (data frames, no gradient): the warp's source frames, the pose net's
     input and the evaluation's and the pictures' depth maps
@@ -170,28 +172,34 @@ def placed(x: torch.Tensor, mesh: Optional[Mesh], height: Optional[int],
     return cut_band(x, mesh, height, level)
 
 
-def is_band(x: torch.Tensor, mesh: Optional[Mesh], height: int, level: int,
-            dim: int = 2) -> bool:
-    """Whether x, a depth net's level-`level` output for an image `height`
-    rows tall, is this rank's band of the map's rows (band(mesh, height,
-    level)) rather than the whole map, every rank's copy: a band where the
-    level is banded and x holds the band's rows; the whole map where the
-    level is not banded, or where the net's map is not the image's
-    pyramid size (StnDispNet's 16·ceil(H/16) rows, gathered by the net).
-    A band of a banded level holds fewer rows than the whole map (each
-    band holds one at least). False without a spatial axis; ValueError
-    for a map that is neither."""
-    if not row_sharded(mesh):
-        return False
-    count = x.shape[dim]
+def banded_outputs(mesh: Optional[Mesh], height: int,
+                   scales: Sequence[int]) -> Tuple[bool, ...]:
+    """The default placement of a depth net's outputs of `scales` for an
+    image `height` rows tall: output i is this rank's band of its map's
+    rows (band(mesh, height, scales[i])) iff its level is banded
+    (banded_level), else the whole map, every rank's copy; all whole
+    without a spatial axis. What layers.Banded.banded_outputs declares
+    unless a net overrides it, and what the losses take where they are
+    not told."""
+    return tuple(banded_level(mesh, height, scale) for scale in scales)
+
+
+def check_placement(x: torch.Tensor, mesh: Mesh, height: int, level: int,
+                    banded: bool) -> None:
+    """Raise ValueError where x [B, C, R, W], a depth net's level-`level`
+    output for an image `height` rows tall under a spatial mesh, does not
+    hold the rows its net declares: this rank's band's
+    (band(mesh, height, level)) where `banded`, at least the whole map's
+    (ceil(height / 2**level); StnDispNet's 16·ceil(H/16)) where whole. A
+    band of a banded level holds fewer rows than the whole map."""
+    count = x.shape[2]
     rows = band(mesh, height, level)
-    if banded_level(mesh, height, level) and count == rows.stop - rows.start:
-        return True
-    if count >= -(-height // 2 ** level):
-        return False
-    raise ValueError(f"a level-{level} map of {count} rows under the spatial mesh: this "
-                     f"rank's band of it is rows {rows.start}:{rows.stop} of a "
-                     f"{-(-height // 2 ** level)}-row map")
+    whole = -(-height // 2 ** level)
+    if (count == rows.stop - rows.start) if banded else (count >= whole):
+        return
+    raise ValueError(f"a level-{level} map of {count} rows under the spatial mesh, "
+                     f"declared {'a band' if banded else 'whole'}: this rank's band of it "
+                     f"is rows {rows.start}:{rows.stop} of a {whole}-row map")
 
 
 def first_band(mesh: Mesh) -> bool:

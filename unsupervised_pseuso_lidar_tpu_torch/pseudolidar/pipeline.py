@@ -51,7 +51,7 @@ from unsupervised_pseuso_lidar_tpu_torch.pseudolidar.projector import (
     PseudoLiDAR,
     partition_kept,
 )
-from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import annotate
 from unsupervised_pseuso_lidar_tpu_torch.utils.transforms import load_image
@@ -102,7 +102,7 @@ class DepthToPointCloudPipeline:
       projector: a PseudoLiDAR bound to the same device.
       graph: None runs the program as CUDA graphs where capture applies
         (a CUDA device), else eagerly; False eagerly; True as graphs,
-        and a ValueError on the CPU (train/graph.graph_enabled). Per batch
+        and a ValueError on the CPU (train/graph.StepGraphs). Per batch
         shape the first call runs eagerly, the second captures, the rest
         replay; the graphs have a memory pool of their own. A capture or
         replay that fails raises: nothing falls back to eager.
@@ -125,16 +125,14 @@ class DepthToPointCloudPipeline:
             )
         self.projector = projector
         self._fused = make_depth_cloud_fn(depth_fn, projector)
-        self.graphs = (StepGraphs(self.device, modules=[self._fused])
-                       if graph_enabled(graph, self.device) else None)
+        self.graphs = StepGraphs(self.device, graph, modules=[self._fused])
         self.card_compactions = 0
         self.kept_points = 0
 
     def reset(self) -> None:
         """Drop the graphs: the next frame of each batch shape runs eagerly
         again, the one after captures anew (StepGraphs.reset)."""
-        if self.graphs is not None:
-            self.graphs.reset()
+        self.graphs.reset()
 
     @torch.no_grad()
     def _body(self, inputs):
@@ -155,7 +153,7 @@ class DepthToPointCloudPipeline:
         shape is captured; on CUDA the host then waits for its outputs (the
         first pageable copy would block on the same work)."""
         inputs = {"img": torch.as_tensor(imgs, dtype=torch.float32)}
-        outputs = body(inputs) if self.graphs is None else self.graphs(body, inputs)
+        outputs = self.graphs(body, inputs)
         if self.device.type == "cuda":
             with annotate("pseudolidar.wait"):
                 torch.cuda.current_stream(self.device).synchronize()

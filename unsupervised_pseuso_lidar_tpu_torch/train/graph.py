@@ -6,14 +6,17 @@ make_eval_step :480). XLA compiles a step into one program that the
 device runs whole; on the card the counterpart is a CUDA graph, the
 step's kernels captured once and replayed with one launch. TrainStep,
 make_multi_step and EvalStep (train/trainer.py) run their bodies through
-StepGraphs on a CUDA device without a mesh or under an NCCL mesh
-(graph_enabled), and so does
-serving, the counterpart of JAX's jitted serving function
-(pseudolidar/pipeline.py :99): DepthToPointCloudPipeline's depth -> cloud
-program, the pose-only eval step (eval/pose.py :154) and cli.odometry's
-pose forward (cli/odometry.py :69). A serving body runs under
-torch.no_grad and returns a tuple of tensors; each pipeline and each
-pose step has its graphs and its pool of its own.
+a StepGraphs, and so does serving, the counterpart of JAX's jitted
+serving function (pseudolidar/pipeline.py :99): DepthToPointCloudPipeline's
+depth -> cloud program, the pose-only eval step (eval/pose.py :154) and
+cli.odometry's pose forward (cli/odometry.py :69). Each caller hands its
+StepGraphs the `graph` and the mesh it was given, and StepGraphs alone
+decides whether the body is captured (graph_enabled): on a CUDA device
+without a mesh or under an NCCL mesh by default. Where nothing is
+captured (the CPU, a gloo mesh, graph=False) every call runs the body
+eagerly, as it is. A serving body runs under torch.no_grad and returns
+a tuple of tensors; each pipeline and each pose step has its graphs and
+its pool of its own.
 
 A body is a function of a flat dict of tensors: the batch's arrays and the
 step's host values as tensors (the automask warm-up scale, the learning
@@ -58,7 +61,11 @@ With capture=False (the CPU) the same protocol runs the body on the
 static buffers instead of capturing it: what the CPU tests hold against
 the eager step, bit for bit.
 
-Under a torch.profiler session a call records its spans
+`on_eager` is entered around a signature's first call whether or not
+the body is captured: the train step counts the bytes saved for its
+backward there, once a signature.
+
+Under a torch.profiler session a call of a graphed body records its spans
 (utils/profiling.annotate): `graph.check_weights` (the modules' storage
 checked once a graph exists), `graph.eager` and `graph.capture` (a
 signature's first and second calls), `graph.copy_in` (the inputs copied
@@ -157,6 +164,17 @@ def _moved(storage: list) -> bool:
     return False
 
 
+def _signature(body: Body, inputs: Dict[str, Any], static: tuple) -> tuple:
+    """What a body's graph is keyed by: the body, the caller's static
+    values, the backend flags that choose its kernels and its inputs'
+    keys, shapes and dtypes (module docstring)."""
+    backends = torch.backends
+    return (getattr(body, "__qualname__", None), static, backends.cudnn.allow_tf32,
+            backends.cuda.matmul.allow_tf32, backends.cudnn.deterministic,
+            backends.cudnn.benchmark,
+            *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+
+
 def _copy_in(static: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor]) -> None:
     """Copy a call's inputs into a graph's static buffers."""
     with annotate("graph.copy_in"):
@@ -179,23 +197,37 @@ class Captured:
 
 class StepGraphs:
     """body(inputs) as CUDA graphs, one per signature of `inputs` (module
-    docstring). `pool` is the graphs' private memory pool
+    docstring), where the step's `graph` and `mesh` say that capture
+    applies (graph_enabled, which raises for graph=True where it does
+    not); eagerly at every call otherwise. capture=False runs the graph
+    protocol on static buffers without capturing (the CPU tests' seam).
+    `pool` is the graphs' private memory pool
     (torch.cuda.graph_pool_handle()): steps that never run at the same
-    time share one (a Trainer's train and eval steps); None makes one at
-    the first capture. `modules`: the modules whose parameters and
-    buffers the body reads, checked before every call once a graph
-    exists (module docstring)."""
+    time share one (a Trainer's train and eval steps); None makes one
+    where the body is captured, and leaves it None elsewhere. `modules`:
+    the modules whose parameters and buffers the body reads, checked
+    before every call once a graph exists (module docstring)."""
 
-    def __init__(self, device: torch.device, pool=None, capture: bool = True,
-                 modules: Sequence[nn.Module] = ()):
+    def __init__(self, device: torch.device, graph: Optional[bool] = None, mesh=None,
+                 pool=None, capture: bool = True, modules: Sequence[nn.Module] = ()):
         self.device = torch.device(device)
         self.capture = capture
+        self._graphed = graph_enabled(graph, self.device, mesh) or not capture
+        if pool is None and self._graphed and capture:
+            pool = torch.cuda.graph_pool_handle()
         self.pool = pool
         self.modules = tuple(modules)
         self.graphs: Dict[tuple, Captured] = {}
         self.replays = 0  # graph launches so far
         self._warm: set = set()
         self._storage: Optional[list] = None
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the body runs as graphs (captured and replayed, or on
+        static buffers with capture=False) rather than eagerly at every
+        call."""
+        return self._graphed
 
     def reset(self) -> None:
         """Drop every graph: the next call of each signature runs eagerly
@@ -211,7 +243,9 @@ class StepGraphs:
         `inputs`, as jit's static arguments; each tuple of values has
         graphs of its own. `on_eager`: a context manager's factory, entered
         around a signature's first, eager call alone (the train step counts
-        the bytes saved for its backward there)."""
+        the bytes saved for its backward there), captured or not."""
+        if not self._graphed:
+            return self._uncaptured(body, inputs, static, on_eager)
         if self.graphs:
             with annotate("graph.check_weights"):
                 moved = _moved(self._storage)
@@ -223,11 +257,7 @@ class StepGraphs:
                     "reset() first")
         inputs = {k: v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
                   for k, v in inputs.items()}
-        backends = torch.backends
-        key = (getattr(body, "__qualname__", None), static, backends.cudnn.allow_tf32,
-               backends.cuda.matmul.allow_tf32, backends.cudnn.deterministic,
-               backends.cudnn.benchmark,
-               *sorted((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+        key = _signature(body, inputs, static)
         if key not in self._warm:
             with annotate("graph.eager"), (on_eager or contextlib.nullcontext)():
                 outputs = self._eager(body, inputs, static)
@@ -249,6 +279,18 @@ class StepGraphs:
         kernels.add_launches(captured.launches)
         with annotate("graph.clone_out"):
             return _map(torch.clone, captured.outputs)
+
+    def _uncaptured(self, body: Body, inputs: Dict[str, Any], static: tuple,
+                    on_eager: Optional[Callable[[], ContextManager]]) -> Any:
+        """body(inputs, *static) as it is, with no buffer, copy or span of
+        its own; on_eager entered around a signature's first call."""
+        if on_eager is not None:
+            key = _signature(body, inputs, static)
+            if key not in self._warm:
+                self._warm.add(key)
+                with on_eager():
+                    return body(inputs, *static)
+        return body(inputs, *static)
 
     def _eager(self, body: Body, inputs: Dict[str, torch.Tensor], args: tuple) -> Any:
         if not self.capture:
@@ -272,8 +314,6 @@ class StepGraphs:
         _copy_in(static, inputs)
         if not self.capture:
             return Captured(None, static, None, {}, 0.0)
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         # thread_local: a loader thread's pinned allocations may go on

@@ -80,7 +80,6 @@ from unsupervised_pseuso_lidar_tpu_torch.parallel.spatial import (
     band,
     check_height,
     gather_rows,
-    is_band,
     row_sharded,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
@@ -90,7 +89,7 @@ from unsupervised_pseuso_lidar_tpu_torch.train.checkpoint import (
     place_optimizer,
 )
 from unsupervised_pseuso_lidar_tpu_torch.train.config import Config
-from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs, graph_enabled
+from unsupervised_pseuso_lidar_tpu_torch.train.graph import StepGraphs
 from unsupervised_pseuso_lidar_tpu_torch.utils.device import constant, resolve_device
 from unsupervised_pseuso_lidar_tpu_torch.utils.numerics import abs_
 from unsupervised_pseuso_lidar_tpu_torch.utils.profiling import (
@@ -164,17 +163,9 @@ def sharded_height(mesh: Optional[Mesh], batch: Dict) -> Optional[int]:
 def depth_scales(model: Optional[nn.Module]) -> Tuple[int, ...]:
     """The scale of each output of a depth net (its map 2**scale times
     smaller than the image): its `scales` (DispResNet's one or four,
-    DispNetS's four, BtsModel's five full-resolution maps), (0,) for a
-    net that does not say (StnDispNet)."""
+    DispNetS's four, StnDispNet's one, BtsModel's five full-resolution
+    maps), (0,) for a net that does not say."""
     return tuple(getattr(model, "scales", (0,)))
-
-
-def whole_rows(x: torch.Tensor, mesh: Optional[Mesh], height: int) -> torch.Tensor:
-    """A full-resolution map [B, R, W] of a depth net's output -> the
-    whole map: gathered from the bands where it is this rank's band
-    (gather_rows, no gradient), itself where the net returned it whole
-    (StnDispNet's 16·ceil(H/16) rows)."""
-    return gather_rows(x, mesh, 1, height) if is_band(x, mesh, height, 0, 1) else x
 
 
 def normalize_uint8_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -590,13 +581,11 @@ class TrainStep:
         self.aug_seed = aug_seed
         self.precision = precision
         self.with_coverage = with_coverage
-        self.graphs = (StepGraphs(self.device, pool)
-                       if graph_enabled(graph, self.device, mesh) else None)
+        self.graphs = StepGraphs(self.device, graph, mesh, pool)
         self._captured_state: List = []
         # bytes saved for the backward by the latest eager call of a new
         # signature (counting_saved); None until the first step
         self.saved_bytes: Optional[int] = None
-        self._counted: set = set()  # signatures counted without graphs
 
     def _ident_scale(self, step: int) -> float:
         if not (self.automask_warmup and self.loss_mode == "min"):
@@ -607,12 +596,12 @@ class TrainStep:
         """(loss, reproj, smooth, extra) of one normalized (micro-)batch,
         which carries the step's automask scale as "ident_scale"."""
         state = self.state
+        height = batch["tgt"].shape[2]
         with torch.autocast(self.device.type, torch.bfloat16,
                             enabled=self.precision == "bf16", cache_enabled=False):
             disps_tgt, disps_ref0, poses = forward_batch(
                 state.depth_model, state.pose_model, batch, train=True,
-                semi_sup_pose=self.semi_sup_pose,
-                rows=band(self.mesh, batch["tgt"].shape[2]),
+                semi_sup_pose=self.semi_sup_pose, rows=band(self.mesh, height),
             )
         disps_tgt = [d.float() for d in disps_tgt]
         disps_ref0 = [d.float() for d in disps_ref0]
@@ -625,6 +614,7 @@ class TrainStep:
             min_bidirectional=self.min_bidirectional,
             with_coverage=self.with_coverage, mesh=self.mesh,
             scales=depth_scales(state.depth_model),
+            banded=state.depth_model.banded_outputs(height),
         )
         loss = reproj + smooth
         if self.supervised_weight and "groundtruth" in batch:
@@ -708,7 +698,7 @@ class TrainStep:
         ), state.depth_model, height))
         aug = (AugmentParams(host["aug_add"], host["aug_scale"], host["aug_flip"])
                if "aug_add" in host else None)
-        state.optimizer.zero_grad(set_to_none=self.graphs is None)
+        state.optimizer.zero_grad(set_to_none=not self.graphs.graphed)
         # micro-batch i is rows [i·mb, (i+1)·mb), the JAX reshape's order
         chunks = {k: v.chunk(self.accum_steps) for k, v in batch.items()}
         sums: Dict[str, torch.Tensor] = {}
@@ -741,18 +731,12 @@ class TrainStep:
 
     def run(self, body: Callable, inputs: Dict, height: Optional[int] = None
             ) -> Dict[str, torch.Tensor]:
-        """body(inputs, height), through the step's CUDA graphs when it has
-        them (the height is a graph key). The graphs hold the optimizer's
-        state and the gradients where they were captured: a state loaded in
-        their place drops them."""
-        if self.graphs is None:
-            signature = (height, *sorted((k, tuple(v.shape), str(v.dtype))
-                                         for k, v in inputs.items()))
-            if signature in self._counted:
-                return body(inputs, height)
-            self._counted.add(signature)
-            with self.counting_saved():
-                return body(inputs, height)
+        """body(inputs, height) through the step's graphs (StepGraphs:
+        captured where capture applies, the height a graph key), with
+        counting_saved around each signature's first call. The graphs hold
+        the optimizer's state and the gradients where they were captured:
+        a state loaded in their place drops them, and the signatures
+        counted with them."""
         held = self._graph_state()
         if (len(held) != len(self._captured_state)
                 or any(a is not b for a, b in zip(held, self._captured_state))):
@@ -769,7 +753,7 @@ class TrainStep:
         saved_bytes and the counter SAVED_BYTES, and the one-pass
         BatchNorm2d calls (one_pass_calls) into the counter BN_ONE_PASS.
         run() enters it around each signature's first call, the eager one,
-        and around no other: a replay runs no host code. Under remat the
+        captured or not, and around no other: a replay runs no host code. Under remat the
         checkpoint's own hooks take the loss's tensors, so what it keeps is
         what counts; with accumulation every micro-batch's saved storages
         add up."""
@@ -932,8 +916,7 @@ class EvalStep:
         self.median_scale = median_scale or self.eigen
         self.pose_metrics = pose_metrics
         self.semi_sup_pose = semi_sup_pose
-        self.graphs = (StepGraphs(self.device, pool)
-                       if graph_enabled(graph, self.device, mesh) else None)
+        self.graphs = StepGraphs(self.device, graph, mesh, pool)
 
     @torch.no_grad()
     def loss_inputs(self, batch: Dict, height: Optional[int] = None) -> Dict:
@@ -971,6 +954,7 @@ class EvalStep:
             inputs["tgt"], inputs["refs"], inputs["disparities"],
             inputs["poses"], inputs["intrinsics"], mode=self.loss_mode,
             depth_norm=self.depth_norm, mesh=self.mesh, scales=depth_scales(self.depth_model),
+            banded=self.depth_model.banded_outputs(inputs["tgt"].shape[2]),
         )
         return reproj + smooth
 
@@ -998,8 +982,6 @@ class EvalStep:
             batch = shard_batch(self.mesh, batch)
         height = sharded_height(self.mesh, batch)
         batch = {k: batch[k] for k in BATCH_KEYS if k in batch}
-        if self.graphs is None:
-            return self.body(batch, height)
         return self.graphs(self.body, batch, static=(height,))
 
     @torch.no_grad()
@@ -1011,7 +993,9 @@ class EvalStep:
         depth_pred = disp_to_depth(inputs["disparities"][0][0][:, 0])
         if row_sharded(self.mesh):
             height = inputs["tgt"].shape[2]
-            depth_pred = whole_rows(depth_pred, self.mesh, height)
+            # the whole map: gathered where the net returned its band
+            if self.depth_model.banded_outputs(height)[0]:
+                depth_pred = gather_rows(depth_pred, self.mesh, 1, height)
             if "groundtruth" in inputs:
                 inputs["groundtruth"] = gather_rows(inputs["groundtruth"], self.mesh, 1,
                                                     height)
@@ -1067,9 +1051,9 @@ class Trainer:
     data row join it in the pictures' banded forward (fit, log_warps).
 
     `graph` is the steps' (TrainStep): on a CUDA device without a mesh
-    or under an NCCL mesh they run as CUDA graphs by default, the train
-    and eval graphs in one memory pool (they never run at the same
-    time)."""
+    or under an NCCL mesh they run as CUDA graphs by default, the eval
+    graphs in the train step's memory pool (the two never run at the
+    same time)."""
 
     def __init__(
         self,
@@ -1098,10 +1082,8 @@ class Trainer:
         if mesh is not None:
             shard_train_state(mesh, self.state)
         aug = config.datasets.augmentation
-        pool = (torch.cuda.graph_pool_handle()
-                if graph_enabled(graph, self.device, mesh) else None)
         self.train_step = make_train_step(
-            self.state, device=self.device, mesh=mesh, graph=graph, pool=pool,
+            self.state, device=self.device, mesh=mesh, graph=graph,
             loss_mode=act.loss_mode,
             semi_sup_pose=act.semi_sup_pose, smooth_weight=act.smooth_weight,
             smooth_on=act.smooth_on, depth_norm=act.depth_norm,
@@ -1120,7 +1102,7 @@ class Trainer:
             precision=act.precision, median_scale=act.eval_median_scale,
             eval_protocol=act.eval_protocol, pose_metrics=act.eval_pose,
             semi_sup_pose=act.semi_sup_pose, mesh=mesh, device=self.device,
-            graph=graph, pool=pool,
+            graph=graph, pool=self.train_step.graphs.pool,
         )
         self.checkpoints = CheckpointManager(
             os.path.join(act.checkpoint_dir, config.model.name)
@@ -1214,7 +1196,8 @@ class Trainer:
             )
         depth = disp_to_depth(disps_tgt[0][:1, 0].float())
         if sharded:
-            depth = whole_rows(depth, self.mesh, height)
+            if self.state.depth_model.banded_outputs(height)[0]:
+                depth = gather_rows(depth, self.mesh, 1, height)
             if self.mesh.rank != 0:
                 return None
         warped = inverse_warp(batch["ref_imgs"][:1, 0], depth, poses[:1, 0].float(),
